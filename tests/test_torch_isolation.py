@@ -1,0 +1,62 @@
+"""The port stands alone: importing every pips_tpu_torch module and
+chip_smoke.py loads nothing of JAX and nothing of the JAX package, and its
+entry points refuse to fall back to the CPU when CUDA is absent."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+
+CHILD = r"""
+import importlib, json, pkgutil, runpy, sys
+import pips_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(pips_tpu_torch.__path__, "pips_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+runpy.run_path(sys.argv[1], run_name="chip_smoke_imported")  # defines, does not run main()
+banned = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "pips_tpu"))
+print(json.dumps({"modules": names, "banned": banned}))
+"""
+
+
+def test_port_imports_no_jax_and_nothing_of_pips_tpu():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", CHILD, str(REPO / "chip_smoke.py")],
+                         capture_output=True, text=True, env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "pips_tpu_torch.kernels.mixer_cuda" in res["modules"]
+    assert "pips_tpu_torch.convert" in res["modules"]
+    assert res["banned"] == []
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    from pips_tpu_torch import Pips, WindowTracker, make_pips
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tiny = dict(latent_dim=16, mixer_dim=32, mixer_depth=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_pips(**tiny)
+    model = make_pips(device="cpu", **tiny)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        WindowTracker(model)
+    assert WindowTracker(model, device="cpu").device.type == "cpu"
+    assert isinstance(model, Pips)
+
+
+def test_chip_smoke_fails_without_cuda():
+    """Here there is no card: the smoke must exit non-zero and print no result."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; chip_smoke.py would run in full")
+    out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], capture_output=True,
+                         text=True, cwd=REPO, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
