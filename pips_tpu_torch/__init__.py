@@ -1,11 +1,18 @@
 """PyTorch/CUDA port of pips_tpu (the JAX package stays as the reference).
 
-Serves PIPs windows: ``make_pips`` builds the model, ``WindowTracker`` runs
-it. Entry points run on CUDA unless the caller passes ``device="cpu"``.
+Serves PIPs windows and long videos: ``make_pips`` builds the model,
+``WindowTracker`` runs one window, ``ChainTracker`` (host scheduler) and
+``ChainTrackerOnDevice`` chain windows over a video, fed by an array or a
+``FrameFeed``. Entry points run on CUDA unless the caller passes
+``device="cpu"``.
 """
 
-from pips_tpu_torch.inference.window import WindowTracker, dense_queries, grid_queries
+from pips_tpu_torch.inference import (ChainTracker, ChainTrackerOnDevice, FrameFeed,
+                                      WindowTracker, as_feed, dense_queries, grid_queries,
+                                      select_skip)
+from pips_tpu_torch.kernels.corr_cuda import corr_sample
 from pips_tpu_torch.models.pips import Pips, PipsOutput, init_params, make_pips
 
-__all__ = ["Pips", "PipsOutput", "WindowTracker", "dense_queries", "grid_queries",
-           "init_params", "make_pips"]
+__all__ = ["ChainTracker", "ChainTrackerOnDevice", "FrameFeed", "Pips", "PipsOutput",
+           "WindowTracker", "as_feed", "corr_sample", "dense_queries", "grid_queries",
+           "init_params", "make_pips", "select_skip"]

@@ -10,7 +10,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pips_tpu_torch.models.pips import Pips, resolve_device
+from pips_tpu_torch.models.pips import CORR_MODES, Pips, resolve_device
 from pips_tpu_torch.ops.grids import gridcloud2d
 
 
@@ -30,10 +30,19 @@ def dense_queries(H: int, W: int, stride: int = 8) -> np.ndarray:
 
 class WindowTracker:
     """Eval-mode forward over one S-frame window of ``model`` on ``device``
-    (CUDA unless the caller asks for the CPU)."""
+    (CUDA unless the caller asks for the CPU).
+
+    ``corr_mode`` is one of ``models.pips.CORR_MODES``; ``"pallas"`` runs the
+    CUDA corr kernel on the card. ``use_fused_corr`` is the JAX package's older
+    switch: when given, True means ``"fused"`` and False ``"full"``.
+    """
 
     def __init__(self, model: Pips, iters: int = 6, corr_mode: str = "onehot",
-                 device="cuda"):
+                 use_fused_corr: Optional[bool] = None, device="cuda"):
+        if use_fused_corr is not None:
+            corr_mode = "fused" if use_fused_corr else "full"
+        if corr_mode not in CORR_MODES:
+            raise ValueError(f"corr_mode must be one of {CORR_MODES}, got {corr_mode!r}")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.iters = iters

@@ -5,8 +5,19 @@ Encode the window, start each query point's trajectory at zero velocity,
 run ``iters`` MLP-Mixer refinement updates over multi-scale correlation
 patches, and read visibility logits off the final point features. Coords
 are detached at each iteration start; eval locks frame 0 after every update.
-This slice serves inference: ``corr_mode`` is ``onehot`` (serving) or
-``full`` (reference formulation).
+This slice serves inference. ``corr_mode`` picks how each iteration samples
+the correlation pyramid (all four give the same values up to rounding):
+
+* ``onehot`` (serving default): full score maps in the compute dtype, then a
+  gather of each point's patch (``kernels.corr_onehot``);
+* ``full``: the reference formulation, f32 score maps and bilinear sampling;
+* ``fused``: the gather form ``ops.corr.fused_corr_sample``, which never forms
+  the score maps; scores stay f32;
+* ``pallas`` (the JAX package's name for its fused kernel):
+  ``kernels.corr_cuda.corr_sample``. On a CUDA tensor it launches the CUDA
+  kernel ``csrc/corr_sample_fwd.cu``, once per iteration; on a CPU tensor it
+  runs the plain version, ``fused``. Scores stay f32, so it matches
+  ``fused``, not ``onehot`` (which rounds them to the compute dtype).
 """
 
 from __future__ import annotations
@@ -17,13 +28,15 @@ import numpy as np
 import torch
 from torch import nn
 
+from pips_tpu_torch.kernels.corr_cuda import corr_sample
 from pips_tpu_torch.kernels.corr_onehot import sample_corr_onehot
 from pips_tpu_torch.models.encoder import BasicEncoder
 from pips_tpu_torch.models.mixer import Dense, DeltaBlock, LayerNorm, gelu
-from pips_tpu_torch.ops.corr import build_fmap_pyramid, corr_pyramid, sample_corr_pyramid
+from pips_tpu_torch.ops.corr import (build_fmap_pyramid, corr_pyramid, fused_corr_sample,
+                                     sample_corr_pyramid)
 from pips_tpu_torch.ops.samp import bilinear_sample2d
 
-CORR_MODES = ("onehot", "full")
+CORR_MODES = ("onehot", "full", "fused", "pallas")
 
 
 class PipsOutput(NamedTuple):
@@ -108,6 +121,8 @@ class Pips(nn.Module):
         else:
             coords = coords_init / float(self.stride)
         pyramid = build_fmap_pyramid(fmaps, self.corr_levels)
+        if corr_mode == "pallas":  # the kernel reads dense maps; copy once per window
+            pyramid = [fm.contiguous() for fm in pyramid]
         if feat_init is None:
             ffeat = bilinear_sample2d(fmaps[:, 0], coords[:, 0, :, 0], coords[:, 0, :, 1])
         else:
@@ -123,6 +138,10 @@ class Pips(nn.Module):
             if corr_mode == "onehot":
                 corrs = corr_pyramid(pyramid, ffeats, out_dtype=fmaps.dtype)
                 fcorrs = sample_corr_onehot(corrs, coords, r)
+            elif corr_mode == "fused":
+                fcorrs = fused_corr_sample(pyramid, ffeats, coords, r)
+            elif corr_mode == "pallas":
+                fcorrs = corr_sample(pyramid, ffeats, coords, r)
             else:
                 fcorrs = sample_corr_pyramid(corr_pyramid(pyramid, ffeats), coords, r)
 

@@ -3,7 +3,12 @@
 * pyramid: L levels of 2x2-average-pooled feature maps;
 * ``corr_pyramid``: per-point score maps ``dot(target, fmap) / sqrt(C)``;
 * ``sample_corr_pyramid``: bilinear lookup of a (2r+1)^2 patch per level, in
-  the reference's transposed order (patch[i, j] at (x + o_i, y + o_j)).
+  the reference's transposed order (patch[i, j] at (x + o_i, y + o_j));
+* ``fused_corr_sample``: the same patches without the score maps. The patch
+  offsets are integers, so all taps share one fractional offset and the
+  bilinear patch is a combination of a (2r+2)^2 integer score patch; corr is
+  linear in the map, so that patch is ``dot(target, gathered map patch)``.
+  This is the plain version of the CUDA kernel ``kernels.corr_cuda``.
 """
 
 from __future__ import annotations
@@ -67,4 +72,66 @@ def sample_corr_pyramid(corrs: list[torch.Tensor], coords: torch.Tensor,
         img = corr.reshape(B * S * N, H, W, 1)
         patch = grid_sample_zeros(img, x.reshape(B * S * N, P * P), y.reshape(B * S * N, P * P))
         out.append(patch.reshape(B, S, N, P * P))
+    return torch.cat(out, dim=-1)
+
+
+def integer_patch_index(coords: torch.Tensor, H: int, W: int, radius: int):
+    """The (2r+2)^2 integer patch around floor(coords) on an H x W map.
+
+    coords: (..., 2) xy at this level's scale. Returns (idx, valid, wx, wy):
+    idx (..., G*G) flat pixel indices clamped into the map, with
+    idx[a*G + b] at (y0 - r + a, x0 - r + b); valid (..., G, G) marks the
+    taps inside the map; wx, wy (...,) are the f32 fractional offsets.
+    """
+    G = 2 * radius + 2
+    x, y = coords[..., 0].float(), coords[..., 1].float()
+    x0f, y0f = torch.floor(x), torch.floor(y)
+    a = torch.arange(G, device=coords.device)
+    rows = y0f.long()[..., None] - radius + a  # (..., G)
+    cols = x0f.long()[..., None] - radius + a
+    valid = (((rows >= 0) & (rows < H))[..., :, None]
+             & ((cols >= 0) & (cols < W))[..., None, :])
+    idx = rows.clamp(0, H - 1)[..., :, None] * W + cols.clamp(0, W - 1)[..., None, :]
+    return idx.reshape(*idx.shape[:-2], G * G), valid, x - x0f, y - y0f
+
+
+def bilinear_from_integer_patch(g: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor,
+                                radius: int) -> torch.Tensor:
+    """g: (..., G, G) integer scores [row a, col b]; returns (..., P*P) in the
+    reference's transposed order: out[i*P + j] samples (x + o_i, y + o_j)."""
+    P = 2 * radius + 1
+    G = P + 1
+    wxe = wx[..., None, None]
+    wye = wy[..., None, None]
+    interp = ((1 - wye) * (1 - wxe) * g[..., 0:P, 0:P]
+              + (1 - wye) * wxe * g[..., 0:P, 1:G]
+              + wye * (1 - wxe) * g[..., 1:G, 0:P]
+              + wye * wxe * g[..., 1:G, 1:G])  # indexed [j, i]
+    return interp.transpose(-1, -2).reshape(*g.shape[:-2], P * P)
+
+
+def fused_corr_sample(pyramid: list[torch.Tensor], targets: torch.Tensor,
+                      coords: torch.Tensor, radius: int = 3) -> torch.Tensor:
+    """Same values as ``corr_pyramid`` -> ``sample_corr_pyramid``, without
+    the (B, S, N, H_l, W_l) score maps.
+
+    pyramid: list of (B, S, H_l, W_l, C); targets: (B, S, N, C); coords:
+    (B, S, N, 2) at level-0 scale. Returns (B, S, N, L*(2r+1)^2) in f32.
+    Each score is an f32 sum of f32 products (exact for bf16 operands; an
+    elementwise product, so no TF32), scaled by 1/sqrt(C) after the sum.
+    Out-of-bounds taps are zero.
+    """
+    B, S, N, C = targets.shape
+    G = 2 * radius + 2
+    scale = 1.0 / math.sqrt(C)
+    tf = targets.float()[..., None, None, :]  # (B, S, N, 1, 1, C)
+    out = []
+    for lvl, fm in enumerate(pyramid):
+        H, W = fm.shape[2], fm.shape[3]
+        idx, valid, wx, wy = integer_patch_index(coords / (2.0 ** lvl), H, W, radius)
+        patch = torch.gather(fm.reshape(B, S, H * W, C), 2,
+                             idx.reshape(B, S, N * G * G, 1).expand(-1, -1, -1, C))
+        g = (patch.reshape(B, S, N, G, G, C).float() * tf).sum(-1) * scale
+        g = torch.where(valid, g, torch.zeros((), dtype=g.dtype, device=g.device))
+        out.append(bilinear_from_integer_patch(g, wx, wy, radius))
     return torch.cat(out, dim=-1)

@@ -1,18 +1,20 @@
 """Where a served window's time goes on the card.
 
-    python3 -m pips_tpu_torch.profile_window
+    python3 -m pips_tpu_torch.profile_window [--corr-mode pallas] [--dense]
 
 Serves the flagship bf16 window (the first request of ``chip_smoke.py``:
-N=256 random queries at 480x1024, 6 iterations) and
-prints: the window's host-clock time with the frames already on the card;
-from ``torch.profiler``, the device time summed over kernels, split into
-encode and track, and the device's idle share of that window; the kernels
-that take the most device time; and the fused channel block's share.
-CUDA only.
+N=256 random queries at 480x1024, 6 iterations; with ``--dense``, the dense
+probe's N=7680 queries, one every 8 pixels) with the given corr mode
+(default ``onehot``) and prints: the window's host-clock time with the
+frames already on the card; from ``torch.profiler``, the device time summed
+over kernels, split into encode and track, and the device's idle share of
+that window; the kernels that take the most device time; and the time of
+the fused channel block and of the corr kernel. CUDA only.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import time
 
@@ -20,13 +22,14 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from pips_tpu_torch import WindowTracker, make_pips
+from pips_tpu_torch import WindowTracker, dense_queries, make_pips
+from pips_tpu_torch.models.pips import CORR_MODES
 
 
 def summarize(prof, device_type, top: int) -> dict:
     """Device time of a profiled window: total, split at the start of the
     ``track`` range (encode ends in a sync, so no encode kernel runs after
-    it), by kernel name, and the fused channel block's share."""
+    it), by kernel name, and the time of the port's two kernels."""
     ranges = ("encode", "track")  # the profiler also lists these annotations on the device
     kernels = [e for e in prof.events() if e.device_type == device_type and e.name not in ranges]
     track_start = min(e.time_range.start for e in prof.events() if e.name == "track")
@@ -44,20 +47,29 @@ def summarize(prof, device_type, top: int) -> dict:
         "device_ms_by_range": {k: v / 1e3 for k, v in split.items()},
         "kernel_launches": len(kernels),
         "chanff_ms": sum(v[0] for k, v in by_name.items() if "chanff" in k) / 1e3,
+        "corr_sample_ms": sum(v[0] for k, v in by_name.items() if "corr_sample" in k) / 1e3,
         "top_kernels": [{"name": k[:90], "ms": v[0] / 1e3, "count": v[1]} for k, v in ranked],
     }
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--corr-mode", default="onehot", choices=CORR_MODES)
+    ap.add_argument("--dense", action="store_true", help="N=7680 queries, one every 8 px")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_window needs a CUDA device")
 
-    H, W, N = 480, 1024, 256
+    H, W = 480, 1024
     rng = np.random.RandomState(0)
     rgbs = (rng.rand(1, 8, H, W, 3) * 255).astype(np.float32)
-    xys = (rng.rand(1, N, 2) * [W - 8, H - 8] + 4).astype(np.float32)
+    if args.dense:
+        xys = dense_queries(H, W).astype(np.float32)
+    else:
+        xys = (rng.rand(1, 256, 2) * [W - 8, H - 8] + 4).astype(np.float32)
+    N = xys.shape[1]
     tracker = WindowTracker(make_pips(seed=0, dtype=torch.bfloat16, fuse_chanff=True),
-                            iters=6, corr_mode="onehot")
+                            iters=6, corr_mode=args.corr_mode)
     frames = torch.from_numpy(rgbs).cuda()
 
     def window():
@@ -84,7 +96,8 @@ def main() -> None:
             torch.cuda.synchronize()
         t_end = time.perf_counter()
 
-    res = {"device": torch.cuda.get_device_name(0), "n": N, "hw": [H, W],
+    res = {"device": torch.cuda.get_device_name(0), "corr_mode": args.corr_mode, "n": N,
+           "hw": [H, W],
            "window_ms_median_frames_on_device": wall_ms,
            "profiled_wall_ms": {"encode": (t_enc - t) * 1e3, "track": (t_end - t_enc) * 1e3}}
     res.update(summarize(prof, torch.autograd.DeviceType.CUDA, top=12))

@@ -93,7 +93,7 @@ def test_bridge_rejects_missing_and_extra_leaves(change):
         load_flax_params(Pips(**TINY), params)
 
 
-@pytest.mark.parametrize("corr_mode", ["onehot", "full"])
+@pytest.mark.parametrize("corr_mode", ["onehot", "full", "fused", "pallas"])
 def test_pips_one_iteration_tight(corr_mode):
     (trajs, vis), (jtrajs, jvis), xys = _both(False, 1, corr_mode)
     np.testing.assert_allclose(trajs, jtrajs, rtol=0, atol=2e-3)
@@ -114,6 +114,38 @@ def test_pips_bf16_fused_matches_jax_interpret():
     assert d.max() < 1.0 and np.median(d) < 0.2, (d.max(), np.median(d))
     assert np.abs(vis - jvis).max() < 0.25
     np.testing.assert_array_equal(trajs[:, 0], xys)
+
+
+@pytest.mark.parametrize("corr_mode", ["fused", "pallas"])
+def test_pips_bf16_fused_corr_modes_match_jax_interpret(corr_mode):
+    """The f32-score corr modes in bf16 with fused channel blocks, held to the
+    bounds of the onehot case above; JAX runs its Pallas kernels (corr and
+    channel block) in interpret mode, the port their plain versions."""
+    (trajs, vis), (jtrajs, jvis), xys = _both(True, 1, corr_mode)
+    d = np.abs(trajs - jtrajs)
+    assert d.max() < 1.0 and np.median(d) < 0.2, (d.max(), np.median(d))
+    assert np.abs(vis - jvis).max() < 0.25
+    np.testing.assert_array_equal(trajs[:, 0], xys)
+
+
+def test_pallas_mode_equals_fused_mode_on_cpu():
+    """On CPU tensors the kernel mode runs the plain version, bit for bit."""
+    tm = load_flax_params(Pips(**TINY), _jax_model(bf16=False)[1]).eval()
+    xys, rgbs = _inputs()
+    with torch.no_grad():
+        a, b = (tm(torch.from_numpy(xys), torch.from_numpy(rgbs), iters=2, corr_mode=m)
+                for m in ("pallas", "fused"))
+    np.testing.assert_array_equal(a.coord_predictions.numpy(), b.coord_predictions.numpy())
+    np.testing.assert_array_equal(a.vis_e.numpy(), b.vis_e.numpy())
+
+
+def test_window_tracker_corr_mode_arguments():
+    tm = Pips(**TINY)
+    assert WindowTracker(tm, corr_mode="pallas", device="cpu").corr_mode == "pallas"
+    assert WindowTracker(tm, use_fused_corr=True, device="cpu").corr_mode == "fused"
+    assert WindowTracker(tm, use_fused_corr=False, device="cpu").corr_mode == "full"
+    with pytest.raises(ValueError, match="corr_mode"):
+        WindowTracker(tm, corr_mode="gather", device="cpu")
 
 
 def test_window_tracker_equals_model_call():
