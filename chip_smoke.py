@@ -10,7 +10,9 @@ Phases, each printing a progress line with the elapsed seconds:
   3. kernels: each kernel against its plain PyTorch version at the main
      paths' shapes, with its tolerance, median time and bound:
      ``chan_ff_block`` (fused channel block) and ``corr_sample`` (fused corr
-     sampler, three point counts by three dtype pairs);
+     sampler, three point counts by three dtype pairs); and ``chan_ff_bwd``
+     (the channel block's backward, bf16, at the train shapes R=1024, 24,576
+     and 800), all seven grads;
   4. slice, onehot windows: the full-width bf16 PIPs model (S=8, mixer
      512x12, fused channel blocks, 6 iterations) serves three windows through
      ``WindowTracker(corr_mode="onehot")``; each must be finite, keep frame 0
@@ -24,7 +26,15 @@ Phases, each printing a progress line with the elapsed seconds:
   6. slice, chained video: ``ChainTracker(corr_mode="pallas")`` tracks 256
      points through 32 frames at 360x640 with ``track_video`` and
      ``track_stream`` (which must agree), then with a fixed skip against the
-     fused sampler and against ``ChainTrackerOnDevice``.
+     fused sampler and against ``ChainTrackerOnDevice``;
+  7. slice, training: the same full-width bf16 model trains on synthetic
+     batches through ``pips_tpu_torch.train``: (a) one step's loss and grads
+     at the bench train shape (B=1, N=128, I=6, 384x512) against the plain
+     channel block (forward and backward); (b) 20 steps on that fixed batch
+     under ``make_optimizer(lr=5e-4, num_steps=20)``, finite, with the loss
+     falling; (c) 3 timed steps at the training default (B=1 with both flips,
+     so 4; N=768, I=4, 368x496): step ms, points*frames/s, peak memory, and
+     12*I forward and backward channel-block launches per step.
 Kernel launch counts are zeroed just before each main-path run and read
 just after; comparison runs are not counted. Then a ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": ...}``. Any failure exits non-zero
@@ -60,6 +70,22 @@ CORR_CASES = [("flagship", 256, 60, 128), ("ragged", 100, 32, 48), ("dense", 768
 ONE_ITER = dict(traj_max=1.0, vis_max=0.25)
 SIX_ITERS = dict(median=2.0, p90=8.0, vis_median=0.5)
 EXACT_PX = 1e-3  # runs that should agree exactly: same shapes, same kernels
+GRAD_NAMES = ("dx", "d ln_scale", "d ln_bias", "dw1", "db1", "dw2", "db2")
+# training: the bench train shape (bench.py: B=1, N=128, I=6, 384x512, no flips)
+# and the training default (4hv_8_768_I4: B=1 doubled twice, N=768, I=4, 368x496)
+TRAIN = dict(B=1, N=128, iters=6, H=384, W=512, flips=(False, False))
+TRAIN_DEFAULT = dict(B=1, N=768, iters=4, H=368, W=496, flips=(True, True))
+TRAIN_R = 1 * 128 * 8
+TRAIN_R_DEFAULT = 4 * 768 * 8
+TRAIN_RUN_STEPS = 20
+# one step with the kernels against one with the plain channel block (forward
+# and backward): the kernels keep the fc1/fc2 products in f32 where the plain
+# forward rounds them to bf16, and six bf16 iterations carry that through
+# floor(); the gather's backward adds in no fixed order. Loss relative error;
+# cosine of all grads together, of the worst encoder leaf and of the worst
+# other leaf (zero-gradient biases left out). First card run: 0.00375,
+# 0.99962, 0.99957, 0.99504.
+PARITY = dict(loss_rel=0.02, global_cos=0.995, encoder_cos=0.99, mixer_cos=0.98)
 
 
 def log(phase: str, msg: str) -> None:
@@ -115,6 +141,54 @@ def chanff_bound(R: int, dtype: str, D: int = 512, F: int = 2048):
     nbytes = 2 * R * D * esize + 2 * D * F * esize + 4 * (3 * D + F)
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def chanff_bwd_args(torch, np, R: int, seed: int, D: int = 512, F: int = 2048):
+    """x, dy, ln_scale, ln_bias, w1, b1, w2 for chan_ff_bwd, bf16 where the
+    kernel takes the compute dtype."""
+    rng = np.random.RandomState(seed)
+    vals = [rng.randn(R, D), rng.randn(R, D), 1.0 + 0.1 * rng.randn(D), 0.1 * rng.randn(D),
+            rng.randn(D, F) / np.sqrt(D), 0.1 * rng.randn(F), rng.randn(F, D) / np.sqrt(F)]
+    dts = [torch.bfloat16, torch.bfloat16, torch.float32, torch.float32, torch.bfloat16,
+           torch.float32, torch.bfloat16]
+    return [torch.from_numpy(v.astype(np.float32)).to("cuda", dt) for v, dt in zip(vals, dts)]
+
+
+def chanff_bwd_bound(R: int, D: int = 512, F: int = 2048):
+    """Least time for the backward: five products of 2RDF operations (a1
+    recomputed, dg1, dxa, dw1, dw2) at the bf16 peak, or x, dy and dx once,
+    both bf16 weights and the f32 vectors once, the f32 weight and vector
+    grads once, at the HBM rate."""
+    flops = 10.0 * R * D * F
+    nbytes = 3 * R * D * 2 + 2 * D * F * 2 + 4 * (2 * D + F) + 2 * D * F * 4 + 4 * (3 * D + F)
+    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def chanff_bwd_tols(torch, mixer_cuda, args):
+    """Elementwise bounds on |kernel - plain| for the seven grads. Each f32
+    grad is a sum over rows of terms t_k (dw1: xa_c * da1_c; dw2: g1_c * dy;
+    db1: da1; db2: dy; LN scale: dxa * xn; LN bias: dxa). The two sides sum
+    in other orders (gamma_R = 2R 2^-24 of sum |t_k|), and where an f32 value
+    sits at a bf16 rounding boundary the two round an operand one ulp apart
+    (2^-7 of it). Such flips are sparse and of either sign, so their sum
+    grows as the root of the sum of squares: 4 * 2^-7 * sqrt(sum t_k^2) holds
+    four flips' worth on every term. dx is bf16: two ulps at its largest
+    magnitude (``bf16_tol``)."""
+    t = mixer_cuda.chan_ff_bwd_terms(*args)
+    R = args[0].shape[0]
+    flip, gamma = 4.0 * 2.0 ** -7, 2.0 * R * 2.0 ** -24
+
+    def products(a, b):  # t_k = a[k, i] * b[k, j]
+        return flip * torch.sqrt((a * a).t() @ (b * b)) + gamma * (a.abs().t() @ b.abs())
+
+    def column(a):  # t_k = a[k, j]
+        return flip * torch.sqrt((a * a).sum(0)) + gamma * a.abs().sum(0)
+
+    dx_ref = mixer_cuda.chan_ff_bwd_reference(*args)[0]
+    return [bf16_tol(dx_ref.float().abs().max().item()), column(t["dxa"] * t["xn"]),
+            column(t["dxa"]), products(t["xa_c"], t["da1_c"]), column(t["da1"]),
+            products(t["g1_c"], t["dy"]), column(t["dy"])]
 
 
 def corr_args(torch, np, N: int, H8: int, W8: int, map_dt: str, tgt_dt: str, seed: int):
@@ -239,12 +313,14 @@ def main() -> int:
 
     def zero_counts():
         mixer_cuda.launches = 0
+        mixer_cuda.bwd_launches = 0
         corr_cuda.launches = 0
 
     def counts():
         return mixer_cuda.launches, corr_cuda.launches
 
-    main_path = {"chan_ff_block": 0, "corr_sample": 0}  # launches summed over main-path runs
+    # launches summed over main-path runs
+    main_path = {"chan_ff_block": 0, "corr_sample": 0, "chan_ff_bwd": 0}
 
     def add_main(chanff_n, corr_n):
         main_path["chan_ff_block"] += chanff_n
@@ -315,6 +391,40 @@ def main() -> int:
             corr[(case, map_dt, tgt_dt)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                                 bound_ms=bound_ms, bound_by=bound_by)
             del args, out, ref, tol, diff
+    torch.cuda.empty_cache()
+
+    # 3c. chan_ff_bwd against its plain version: the bench train shape
+    # (B*N*S = 1*128*8), the training default (4*768*8 after both flips) and
+    # a ragged R that is no multiple of the kernel's 16-row blocks' tiles
+    chanff_bwd = {}
+    for R in (TRAIN_R, TRAIN_R_DEFAULT, 800):
+        args = chanff_bwd_args(torch, np, R, seed=R)
+        out = mixer_cuda.chan_ff_bwd(*args)
+        torch.cuda.synchronize()
+        ref = mixer_cuda.chan_ff_bwd_reference(*args)
+        tols = chanff_bwd_tols(torch, mixer_cuda, args)
+        worst, parts = 0.0, []
+        for name, o, r, tol in zip(GRAD_NAMES, out, ref, tols):
+            if o.shape != r.shape or o.dtype != r.dtype:
+                fail(f"chan_ff_bwd R={R} {name}: {tuple(o.shape)} {o.dtype}, plain "
+                     f"{tuple(r.shape)} {r.dtype}")
+            diff = (o.float() - r.float()).abs()
+            ratio = (diff / (tol.clamp_min(1e-30) if torch.is_tensor(tol) else tol)).max().item()
+            worst = max(worst, ratio)
+            parts.append(f"{name} {diff.max().item():.3g} (|g| <= {r.float().abs().max().item():.3g}, "
+                         f"err/tol {ratio:.3g})")
+        ms = median_ms(torch, mixer_cuda.chan_ff_bwd, args)
+        plain_ms = median_ms(torch, mixer_cuda.chan_ff_bwd_reference, args)
+        bound_ms, bound_by = chanff_bwd_bound(R)
+        log("kernels", f"chan_ff_bwd bf16 R={R}: max_abs_err " + "; ".join(parts)
+                       + f"; {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                         f"({bound_by})")
+        if worst > 1.0:
+            fail(f"chan_ff_bwd R={R} disagrees with its plain version (worst err/tol {worst:.3g})")
+        chanff_bwd[R] = dict(max_abs_err=max((o.float() - r.float()).abs().max().item()
+                                             for o, r in zip(out, ref)),
+                             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        del args, out, ref, tols
     torch.cuda.empty_cache()
 
     # 4. slice: the served windows, onehot
@@ -498,7 +608,152 @@ def main() -> int:
     if d_dev["max"] > EXACT_PX or d_dev["vis_max"] > EXACT_PX:
         fail(f"ChainTrackerOnDevice differs from the host tracker beyond {EXACT_PX}: {d_dev}")
 
+    # 7. slice: training through pips_tpu_torch.train
+    from pips_tpu_torch.data import SyntheticPointDataset
+    from pips_tpu_torch.train import (apply_flip_doubling, make_optimizer, make_train_step,
+                                      train_loss_fn)
+
+    torch.cuda.empty_cache()
+    train_model = make_pips(device="cuda", seed=0, dtype=torch.bfloat16, fuse_chanff=True).train()
+
+    def train_batch(cfg, seed):
+        ds = SyntheticPointDataset(S=8, N=cfg["N"], H=cfg["H"], W=cfg["W"], seed=seed)
+        samples = [ds[i][0] for i in range(cfg["B"])]
+        return {k: torch.from_numpy(np.stack([x[k] for x in samples])).cuda()
+                for k in samples[0]}
+
+    def loss_and_grads(batch, cfg):
+        train_model.zero_grad(set_to_none=True)
+        total, metrics = train_loss_fn(train_model, apply_flip_doubling(batch, *cfg["flips"]),
+                                       cfg["iters"])
+        total.backward()
+        torch.cuda.synchronize()
+        return ({k: float(v.detach()) for k, v in metrics.items()},
+                {n: p.grad.detach().float().clone() for n, p in train_model.named_parameters()})
+
+    def train_counts():
+        return mixer_cuda.launches, mixer_cuda.bwd_launches, corr_cuda.launches
+
+    def zero_grad_leaf(name):  # biases that a following normalisation removes
+        return ((name.startswith("fnet.") and name.endswith(".bias")
+                 and not name.startswith("fnet.conv3.")) or
+                (name.endswith("_token.fc2.bias")))
+
+    batch = train_batch(TRAIN, seed=0)
+    per_step = DEPTH * TRAIN["iters"]
+    # (a) one step's loss and grads, kernels against the plain channel block
+    zero_counts()
+    k_metrics, k_grads = loss_and_grads(batch, TRAIN)
+    n_fwd, n_bwd, n_corr = train_counts()
+    if (n_fwd, n_bwd, n_corr) != (per_step, per_step, 0):
+        fail(f"parity step launched chan_ff_block {n_fwd}, chan_ff_bwd {n_bwd} and corr_sample "
+             f"{n_corr} times, expected {per_step}, {per_step} and 0")
+    main_path["chan_ff_block"] += n_fwd
+    main_path["chan_ff_bwd"] += n_bwd
+    kernel_fwd, kernel_bwd = mixer_cuda._forward, mixer_cuda.chan_ff_bwd
+    mixer_cuda._forward, mixer_cuda.chan_ff_bwd = (mixer_cuda.chan_ff_reference,
+                                                   mixer_cuda.chan_ff_bwd_reference)
+    try:
+        zero_counts()
+        p_metrics, p_grads = loss_and_grads(batch, TRAIN)
+        if any(train_counts()):
+            fail(f"the plain channel block launched kernels: {train_counts()}")
+    finally:
+        mixer_cuda._forward, mixer_cuda.chan_ff_bwd = kernel_fwd, kernel_bwd
+    loss_rel = abs(k_metrics["total_loss"] - p_metrics["total_loss"]) / abs(p_metrics["total_loss"])
+    cos_of = {}  # in f64: ~29M terms
+    for name, g in k_grads.items():
+        if zero_grad_leaf(name):
+            continue
+        g, p = g.double(), p_grads[name].double()
+        cos_of[name] = (torch.dot(g.ravel(), p.ravel()) / (g.norm() * p.norm())).item()
+    flat_k = torch.cat([g.ravel().double() for n, g in k_grads.items() if n in cos_of])
+    flat_p = torch.cat([p_grads[n].ravel().double() for n in cos_of])
+    global_cos = (torch.dot(flat_k, flat_p) / (flat_k.norm() * flat_p.norm())).item()
+    global_rel = ((flat_k - flat_p).norm() / flat_p.norm()).item()
+    enc = {n: c for n, c in cos_of.items() if n.startswith("fnet.")}
+    mix = {n: c for n, c in cos_of.items() if not n.startswith("fnet.")}
+    worst_enc, worst_mix = min(enc, key=enc.get), min(mix, key=mix.get)
+    log("train", f"parity step (B=1 N=128 I=6 384x512): loss {k_metrics['total_loss']:.5g} "
+                 f"(seq {k_metrics['seq']:.4g}, vis {k_metrics['vis']:.4g}, ce {k_metrics['ce']:.4g}) "
+                 f"vs plain {p_metrics['total_loss']:.5g}, rel {loss_rel:.3g}; grads: global cos "
+                 f"{global_cos:.6f}, rel L2 {global_rel:.3g}; worst leaf cos {enc[worst_enc]:.5f} "
+                 f"({worst_enc}), outside the encoder {mix[worst_mix]:.5f} ({worst_mix}); "
+                 f"{n_fwd} + {n_bwd} launches")
+    if not (loss_rel <= PARITY["loss_rel"] and global_cos >= PARITY["global_cos"]
+            and enc[worst_enc] >= PARITY["encoder_cos"]
+            and mix[worst_mix] >= PARITY["mixer_cos"]):
+        fail(f"training with the kernels differs from the plain channel block beyond {PARITY}")
+    del k_grads, p_grads, flat_k, flat_p
+    train_model.zero_grad(set_to_none=True)
+
+    # (b) 20 steps on the fixed batch
+    opt = make_optimizer(train_model.parameters(), lr=5e-4, num_steps=TRAIN_RUN_STEPS)
+    step = make_train_step(train_model, opt, iters=TRAIN["iters"], horz_flip=False,
+                           vert_flip=False)
+    zero_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    run = [step(batch) for _ in range(TRAIN_RUN_STEPS)]
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    n_fwd, n_bwd, n_corr = train_counts()
+    if (n_fwd, n_bwd, n_corr) != (per_step * TRAIN_RUN_STEPS, per_step * TRAIN_RUN_STEPS, 0):
+        fail(f"the 20-step run launched chan_ff_block {n_fwd}, chan_ff_bwd {n_bwd}, corr_sample "
+             f"{n_corr} times")
+    main_path["chan_ff_block"] += n_fwd
+    main_path["chan_ff_bwd"] += n_bwd
+    losses = [m["total_loss"] for m in run]
+    log("train", f"{TRAIN_RUN_STEPS} steps on one batch (lr 5e-4, onecycle over "
+                 f"{TRAIN_RUN_STEPS + 100}): total_loss {' '.join(f'{x:.4g}' for x in losses)}; "
+                 f"ate_all {run[0]['ate_all']:.3g} -> {run[-1]['ate_all']:.3g} px; "
+                 f"{run_s / TRAIN_RUN_STEPS * 1e3:.1f} ms/step (host clock)")
+    if not all(math.isfinite(v) for m in run for v in m.values()):
+        fail("non-finite metrics in the 20-step run")
+    if not losses[-1] < losses[0]:
+        fail(f"the loss did not fall over {TRAIN_RUN_STEPS} steps: {losses[0]} -> {losses[-1]}")
+    del opt, step, batch
+    torch.cuda.empty_cache()
+
+    # (c) timed steps at the training default
+    big = train_batch(TRAIN_DEFAULT, seed=1)
+    opt = make_optimizer(train_model.parameters(), lr=5e-4, num_steps=100)
+    step = make_train_step(train_model, opt, iters=TRAIN_DEFAULT["iters"], horz_flip=True,
+                           vert_flip=True)
+    per_step = DEPTH * TRAIN_DEFAULT["iters"]
+    zero_counts()
+    step(big)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for _ in range(3):
+        before = train_counts()
+        t = time.perf_counter()
+        m = step(big)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        n_fwd, n_bwd, n_corr = (a - b for a, b in zip(train_counts(), before))
+        if (n_fwd, n_bwd, n_corr) != (per_step, per_step, 0):
+            fail(f"a default train step launched chan_ff_block {n_fwd}, chan_ff_bwd {n_bwd}, "
+                 f"corr_sample {n_corr} times, expected {per_step}, {per_step}, 0")
+        if not all(math.isfinite(v) for v in m.values()):
+            fail(f"non-finite metrics at the training default: {m}")
+    n_fwd, n_bwd, _ = train_counts()
+    main_path["chan_ff_block"] += n_fwd
+    main_path["chan_ff_bwd"] += n_bwd
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med_s = sorted(step_s)[1]
+    pf = 4 * TRAIN_DEFAULT["N"] * 8 / med_s
+    train_default = dict(step_ms=med_s * 1e3, points_frames_per_s=pf, peak_gb=peak_gb)
+    log("train", f"training default (B=1 x4 flips, N=768, I=4, 368x496): steps "
+                 f"{', '.join(f'{x * 1e3:.1f}' for x in step_s)} ms, median {med_s * 1e3:.1f} ms; "
+                 f"{pf:.0f} points*frames/s (4 x 768 x 8 per step); peak memory {peak_gb:.2f} GB; "
+                 f"{per_step} chan_ff_block + {per_step} chan_ff_bwd launches per step; "
+                 f"total_loss {m['total_loss']:.4g}")
+
     log("slice", f"main-path launches: {main_path}")
+    if min(main_path.values()) == 0:
+        fail(f"a kernel of the path never launched on it: {main_path}")
     main_ff = chanff[("bfloat16", R_MAIN)]
     main_corr = corr[("flagship", "bfloat16", "bfloat16")]
     print(json.dumps({"kernels": [
@@ -508,9 +763,14 @@ def main() -> int:
         {"name": "corr_sample", "route": "cuda",
          "source": "pips_tpu_torch/csrc/corr_sample_fwd.cu",
          "replaces": "pips_tpu/kernels/corr_pallas.py:185",
-         "launches": main_path["corr_sample"], **main_corr, "library_ms": None}]}), flush=True)
+         "launches": main_path["corr_sample"], **main_corr, "library_ms": None},
+        {"name": "chan_ff_bwd", "route": "cuda", "source": "pips_tpu_torch/csrc/chanff_bwd.cu",
+         "replaces": "pips_tpu/kernels/mixer_pallas.py:245",
+         "launches": main_path["chan_ff_bwd"], **chanff_bwd[TRAIN_R_DEFAULT],
+         "library_ms": None}]}), flush=True)
     log("done", f"all phases passed in {time.perf_counter() - T0:.1f} s "
-                f"(chained video {chain_s:.2f} s; windows {json.dumps(window_ms)})")
+                f"(chained video {chain_s:.2f} s; windows {json.dumps(window_ms)}; "
+                f"training default {json.dumps(train_default)})")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

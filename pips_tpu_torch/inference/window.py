@@ -65,9 +65,20 @@ class WindowTracker:
         return self.model.encode(self._in(rgbs))
 
     @torch.inference_mode()
-    def track(self, fmaps: torch.Tensor, xys, feat_init: Optional[torch.Tensor] = None):
-        """Returns (coords (B, S, N, 2), vis logits (B, S, N), ffeat (B, N, C))
-        as tensors on the tracker's device."""
+    def track(self, fmaps, xys, feat_init=None):
+        """fmaps: (B, S, H8, W8, C), a tensor or numpy array, kept in its dtype;
+        xys: (B, N, 2); feat_init: (B, N, C), taken as f32. Arrays and tensors
+        elsewhere are moved to the tracker's device. Returns (coords
+        (B, S, N, 2), vis logits (B, S, N), ffeat (B, N, C)) as tensors on
+        the tracker's device."""
+        if not isinstance(fmaps, torch.Tensor):
+            a = np.array(fmaps)  # a writable copy, in its dtype
+            # numpy has no bf16 of its own: ml_dtypes' bfloat16 goes over as its bits
+            fmaps = (torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+                     if a.dtype.name == "bfloat16" else torch.from_numpy(a))
+        fmaps = fmaps.to(self.device)
+        if feat_init is not None:
+            feat_init = self._in(feat_init)
         out = self.model.track(fmaps, self._in(xys), feat_init=feat_init, iters=self.iters,
                                is_train=False, corr_mode=self.corr_mode)
         return out.coord_predictions[-1], out.vis_e, out.ffeat

@@ -20,18 +20,41 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from pips_tpu_torch.ops.resize import resize_bilinear_align_corners
 
 
+class _InstanceNorm(torch.autograd.Function):
+    """The custom VJP of ``pips_tpu/models/encoder.py:instance_norm``: saves
+    y (in x's dtype) and rsig, and returns
+    dx = rsig * (dy - mean(dy) - y * mean(dy * y)) in dy's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, eps):
+        xf = x.float()
+        mean = xf.mean(dim=(2, 3), keepdim=True)
+        mean_sq = (xf * xf).mean(dim=(2, 3), keepdim=True)
+        rsig = torch.rsqrt((mean_sq - mean * mean).clamp_min(0.0) + eps)
+        y = ((xf - mean) * rsig).to(x.dtype)
+        ctx.save_for_backward(y, rsig)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        y, rsig = ctx.saved_tensors
+        n = y.shape[2] * y.shape[3]
+        dyf, yf = dy.float(), y.float()
+        m1 = dyf.sum(dim=(2, 3), keepdim=True) / n
+        m2 = (dyf * yf).sum(dim=(2, 3), keepdim=True) / n
+        return (rsig * (dyf - m1 - yf * m2)).to(dy.dtype), None
+
+
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Non-affine instance norm over (H, W) of NCHW x; f32 statistics from
-    E[x^2] - E[x]^2 (clamped at 0), result in x's dtype."""
-    xf = x.float()
-    mean = xf.mean(dim=(2, 3), keepdim=True)
-    mean_sq = (xf * xf).mean(dim=(2, 3), keepdim=True)
-    rsig = torch.rsqrt((mean_sq - mean * mean).clamp_min(0.0) + eps)
-    return ((xf - mean) * rsig).to(x.dtype)
+    E[x^2] - E[x]^2 (clamped at 0), result in x's dtype. Its gradient is the
+    JAX package's hand-derived one (``_InstanceNorm``)."""
+    return _InstanceNorm.apply(x, eps)
 
 
 class Conv(nn.Module):
@@ -70,12 +93,18 @@ class ResidualBlock(nn.Module):
 
 
 class BasicEncoder(nn.Module):
-    """(B, 3, H, W) -> (B, output_dim, H // stride, W // stride)."""
+    """(B, 3, H, W) -> (B, output_dim, H // stride, W // stride).
+
+    ``remat=True`` recomputes the stem conv and each residual block in the
+    backward (``torch.utils.checkpoint``), as JAX's per-block ``nn.remat``:
+    only block inputs are kept for the backward.
+    """
 
     def __init__(self, output_dim: int = 128, stride: int = 8,
-                 stage_dims: Sequence[int] = (64, 96, 128, 128), dtype=None):
+                 stage_dims: Sequence[int] = (64, 96, 128, 128), dtype=None,
+                 remat: bool = False):
         super().__init__()
-        self.stride, self.dtype = stride, dtype
+        self.stride, self.dtype, self.remat = stride, dtype, remat
         self.conv1 = Conv(3, stage_dims[0], 7, 2, 3, dtype)
         c_in = stage_dims[0]
         self.stage_names = []
@@ -93,10 +122,15 @@ class BasicEncoder(nn.Module):
         out_hw = (x.shape[2] // self.stride, x.shape[3] // self.stride)
         if self.dtype is not None:
             x = x.to(self.dtype)
-        x = F.relu(instance_norm(self.conv1(x)))
+        remat = self.remat and torch.is_grad_enabled()
+
+        def run(module, t):
+            return checkpoint(module, t, use_reentrant=False) if remat else module(t)
+
+        x = F.relu(instance_norm(run(self.conv1, x)))
         feats = []
         for k, name in enumerate(self.stage_names):
-            x = getattr(self, name)(x)
+            x = run(getattr(self, name), x)
             if k % 2 == 1:
                 feats.append(resize_bilinear_align_corners(x, out_hw))
         x = self.conv2(torch.cat(feats, dim=1))

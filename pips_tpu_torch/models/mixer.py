@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from pips_tpu_torch.kernels.mixer_cuda import chan_ff_block
 from pips_tpu_torch.ops.embed import get_3d_embedding
@@ -88,8 +89,9 @@ class MLPMixer(nn.Module):
     """(B, S, input_dim) -> (B, output_dim), mean-pooled over S before the head.
 
     ``fuse_chanff=True`` runs each channel block (LN -> fc1 -> GELU -> fc2 ->
-    residual) through ``kernels.mixer_cuda.chan_ff_block``: the CUDA kernel on
-    the card, its plain version on the CPU. Parameters are the same either way.
+    residual) through ``kernels.mixer_cuda.chan_ff_block``: the CUDA kernels
+    (forward and backward) on the card, their plain versions on the CPU.
+    Parameters are the same either way.
     """
 
     def __init__(self, S: int, input_dim: int, dim: int, output_dim: int, depth: int,
@@ -129,9 +131,10 @@ class MLPMixer(nn.Module):
             norm, chan = getattr(self, f"block{d}_chan_norm"), getattr(self, f"block{d}_chan")
             if self.fuse_chanff:
                 B, S, D = x.shape
-                x = chan_ff_block(x.reshape(B * S, D), norm.scale, norm.bias,
-                                  chan.fc1.kernel.to(x.dtype), chan.fc1.bias,
-                                  chan.fc2.kernel.to(x.dtype), chan.fc2.bias).reshape(B, S, D)
+                # the f32 kernels go in as they are: the block casts them, so
+                # their grads stay f32 (a cast here would round them to x's dtype)
+                x = chan_ff_block(x.reshape(B * S, D), norm.scale, norm.bias, chan.fc1.kernel,
+                                  chan.fc1.bias, chan.fc2.kernel, chan.fc2.bias).reshape(B, S, D)
             else:
                 x = x + chan(norm(x).to(x.dtype))
         x = self.final_norm(x).mean(dim=1)
@@ -142,19 +145,26 @@ class DeltaBlock(nn.Module):
     """Per-point update head: (ffeat, corr, flow) -> (B*, S, latent+2) deltas.
 
     kitchen = corr_levels*(2r+1)^2 + latent + 64*3 + 3 (519 at the defaults).
+    ``remat=True`` recomputes the block's activations in the backward
+    (``torch.utils.checkpoint``), as JAX's ``nn.remat(DeltaBlock)``.
     """
 
     def __init__(self, latent_dim: int = 128, corr_levels: int = 4, corr_radius: int = 3,
                  S: int = 8, mixer_dim: int = 512, mixer_depth: int = 12, dtype=None,
-                 fuse_chanff: bool = False):
+                 fuse_chanff: bool = False, remat: bool = False):
         super().__init__()
-        self.S, self.latent_dim = S, latent_dim
+        self.S, self.latent_dim, self.remat = S, latent_dim, remat
         kitchen = corr_levels * (2 * corr_radius + 1) ** 2 + latent_dim + 64 * 3 + 3
         self.to_delta = MLPMixer(S, kitchen, mixer_dim, S * (latent_dim + 2), mixer_depth,
                                  dtype=dtype, fuse_chanff=fuse_chanff)
 
     def forward(self, fhid: torch.Tensor, fcorr: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
         """fhid (B*, S, latent); fcorr (B*, S, L*(2r+1)^2); flow (B*, S, 3) = [dx, dy, t]."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(self._forward, fhid, fcorr, flow, use_reentrant=False)
+        return self._forward(fhid, fcorr, flow)
+
+    def _forward(self, fhid, fcorr, flow):
         Bn = flow.shape[0]
         flow_sincos = get_3d_embedding(flow, 64, cat_coords=True)
         delta = self.to_delta((fhid, fcorr, flow_sincos))

@@ -5,8 +5,12 @@ Encode the window, start each query point's trajectory at zero velocity,
 run ``iters`` MLP-Mixer refinement updates over multi-scale correlation
 patches, and read visibility logits off the final point features. Coords
 are detached at each iteration start; eval locks frame 0 after every update.
-This slice serves inference. ``corr_mode`` picks how each iteration samples
-the correlation pyramid (all four give the same values up to rounding):
+Training (``compute_fcp``) samples through ``sample_corr_onehot`` whatever the
+``corr_mode``, forms the score maps for the CE loss from one fused pyramid
+map, and with ``ce_gt`` sums that loss inside the loop instead of stacking
+the (B, S, I, N, H8, W8) maps. Serving picks with ``corr_mode`` how each
+iteration samples the correlation pyramid (all four give the same values up
+to rounding):
 
 * ``onehot`` (serving default): full score maps in the compute dtype, then a
   gather of each point's patch (``kernels.corr_onehot``);
@@ -27,13 +31,15 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from pips_tpu_torch.kernels.corr_cuda import corr_sample
 from pips_tpu_torch.kernels.corr_onehot import sample_corr_onehot
 from pips_tpu_torch.models.encoder import BasicEncoder
 from pips_tpu_torch.models.mixer import Dense, DeltaBlock, LayerNorm, gelu
-from pips_tpu_torch.ops.corr import (build_fmap_pyramid, corr_pyramid, fused_corr_sample,
-                                     sample_corr_pyramid)
+from pips_tpu_torch.models.losses import score_map_loss_single_iter
+from pips_tpu_torch.ops.corr import (build_fmap_pyramid, corr_pyramid, fcp_from_fused,
+                                     fused_corr_sample, fused_pyramid_fmap, sample_corr_pyramid)
 from pips_tpu_torch.ops.samp import bilinear_sample2d
 
 CORR_MODES = ("onehot", "full", "fused", "pallas")
@@ -44,6 +50,8 @@ class PipsOutput(NamedTuple):
     coord_predictions2: torch.Tensor  # (I+4, B, S, N, 2) padded sequence
     vis_e: torch.Tensor               # (B, S, N) visibility logits
     ffeat: torch.Tensor               # (B, N, C) frame-0 appearance feature
+    fcps: Optional[torch.Tensor] = None     # (B, S, I, N, H8, W8) train-time score maps
+    ce_loss: Optional[torch.Tensor] = None  # score-map CE from the loop, mean over I
 
 
 def resolve_device(device) -> torch.device:
@@ -79,18 +87,26 @@ def init_params(model: nn.Module, seed: int) -> nn.Module:
 
 class Pips(nn.Module):
     """Parameters are float32; ``dtype`` (e.g. ``torch.bfloat16``) is the
-    compute dtype. Coordinates, norms and corr accumulation stay f32."""
+    compute dtype. Coordinates, norms and corr accumulation stay f32.
+
+    ``remat_mixer``, ``remat_corr`` and ``remat_encoder`` recompute, in the
+    backward, the DeltaBlock, each iteration's score volumes and each encoder
+    block (``torch.utils.checkpoint``), as the JAX flags of the same names."""
 
     def __init__(self, S: int = 8, stride: int = 8, latent_dim: int = 128,
                  corr_levels: int = 4, corr_radius: int = 3, mixer_dim: int = 512,
                  mixer_depth: int = 12, dtype: Optional[torch.dtype] = None,
-                 fuse_chanff: bool = False):
+                 fuse_chanff: bool = False, remat_mixer: bool = False,
+                 remat_corr: bool = False, remat_encoder: bool = False):
         super().__init__()
         self.S, self.stride, self.latent_dim = S, stride, latent_dim
         self.corr_levels, self.corr_radius = corr_levels, corr_radius
-        self.fnet = BasicEncoder(output_dim=latent_dim, stride=stride, dtype=dtype)
+        self.remat_corr = remat_corr
+        self.fnet = BasicEncoder(output_dim=latent_dim, stride=stride, dtype=dtype,
+                                 remat=remat_encoder)
         self.delta_block = DeltaBlock(latent_dim, corr_levels, corr_radius, S, mixer_dim,
-                                      mixer_depth, dtype=dtype, fuse_chanff=fuse_chanff)
+                                      mixer_depth, dtype=dtype, fuse_chanff=fuse_chanff,
+                                      remat=remat_mixer)
         self.ffeat_norm = LayerNorm(latent_dim)
         self.ffeat_updater = Dense(latent_dim, latent_dim)
         self.vis_predictor = Dense(latent_dim, 1)
@@ -105,9 +121,15 @@ class Pips(nn.Module):
     def track(self, fmaps: torch.Tensor, xys: torch.Tensor,
               coords_init: Optional[torch.Tensor] = None,
               feat_init: Optional[torch.Tensor] = None, iters: int = 3,
-              is_train: bool = False, corr_mode: str = "full") -> PipsOutput:
+              is_train: bool = False, corr_mode: str = "full", compute_fcp: bool = False,
+              ce_gt: Optional[tuple] = None) -> PipsOutput:
         """fmaps: (B, S, H8, W8, C); xys: (B, N, 2) query pixel coords in
-        frame 0; coords_init: (B, S, N, 2) pixel coords; feat_init: (B, N, C)."""
+        frame 0; coords_init: (B, S, N, 2) pixel coords; feat_init: (B, N, C).
+
+        ``compute_fcp`` (training) returns the score maps as ``fcps`` or, with
+        ``ce_gt = (trajs_g pixels (B, S, N, 2), vis_g, valids)``, their CE loss
+        averaged over the iterations as ``ce_loss``; it ignores ``corr_mode``.
+        """
         if corr_mode not in CORR_MODES:
             raise ValueError(f"corr_mode must be one of {CORR_MODES}, got {corr_mode!r}")
         B, S, H8, W8, C = fmaps.shape
@@ -129,13 +151,33 @@ class Pips(nn.Module):
             ffeat = feat_init
         ffeats = ffeat[:, None].expand(B, S, N, C)
         coords_bak = coords
+        # the train-time score maps are one product against the fused map
+        fm_fcp = fused_pyramid_fmap(pyramid, (H8, W8)) if compute_fcp else None
+
+        def corr_chunk(ffeats_c, coords_c):
+            # score volumes and fcp in the compute dtype; fcp feeds the CE loss
+            corrs = corr_pyramid(pyramid, ffeats_c, out_dtype=fmaps.dtype)
+            fcp = fcp_from_fused(fm_fcp, ffeats_c).to(fmaps.dtype)
+            return fcp, sample_corr_onehot(corrs, coords_c, r)
+
         times = torch.linspace(0.0, float(S), S, device=fmaps.device).reshape(1, S, 1)
         times = times.expand(B * N, S, 1)
 
-        preds = []
+        preds, fcps, ce_acc = [], [], []
         for _ in range(iters):
             coords = coords.detach()
-            if corr_mode == "onehot":
+            if compute_fcp:
+                if self.remat_corr and torch.is_grad_enabled():
+                    fcp, fcorrs = checkpoint(corr_chunk, ffeats, coords, use_reentrant=False)
+                else:
+                    fcp, fcorrs = corr_chunk(ffeats, coords)
+                if ce_gt is not None:
+                    trajs_g, vis_g, valids = ce_gt
+                    ce_acc.append(score_map_loss_single_iter(
+                        fcp, trajs_g / float(self.stride), vis_g, valids))
+                else:
+                    fcps.append(fcp)
+            elif corr_mode == "onehot":
                 corrs = corr_pyramid(pyramid, ffeats, out_dtype=fmaps.dtype)
                 fcorrs = sample_corr_onehot(corrs, coords, r)
             elif corr_mode == "fused":
@@ -171,16 +213,19 @@ class Pips(nn.Module):
             coord_predictions2=torch.stack([first, first, *preds, preds[-1], preds[-1]]),
             vis_e=vis_e,
             ffeat=ffeat,
+            fcps=torch.stack(fcps, dim=2) if fcps else None,
+            ce_loss=sum(ce_acc) / len(ce_acc) if ce_acc else None,
         )
 
     def forward(self, xys: torch.Tensor, rgbs: torch.Tensor,
                 coords_init: Optional[torch.Tensor] = None,
                 feat_init: Optional[torch.Tensor] = None, iters: int = 3,
-                is_train: bool = False, corr_mode: str = "full") -> PipsOutput:
+                is_train: bool = False, corr_mode: str = "full", compute_fcp: bool = False,
+                ce_gt: Optional[tuple] = None) -> PipsOutput:
         """Full forward: encode + track."""
         return self.track(self.encode(rgbs), xys, coords_init=coords_init,
                           feat_init=feat_init, iters=iters, is_train=is_train,
-                          corr_mode=corr_mode)
+                          corr_mode=corr_mode, compute_fcp=compute_fcp, ce_gt=ce_gt)
 
 
 def make_pips(device="cuda", seed: int = 0, **config) -> Pips:

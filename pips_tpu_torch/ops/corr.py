@@ -9,6 +9,10 @@
   bilinear patch is a combination of a (2r+2)^2 integer score patch; corr is
   linear in the map, so that patch is ``dot(target, gathered map patch)``.
   This is the plain version of the CUDA kernel ``kernels.corr_cuda``.
+* ``fused_pyramid_fmap`` / ``fcp_from_fused``: the train-time score maps
+  ``sum_l resize(corr_l)`` as one product against the sum of the resized
+  levels (corr is linear in the map, the resize linear over (h, w));
+  ``fcp_score_maps`` is the per-level form they equal.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import math
 
 import torch
 
-from pips_tpu_torch.ops.resize import avg_pool2x2
+from pips_tpu_torch.ops.resize import avg_pool2x2, resize_bilinear_align_corners
 from pips_tpu_torch.ops.samp import grid_sample_zeros
 
 
@@ -135,3 +139,34 @@ def fused_corr_sample(pyramid: list[torch.Tensor], targets: torch.Tensor,
         g = torch.where(valid, g, torch.zeros((), dtype=g.dtype, device=g.device))
         out.append(bilinear_from_integer_patch(g, wx, wy, radius))
     return torch.cat(out, dim=-1)
+
+
+def _resize_channel_last(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """(..., H, W, C) -> (..., H_out, W_out, C); the resize works on the last two axes."""
+    return resize_bilinear_align_corners(x.movedim(-1, -3), out_hw).movedim(-3, -1)
+
+
+def fused_pyramid_fmap(pyramid: list[torch.Tensor], out_hw: tuple[int, int]) -> torch.Tensor:
+    """Sum of the pyramid levels (B, S, H_l, W_l, C), each align-corners
+    upsampled to ``out_hw``: (B, S, H8, W8, C), in the levels' dtype."""
+    acc = None
+    for fm in pyramid:
+        up = _resize_channel_last(fm, out_hw)
+        acc = up if acc is None else acc + up
+    return acc
+
+
+def fcp_from_fused(fm_fcp: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Train-time score maps (B, S, N, H8, W8), f32, from the fused map; equal
+    up to rounding to ``fcp_score_maps(corr_pyramid(pyramid, targets), out_hw)``."""
+    return corr_pyramid([fm_fcp], targets)[0]
+
+
+def fcp_score_maps(corrs: list[torch.Tensor], out_hw: tuple[int, int]) -> torch.Tensor:
+    """Sum of the score maps (B, S, N, H_l, W_l), each align-corners upsampled
+    to ``out_hw``: (B, S, N, H8, W8) in f32."""
+    B, S, N = corrs[0].shape[:3]
+    fcp = torch.zeros((B, S, N, *out_hw), dtype=torch.float32, device=corrs[0].device)
+    for c in corrs:
+        fcp = fcp + resize_bilinear_align_corners(c, out_hw)
+    return fcp

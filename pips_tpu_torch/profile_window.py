@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import time
 
 import numpy as np
@@ -26,27 +27,35 @@ from pips_tpu_torch import WindowTracker, dense_queries, make_pips
 from pips_tpu_torch.models.pips import CORR_MODES
 
 
-def summarize(prof, device_type, top: int) -> dict:
-    """Device time of a profiled window: total, split at the start of the
-    ``track`` range (encode ends in a sync, so no encode kernel runs after
-    it), by kernel name, and the time of the port's two kernels."""
-    ranges = ("encode", "track")  # the profiler also lists these annotations on the device
-    kernels = [e for e in prof.events() if e.device_type == device_type and e.name not in ranges]
-    track_start = min(e.time_range.start for e in prof.events() if e.name == "track")
+def summarize(prof, device_type, top: int, ranges=("encode", "track")) -> dict:
+    """Device time of a profiled run: total, split by annotated range (each
+    range ends in a sync, so a kernel belongs to the last range that started
+    before it), by kernel name, and the time of the port's kernels."""
+    # the profiler also lists the annotations on the device: ours and the optimizer's
+    kernels = [e for e in prof.events() if e.device_type == device_type
+               and e.name not in ranges and not e.name.startswith("Optimizer.")]
+    starts = sorted((min(e.time_range.start for e in prof.events() if e.name == r), r)
+                    for r in ranges)
     by_name: dict[str, list] = {}
-    split = {"encode": 0.0, "track": 0.0}
+    split = {r: 0.0 for r in ranges}
     for e in kernels:
         us = e.time_range.elapsed_us()
         s = by_name.setdefault(e.name, [0.0, 0])
         s[0] += us
         s[1] += 1
-        split["encode" if e.time_range.start < track_start else "track"] += us
+        owner = starts[0][1]
+        for start, r in starts:
+            if start <= e.time_range.start:
+                owner = r
+        split[owner] += us
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return {
         "device_busy_ms": sum(split.values()) / 1e3,
         "device_ms_by_range": {k: v / 1e3 for k, v in split.items()},
         "kernel_launches": len(kernels),
-        "chanff_ms": sum(v[0] for k, v in by_name.items() if "chanff" in k) / 1e3,
+        "chanff_ms": sum(v[0] for k, v in by_name.items() if "chanff_fwd" in k) / 1e3,
+        "chanff_bwd_ms": {re.search(r"chanff_bwd_\w+", k).group(0): v[0] / 1e3
+                          for k, v in by_name.items() if "chanff_bwd" in k},
         "corr_sample_ms": sum(v[0] for k, v in by_name.items() if "corr_sample" in k) / 1e3,
         "top_kernels": [{"name": k[:90], "ms": v[0] / 1e3, "count": v[1]} for k, v in ranked],
     }

@@ -53,3 +53,27 @@ def test_instance_norm_matches_jax():
     got = instance_norm(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
     np.testing.assert_allclose(got, np.asarray(jax_instance_norm(jnp.asarray(x))),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_instance_norm_grad_matches_jax_vjp(dtype):
+    """The port's instance-norm backward is the JAX custom VJP's formula on the
+    saved y (in the compute dtype) and rsig. f32: 1e-5 of the magnitude
+    (summation order); bf16: both round the same f32 formula once to bf16, so
+    within two bf16 ulps at the largest magnitude."""
+    from pips_tpu.models.encoder import instance_norm as jax_instance_norm
+
+    rng = np.random.RandomState(2)
+    x = (rng.randn(2, 6, 10, 3) * 3 + 1).astype(np.float32)
+    dy = rng.randn(2, 6, 10, 3).astype(np.float32)
+    jd = getattr(jnp, dtype)
+    _, vjp = jax.vjp(jax_instance_norm, jnp.asarray(x).astype(jd))
+    want = np.asarray(vjp(jnp.asarray(dy).astype(jd))[0].astype(jnp.float32))
+    td = getattr(torch, dtype)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).to(td).requires_grad_(True)
+    instance_norm(xt).backward(torch.from_numpy(dy).permute(0, 3, 1, 2).to(td))
+    assert xt.grad.dtype == td
+    got = xt.grad.float().permute(0, 2, 3, 1).numpy()
+    scale = np.abs(want).max()
+    tol = 1e-5 * scale if dtype == "float32" else 2.0 ** (np.ceil(np.log2(scale)) - 7)
+    assert np.abs(got - want).max() <= tol, (np.abs(got - want).max(), tol)

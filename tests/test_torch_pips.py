@@ -199,3 +199,39 @@ def test_query_helpers_match_jax():
     np.testing.assert_array_equal(grid_queries(384, 512), jax_grid(384, 512))
     np.testing.assert_array_equal(grid_queries(64, 96, 3, 5, 4), jax_grid(64, 96, 3, 5, 4))
     np.testing.assert_array_equal(dense_queries(64, 96), jax_dense(64, 96))
+
+
+def test_window_tracker_track_takes_numpy_like_jax():
+    """``WindowTracker.track`` takes numpy fmaps (kept in their dtype) and a
+    numpy (1, N, C) feat_init (taken as f32), as the JAX tracker does, and
+    agrees with it at the one-iteration bounds above."""
+    from pips_tpu.inference.window import WindowTracker as JaxWindowTracker
+
+    m, params = _jax_model(bf16=False)
+    xys, rgbs = _inputs()
+    feat0 = np.random.RandomState(8).randn(1, 12, 16)  # float64: the tracker takes it as f32
+    jt = JaxWindowTracker(m, params, iters=1, corr_mode="onehot")
+    fmaps = np.asarray(jt.encode(rgbs), np.float32)
+    want = [np.asarray(a) for a in jt.track(fmaps, xys, feat0)]
+    tracker = WindowTracker(load_flax_params(Pips(**TINY), params), iters=1,
+                            corr_mode="onehot", device="cpu")
+    coords, vis, ffeat = tracker.track(fmaps, xys, feat0)
+    assert ffeat.dtype == torch.float32
+    np.testing.assert_array_equal(ffeat.numpy(), feat0.astype(np.float32))
+    np.testing.assert_allclose(coords.numpy(), want[0], rtol=0, atol=2e-3)
+    np.testing.assert_allclose(vis.numpy(), want[1], rtol=0, atol=1e-3)
+    # without feat_init, numpy fmaps alone
+    coords2, _, ffeat2 = tracker.track(fmaps, xys)
+    want2 = [np.asarray(a) for a in jt.track(fmaps, xys)]
+    np.testing.assert_allclose(coords2.numpy(), want2[0], rtol=0, atol=2e-3)
+    np.testing.assert_allclose(ffeat2.numpy(), want2[2], rtol=0, atol=1e-4)
+    # numpy's bf16 (ml_dtypes, as JAX hands out bf16 arrays) stays bf16
+    import ml_dtypes
+
+    tb = WindowTracker(load_flax_params(Pips(**TINY, dtype=torch.bfloat16), params), iters=1,
+                       corr_mode="onehot", device="cpu")
+    fm16 = torch.from_numpy(fmaps.copy()).bfloat16()
+    a = tb.track(fm16.float().numpy().astype(ml_dtypes.bfloat16), xys, feat0)
+    b = tb.track(fm16, torch.from_numpy(xys), torch.from_numpy(feat0).float())
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x.float().numpy(), y.float().numpy())
