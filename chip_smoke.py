@@ -34,7 +34,21 @@ Phases, each printing a progress line with the elapsed seconds:
      under ``make_optimizer(lr=5e-4, num_steps=20)``, finite, with the loss
      falling; (c) 3 timed steps at the training default (B=1 with both flips,
      so 4; N=768, I=4, 368x496): step ms, points*frames/s, peak memory, and
-     12*I forward and backward channel-block launches per step.
+     12*I forward and backward channel-block launches per step;
+  8. slice, the train loop: ``pips_tpu_torch.train.loop.train(cfg, "cuda")``
+     with ``fuse_conv3=1`` at full width on the synthetic set at the bench
+     train shape, 12 steps with validation, media and a checkpoint every 6,
+     through the CUDA prefetcher; the loss must be finite and fall, the last
+     step's checkpoint exist, ``events.jsonl`` hold pooled and val_pooled
+     keys, and a relaunch with more steps resume at the saved step; conv
+     kernel launches: 8 per train step, 4 per validation batch and media
+     render.
+Phase 3 also holds (3d) ``conv3x3_same`` (the encoder's stage-1 3x3 conv)
+against its plain version, forward and dx, at a window's, the training
+default's and the bench train shape's stage 1 in bf16 and a small ragged
+shape in bf16 and f32, all channels_last, with dW and db through its autograd Function, timed in turns with
+``F.conv2d``; and phase 4 (4b) serves the N=256 window with ``fuse_conv3``
+against the same weights without it, 4 conv launches per window.
 Kernel launch counts are zeroed just before each main-path run and read
 just after; comparison runs are not counted. Then a ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": ...}``. Any failure exits non-zero
@@ -45,11 +59,17 @@ nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import io
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 T0 = time.perf_counter()
 
@@ -86,6 +106,17 @@ TRAIN_RUN_STEPS = 20
 # other leaf (zero-gradient biases left out). First card run: 0.00375,
 # 0.99962, 0.99957, 0.99504.
 PARITY = dict(loss_rel=0.02, global_cos=0.995, encoder_cos=0.99, mixer_cos=0.98)
+# the encoder's stage-1 input (B*S, 64, H/2, W/2) of a 480x1024 window, of
+# the training default (4 flips x 8 frames at 368x496) and of the bench train
+# shape (8 frames at 384x512); and a small shape with ragged tiles in bf16 and
+# f32. All channels_last, as the encoder holds them and the kernel reads them.
+CONV_SHAPES = [("window", 8, 240, 512, "bfloat16"),
+               ("train default", 32, 184, 248, "bfloat16"),
+               ("bench train", 8, 192, 256, "bfloat16"),
+               ("small", 2, 31, 70, "bfloat16"),
+               ("small f32", 2, 31, 70, "float32")]
+CONV_PER_ENCODE = 4  # layer1_0.conv1/conv2 and layer1_1.conv1/conv2
+LOOP_STEPS, LOOP_EVERY, LOOP_MORE = 12, 6, 6  # phase 8: steps, val/save/media period, relaunch
 
 
 def log(phase: str, msg: str) -> None:
@@ -246,6 +277,30 @@ def corr_tol(corr_cuda, pyramid, targets, coords):
     return 2.0 * (C + 8) * 2.0 ** -24 * absref
 
 
+def conv_args(torch, np, B: int, H: int, W: int, dtype: str, seed: int, C: int = 64):
+    """x (B, C, H, W) in dtype and channels_last, an f32 weight and bias as
+    the encoder holds them, and dy for the backward."""
+    rng = np.random.RandomState(seed)
+    vals = [rng.randn(B, C, H, W), rng.randn(C, C, 3, 3) * np.sqrt(2.0 / (9 * C)),
+            0.1 * rng.randn(C), rng.randn(B, C, H, W)]
+    dts = [getattr(torch, dtype), torch.float32, torch.float32, getattr(torch, dtype)]
+    x, w, b, dy = (torch.from_numpy(v.astype(np.float32)).to("cuda", dt)
+                   for v, dt in zip(vals, dts))
+    cl = torch.channels_last
+    return x.contiguous(memory_format=cl), w, b, dy.contiguous(memory_format=cl)
+
+
+def conv_bound(B: int, H: int, W: int, dtype: str, C: int = 64, O: int = 64):
+    """Least time for one conv: 2*9*C*O operations per output pixel at the
+    dtype's peak, or x and y once, the weight once (in x's dtype) and the f32
+    bias once at the HBM rate."""
+    esize = 2 if dtype == "bfloat16" else 4
+    flops = 2.0 * B * H * W * O * 9 * C
+    nbytes = B * H * W * (C + O) * esize + 9 * C * O * esize + 4 * O
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
 @contextlib.contextmanager
 def plain_channel_blocks(mixer_module, reference):
     """Run the model's channel blocks through the plain version."""
@@ -305,7 +360,9 @@ def main() -> int:
 
     from pips_tpu_torch import (ChainTracker, ChainTrackerOnDevice, WindowTracker,
                                 dense_queries, grid_queries, make_pips)
-    from pips_tpu_torch.kernels import _build, corr_cuda, mixer_cuda
+    import torch.nn.functional as F
+
+    from pips_tpu_torch.kernels import _build, conv_cuda, corr_cuda, mixer_cuda
     from pips_tpu_torch.models import mixer as mixer_module
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -315,12 +372,13 @@ def main() -> int:
         mixer_cuda.launches = 0
         mixer_cuda.bwd_launches = 0
         corr_cuda.launches = 0
+        conv_cuda.launches = 0
 
     def counts():
         return mixer_cuda.launches, corr_cuda.launches
 
     # launches summed over main-path runs
-    main_path = {"chan_ff_block": 0, "corr_sample": 0, "chan_ff_bwd": 0}
+    main_path = {"chan_ff_block": 0, "corr_sample": 0, "chan_ff_bwd": 0, "conv3x3_same": 0}
 
     def add_main(chanff_n, corr_n):
         main_path["chan_ff_block"] += chanff_n
@@ -427,6 +485,69 @@ def main() -> int:
         del args, out, ref, tols
     torch.cuda.empty_cache()
 
+    # 3d. conv3x3_same against its plain version, forward and dx (the same
+    # kernel on dy with the rotated, in/out-swapped weights), at the encoder's
+    # stage-1 shapes; timed in turns with F.conv2d in x's dtype (cuDNN), the
+    # one PyTorch call that computes the same conv
+    conv = {}
+    for case, B, H, W, dtype in CONV_SHAPES:
+        x, w, b, dy = conv_args(torch, np, B, H, W, dtype, seed=B + H)
+        w_rot = w.to(x.dtype).flip(2, 3).transpose(0, 1)
+        zero = torch.zeros(64, device="cuda")
+        outs = {"y": conv_cuda.conv3x3_same(x, w, b), "dx": conv_cuda.conv3x3_same(dy, w_rot, zero)}
+        torch.cuda.synchronize()
+        refs = {"y": conv_cuda.conv3x3_reference(x, w, b),
+                "dx": conv_cuda.conv3x3_reference(dy, w_rot, zero)}
+        parts, errs = [], {}
+        for name, out in outs.items():
+            ref = refs[name]
+            err = (out.float() - ref.float()).abs().max().item()
+            ref_max = ref.float().abs().max().item()
+            tol = bf16_tol(ref_max) if dtype == "bfloat16" else TOL_F32
+            parts.append(f"{name} {err:.3g} (tol {tol:.3g}, |{name}| <= {ref_max:.3g})")
+            same_format = out.is_contiguous(memory_format=torch.channels_last)
+            if not (out.shape == ref.shape and out.dtype == ref.dtype and same_format
+                    and err <= tol):
+                fail(f"conv3x3_same {case} {name} disagrees with its plain version: {err} > {tol}")
+            errs[name] = err
+        if case == "bench train":  # dW and db through the autograd Function
+            leaves = {}
+            for side, fn in (("kernel", conv_cuda.conv3x3_same),
+                             ("plain", conv_cuda.conv3x3_reference)):
+                xg, wg, bg = (t.clone().requires_grad_(True) for t in (x, w, b))
+                fn(xg, wg.to(x.dtype), bg).backward(dy)
+                leaves[side] = {"dx": xg.grad, "dW": wg.grad, "db": bg.grad}
+            torch.cuda.synchronize()
+            for name, g in leaves["kernel"].items():
+                r = leaves["plain"][name]
+                err = (g.float() - r.float()).abs().max().item()
+                tol = bf16_tol(r.float().abs().max().item())
+                parts.append(f"Function {name} {err:.3g} (tol {tol:.3g})")
+                if not (g.shape == r.shape and g.dtype == r.dtype and err <= tol):
+                    fail(f"conv3x3_same's backward {name} disagrees with autograd of the plain "
+                         f"version: {err} > {tol}")
+        args = (x, w, b)
+        wl, bl = w.to(x.dtype), b.to(x.dtype)
+
+        def library():
+            return F.conv2d(x, wl, bl, padding=1)
+
+        k1 = median_ms(torch, conv_cuda.conv3x3_same, args)
+        l1 = median_ms(torch, library, ())
+        k2 = median_ms(torch, conv_cuda.conv3x3_same, args)
+        l2 = median_ms(torch, library, ())
+        plain_ms = median_ms(torch, conv_cuda.conv3x3_reference, args)
+        bound_ms, bound_by = conv_bound(B, H, W, dtype)
+        ms, lib_ms = (k1 + k2) / 2, (l1 + l2) / 2
+        log("kernels", f"conv3x3_same {case} {B}x64x{H}x{W} {dtype} channels_last: max_abs_err "
+                       + "; ".join(parts) + f"; {k1:.4f}/{k2:.4f} ms, F.conv2d {l1:.4f}/{l2:.4f} "
+                       f"ms (in turns), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                       f"({bound_by})")
+        conv[case] = dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+        del x, w, b, dy, w_rot, outs, refs
+    torch.cuda.empty_cache()
+
     # 4. slice: the served windows, onehot
     t = time.perf_counter()
     model = make_pips(device="cuda", seed=0, dtype=torch.bfloat16, fuse_chanff=True)
@@ -445,6 +566,7 @@ def main() -> int:
     requests = [(name, rgbs.astype(np.float32), xys.astype(np.float32))
                 for name, rgbs, xys in requests]
 
+    window_ms = {}
     zero_counts()  # counts from here to the end of this path only
     served = []
     for name, rgbs, xys in requests:
@@ -477,6 +599,41 @@ def main() -> int:
                      f"1 iter traj max {one['max']:.3g} px, vis max {one['vis_max']:.3g}; "
                      f"6 iters {fmt(six)}")
         check_drift(name, one, six)
+
+    # 4b. the first window with fuse_conv3: the encoder's four stage-1 convs
+    # through the conv kernel, against the same weights without it. The
+    # kernel adds the bias before its one bf16 rounding, the plain conv after
+    # it, so the two differ by bf16 rounding: one iteration within ONE_ITER,
+    # six within the drift bounds.
+    model_c = make_pips(device="cuda", seed=0, dtype=torch.bfloat16, fuse_chanff=True,
+                        fuse_conv3=True)
+    tracker_c = WindowTracker(model_c, iters=ITERS, corr_mode="onehot")
+    name, rgbs, xys, trajs, vis, _ = served[0]
+    zero_counts()
+    c_trajs, c_vis = tracker_c(xys, rgbs)
+    n_conv, n_ff = conv_cuda.launches, mixer_cuda.launches
+    check_window(np, f"fuse_conv3 {name}", c_trajs, c_vis, xys)
+    if n_conv != CONV_PER_ENCODE or n_ff != DEPTH * ITERS:
+        fail(f"fuse_conv3 {name}: conv3x3_same launched {n_conv} and chan_ff_block {n_ff} times, "
+             f"expected {CONV_PER_ENCODE} and {DEPTH * ITERS}")
+    main_path["conv3x3_same"] += n_conv
+    main_path["chan_ff_block"] += n_ff
+    one = drift(np, *WindowTracker(model_c, iters=1, corr_mode="onehot")(xys, rgbs),
+                *tracker1(xys, rgbs))
+    six = drift(np, c_trajs, c_vis, trajs, vis)
+    times = {"plain convs": [], "fuse_conv3": []}
+    for _ in range(7):
+        times["plain convs"].append(window_seconds(torch, tracker, xys, rgbs))
+        times["fuse_conv3"].append(window_seconds(torch, tracker_c, xys, rgbs))
+    med = {k: sorted(v)[len(v) // 2] * 1e3 for k, v in times.items()}
+    log("slice", f"fuse_conv3 {name}: {n_conv} conv + {n_ff} chan_ff launches; vs plain convs: "
+                 f"1 iter traj max {one['max']:.3g} px, vis max {one['vis_max']:.3g}; 6 iters "
+                 f"{fmt(six)}; median window over 7, in turns: plain convs "
+                 f"{med['plain convs']:.2f} ms, fuse_conv3 {med['fuse_conv3']:.2f} ms (host clock)")
+    check_drift(f"fuse_conv3 {name}", one, six)
+    window_ms["fuse_conv3 " + name] = med
+    del model_c, tracker_c
+    torch.cuda.empty_cache()
 
     # 5. slice: the served windows, pallas (the corr kernel), and the dense probe
     requests.append(("dense_queries(480, 1024) N=7680 @480x1024",
@@ -513,7 +670,6 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # window times, onehot and pallas in turns (host clock, frames uploaded each call)
-    window_ms = {}
     for idx in (0, len(requests) - 1):
         name, rgbs, xys = requests[idx]
         times = {"onehot": [], "pallas": []}
@@ -751,6 +907,83 @@ def main() -> int:
                  f"{per_step} chan_ff_block + {per_step} chan_ff_bwd launches per step; "
                  f"total_loss {m['total_loss']:.4g}")
 
+    # 8. slice: the train loop end to end with fuse_conv3, at full width on the
+    # synthetic set at the bench train shape; media at 384x512 render the
+    # score maps too (a second forward)
+    from pips_tpu_torch.train import TrainConfig
+    from pips_tpu_torch.train.loop import train as train_loop
+    from pips_tpu_torch.utils import saverloader
+
+    del train_model, opt, step, big
+    torch.cuda.empty_cache()
+    t8 = time.perf_counter()
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_loop_", dir=build_dir))
+    cfg = TrainConfig(B=TRAIN["B"], N=TRAIN["N"], I=TRAIN["iters"],
+                      crop_size=(TRAIN["H"], TRAIN["W"]), horz_flip=False, vert_flip=False,
+                      dataset="synthetic", dtype="bfloat16",
+                      fuse_chanff=-1, fuse_conv3=1, max_iters=LOOP_STEPS, save_freq=LOOP_EVERY,
+                      val_freq=LOOP_EVERY, log_freq=LOOP_EVERY, val_batches=2, log_media=True,
+                      metrics_every=1, num_workers=4, ckpt_dir=str(root / "ckpts"),
+                      log_dir=str(root / "logs"))
+    run_dir = root / "ckpts" / cfg.model_name()
+
+    def loop_run(c, first_step: int):
+        zero_counts()
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            metrics = train_loop(c, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        out = buf.getvalue()
+        steps = c.max_iters - first_step
+        events = sum(1 for k in range(first_step + 1, c.max_iters + 1) if k % LOOP_EVERY == 0)
+        want_conv = 2 * CONV_PER_ENCODE * steps + CONV_PER_ENCODE * (c.val_batches + 1) * events
+        want_fwd = DEPTH * c.I * (steps + (c.val_batches + 1) * events)
+        got = (conv_cuda.launches, mixer_cuda.launches, mixer_cuda.bwd_launches, corr_cuda.launches)
+        if got != (want_conv, want_fwd, DEPTH * c.I * steps, 0):
+            fail(f"train loop to step {c.max_iters}: conv3x3_same, chan_ff_block, chan_ff_bwd and "
+                 f"corr_sample launched {got} times, expected "
+                 f"{(want_conv, want_fwd, DEPTH * c.I * steps, 0)}")
+        main_path["conv3x3_same"] += got[0]
+        main_path["chan_ff_block"] += got[1]
+        main_path["chan_ff_bwd"] += got[2]
+        losses = [float(v) for v in re.findall(r"loss = ([0-9.eE+-]+)", out)]
+        if len(losses) != steps or not all(math.isfinite(v) for v in losses + [*metrics.values()]):
+            fail(f"train loop to step {c.max_iters}: {len(losses)} step losses, metrics {metrics}")
+        return out, losses, secs, got
+
+    out, losses, secs, got = loop_run(cfg, 0)
+    head, tail = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    log("loop", f"{LOOP_STEPS} steps (val, media, save every {LOOP_EVERY}) in {secs:.1f} s; "
+                f"total_loss {' '.join(f'{v:.4g}' for v in losses)}; conv3x3_same, chan_ff_block, "
+                f"chan_ff_bwd, corr_sample launches {got}")
+    if not tail < head:
+        fail(f"the train loop's loss did not fall: first three {head:.4g}, last three {tail:.4g}")
+    if saverloader.list_steps(str(run_dir)) != [LOOP_STEPS]:
+        fail(f"checkpoints {saverloader.list_steps(str(run_dir))}, expected [{LOOP_STEPS}]")
+    (log_dir,) = (root / "logs").iterdir()
+    with open(log_dir / "events.jsonl") as f:
+        keys = {k for line in f for k in json.loads(line)}
+    media = sorted(p.name for p in (log_dir / "media").iterdir())
+    if not (any(k.startswith("pooled/") for k in keys)
+            and any(k.startswith("val_pooled/") for k in keys)):
+        fail(f"events.jsonl lacks pooled/ or val_pooled/ keys: {sorted(keys)}")
+    if not (any("trajs_on_rgbs" in m for m in media) and any("fcp_point0" in m for m in media)):
+        fail(f"no media written: {media}")
+    out, more, secs, got = loop_run(dataclasses.replace(cfg, max_iters=LOOP_STEPS + LOOP_MORE),
+                                    LOOP_STEPS)
+    resumed = f"auto-resumed from {run_dir} at step {LOOP_STEPS}"
+    if resumed not in out or saverloader.list_steps(str(run_dir)) != [LOOP_STEPS + LOOP_MORE]:
+        fail(f"the relaunch did not resume at step {LOOP_STEPS}: {out[-2000:]}")
+    log("loop", f"relaunch to step {LOOP_STEPS + LOOP_MORE}: {resumed}; total_loss "
+                f"{' '.join(f'{v:.4g}' for v in more)}; {secs:.1f} s; launches {got}; media "
+                f"{len(media)} files, events keys {len(keys)}; "
+                f"phase {time.perf_counter() - t8:.1f} s")
+    shutil.rmtree(root)
+
     log("slice", f"main-path launches: {main_path}")
     if min(main_path.values()) == 0:
         fail(f"a kernel of the path never launched on it: {main_path}")
@@ -767,7 +1000,10 @@ def main() -> int:
         {"name": "chan_ff_bwd", "route": "cuda", "source": "pips_tpu_torch/csrc/chanff_bwd.cu",
          "replaces": "pips_tpu/kernels/mixer_pallas.py:245",
          "launches": main_path["chan_ff_bwd"], **chanff_bwd[TRAIN_R_DEFAULT],
-         "library_ms": None}]}), flush=True)
+         "library_ms": None},
+        {"name": "conv3x3_same", "route": "cuda", "source": "pips_tpu_torch/csrc/conv3x3_fwd.cu",
+         "replaces": "pips_tpu/kernels/conv_pallas.py:148",
+         "launches": main_path["conv3x3_same"], **conv["window"]}]}), flush=True)
     log("done", f"all phases passed in {time.perf_counter() - T0:.1f} s "
                 f"(chained video {chain_s:.2f} s; windows {json.dumps(window_ms)}; "
                 f"training default {json.dumps(train_default)})")

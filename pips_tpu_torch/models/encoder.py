@@ -1,9 +1,16 @@
 """Residual CNN feature encoder (counterpart of ``pips_tpu/models/encoder.py``).
 
-NCHW inside, as ``F.conv2d`` wants it. The JAX encoder's W-space-to-depth
-paths (``full_s2d``, the packed-kernel convs, the row-tap stem) and
-``fuse_conv3`` are exact-math rewrites for the TPU's layout; here each is the
-plain convolution it equals.
+NCHW indexing inside, as ``F.conv2d`` takes it; in memory the tensors are
+``torch.channels_last``, since ``Pips.encode`` permutes NHWC frames and the
+convs keep that format. The JAX encoder's W-space-to-depth
+paths (``full_s2d``, the packed-kernel convs, the row-tap stem) are
+exact-math rewrites for the TPU's layout; here each is the plain convolution
+it equals, so ``full_s2d`` is accepted and changes nothing. ``fuse_conv3``
+routes the convs that JAX routes through its Pallas kernel (3x3, stride 1,
+pad 1, 64 -> 64 channels, even W: the four stage-1 convs) through
+``kernels.conv_cuda.conv3x3_same``, whose CUDA kernel runs them on the card;
+every other conv stays ``F.conv2d``, as every other conv stays ``nn.Conv`` in
+JAX.
 
   conv 7x7/2 -> IN -> relu
   stage1: 2x ResidualBlock(64,  stride 1)   @ 1/2
@@ -22,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from pips_tpu_torch.kernels.conv_cuda import conv3x3_same
 from pips_tpu_torch.ops.resize import resize_bilinear_align_corners
 
 
@@ -60,28 +68,38 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 class Conv(nn.Module):
     """Conv2d with explicit zero padding; weight (O, I, k, k) f32, run in
     ``dtype`` (or x's dtype) like flax ``nn.Conv(dtype=...)``. Parameters
-    start at zero: ``models.pips.init_params`` or a loaded state_dict fills them."""
+    start at zero: ``models.pips.init_params`` or a loaded state_dict fills them.
+
+    ``fuse=True`` sends the shapes JAX's ``Conv(fuse=True)`` sends to its
+    kernel (3x3, stride 1, pad 1, 64 -> 64 channels, even W) through
+    ``conv3x3_same``, with the bias in f32 as JAX passes it; the parameters
+    are the same in every mode."""
 
     def __init__(self, c_in: int, c_out: int, kernel: int, stride: int = 1, pad: int = 0,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, fuse: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(c_out, c_in, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(c_out))
-        self.stride, self.pad, self.dtype = stride, pad, dtype
+        self.stride, self.pad, self.dtype, self.fuse = stride, pad, dtype, fuse
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or x.dtype
+        if (self.fuse and self.weight.shape[2:] == (3, 3) and self.stride == 1 and self.pad == 1
+                and x.shape[1] == 64 and self.weight.shape[0] == 64 and x.shape[3] % 2 == 0):
+            return conv3x3_same(x.to(dt), self.weight.to(dt), self.bias)
         return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
                         stride=self.stride, padding=self.pad)
 
 
 class ResidualBlock(nn.Module):
-    """Two 3x3 convs with instance norm + relu and a strided 1x1 shortcut."""
+    """Two 3x3 convs with instance norm + relu and a strided 1x1 shortcut;
+    ``fuse_conv3`` is passed to both 3x3 convs, as in JAX."""
 
-    def __init__(self, c_in: int, planes: int, stride: int = 1, dtype=None):
+    def __init__(self, c_in: int, planes: int, stride: int = 1, dtype=None,
+                 fuse_conv3: bool = False):
         super().__init__()
-        self.conv1 = Conv(c_in, planes, 3, stride, 1, dtype)
-        self.conv2 = Conv(planes, planes, 3, 1, 1, dtype)
+        self.conv1 = Conv(c_in, planes, 3, stride, 1, dtype, fuse=fuse_conv3)
+        self.conv2 = Conv(planes, planes, 3, 1, 1, dtype, fuse=fuse_conv3)
         self.downsample = Conv(c_in, planes, 1, stride, 0, dtype) if stride != 1 else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -97,14 +115,17 @@ class BasicEncoder(nn.Module):
 
     ``remat=True`` recomputes the stem conv and each residual block in the
     backward (``torch.utils.checkpoint``), as JAX's per-block ``nn.remat``:
-    only block inputs are kept for the backward.
+    only block inputs are kept for the backward, and a fused conv runs its
+    kernel again there. ``fuse_conv3`` and ``full_s2d`` are the JAX fields
+    (module docstring).
     """
 
     def __init__(self, output_dim: int = 128, stride: int = 8,
                  stage_dims: Sequence[int] = (64, 96, 128, 128), dtype=None,
-                 remat: bool = False):
+                 remat: bool = False, fuse_conv3: bool = False, full_s2d: bool = True):
         super().__init__()
         self.stride, self.dtype, self.remat = stride, dtype, remat
+        self.fuse_conv3, self.full_s2d = fuse_conv3, full_s2d
         self.conv1 = Conv(3, stage_dims[0], 7, 2, 3, dtype)
         c_in = stage_dims[0]
         self.stage_names = []
@@ -112,7 +133,7 @@ class BasicEncoder(nn.Module):
             for j in range(2):
                 name = f"layer{i + 1}_{j}"
                 stride_ij = 2 if (i > 0 and j == 0) else 1
-                self.add_module(name, ResidualBlock(c_in, dim, stride_ij, dtype))
+                self.add_module(name, ResidualBlock(c_in, dim, stride_ij, dtype, fuse_conv3))
                 self.stage_names.append(name)
                 c_in = dim
         self.conv2 = Conv(sum(stage_dims), output_dim * 2, 3, 1, 1, dtype)

@@ -91,19 +91,25 @@ class Pips(nn.Module):
 
     ``remat_mixer``, ``remat_corr`` and ``remat_encoder`` recompute, in the
     backward, the DeltaBlock, each iteration's score volumes and each encoder
-    block (``torch.utils.checkpoint``), as the JAX flags of the same names."""
+    block (``torch.utils.checkpoint``), as the JAX flags of the same names.
+    ``fuse_conv3`` runs the encoder's four stage-1 3x3 convs through
+    ``kernels.conv_cuda.conv3x3_same`` (on the card, ``csrc/conv3x3_fwd.cu``:
+    4 launches per ``encode``, 4 more for dx in the backward); ``full_s2d``,
+    a TPU layout choice, is accepted and computes the same plain convs."""
 
     def __init__(self, S: int = 8, stride: int = 8, latent_dim: int = 128,
                  corr_levels: int = 4, corr_radius: int = 3, mixer_dim: int = 512,
                  mixer_depth: int = 12, dtype: Optional[torch.dtype] = None,
                  fuse_chanff: bool = False, remat_mixer: bool = False,
-                 remat_corr: bool = False, remat_encoder: bool = False):
+                 remat_corr: bool = False, remat_encoder: bool = False,
+                 fuse_conv3: bool = False, full_s2d: bool = True):
         super().__init__()
         self.S, self.stride, self.latent_dim = S, stride, latent_dim
         self.corr_levels, self.corr_radius = corr_levels, corr_radius
         self.remat_corr = remat_corr
         self.fnet = BasicEncoder(output_dim=latent_dim, stride=stride, dtype=dtype,
-                                 remat=remat_encoder)
+                                 remat=remat_encoder, fuse_conv3=fuse_conv3,
+                                 full_s2d=full_s2d)
         self.delta_block = DeltaBlock(latent_dim, corr_levels, corr_radius, S, mixer_dim,
                                       mixer_depth, dtype=dtype, fuse_chanff=fuse_chanff,
                                       remat=remat_mixer)

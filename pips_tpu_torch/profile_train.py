@@ -1,6 +1,6 @@
 """Where a training step's time goes on the card.
 
-    python3 -m pips_tpu_torch.profile_train [--bench]
+    python3 -m pips_tpu_torch.profile_train [--bench] [--fuse-conv3]
 
 Trains the flagship bf16 model (fused channel blocks, random weights from
 seed 0) on a synthetic batch at the training default (B=1 doubled by both
@@ -11,7 +11,9 @@ those steps; from ``torch.profiler``, one step's device time summed over
 kernels and split into forward, backward and optimizer, the device's idle
 share of the step, the kernels that take the most device time, and the time
 of the channel block's forward and backward kernels (the backward by its
-three launches). CUDA only.
+three launches) and of the stage-1 conv kernel. ``--fuse-conv3`` runs the
+encoder's four stage-1 3x3 convs (and their dx) through
+``csrc/conv3x3_fwd.cu``. CUDA only.
 """
 
 from __future__ import annotations
@@ -38,12 +40,15 @@ RANGES = ("forward", "backward", "optimizer")
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--bench", action="store_true", help="the bench train shape")
+    ap.add_argument("--fuse-conv3", action="store_true",
+                    help="the stage-1 3x3 convs through the conv kernel")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
     cfg = BENCH if args.bench else DEFAULT
 
-    model = make_pips(seed=0, dtype=torch.bfloat16, fuse_chanff=True).train()
+    model = make_pips(seed=0, dtype=torch.bfloat16, fuse_chanff=True,
+                      fuse_conv3=args.fuse_conv3).train()
     sample, _ = SyntheticPointDataset(S=8, N=cfg["N"], H=cfg["H"], W=cfg["W"], seed=1)[0]
     batch = {k: torch.from_numpy(v[None]).cuda() for k, v in sample.items()}
     opt = make_optimizer(model.parameters(), lr=5e-4, num_steps=100)
@@ -77,7 +82,8 @@ def main() -> None:
             torch.cuda.synchronize()
 
     B = batch["rgbs"].shape[0] * (1 + cfg["flips"][0]) * (1 + cfg["flips"][1])
-    res = {"device": torch.cuda.get_device_name(0), "batch_after_flips": B, **cfg,
+    res = {"device": torch.cuda.get_device_name(0), "fuse_conv3": args.fuse_conv3,
+           "batch_after_flips": B, **cfg,
            "step_ms_median": step_ms, "points_frames_per_s": B * cfg["N"] * 8 / step_ms * 1e3,
            "peak_memory_gb": peak_gb}
     res.update(summarize(prof, torch.autograd.DeviceType.CUDA, top=15, ranges=RANGES))

@@ -1,6 +1,6 @@
 """Where a served window's time goes on the card.
 
-    python3 -m pips_tpu_torch.profile_window [--corr-mode pallas] [--dense]
+    python3 -m pips_tpu_torch.profile_window [--corr-mode pallas] [--dense] [--fuse-conv3]
 
 Serves the flagship bf16 window (the first request of ``chip_smoke.py``:
 N=256 random queries at 480x1024, 6 iterations; with ``--dense``, the dense
@@ -9,7 +9,10 @@ probe's N=7680 queries, one every 8 pixels) with the given corr mode
 frames already on the card; from ``torch.profiler``, the device time summed
 over kernels, split into encode and track, and the device's idle share of
 that window; the kernels that take the most device time; and the time of
-the fused channel block and of the corr kernel. CUDA only.
+the fused channel block, of the corr kernel and of the stage-1 conv kernel.
+``--fuse-conv3`` runs the encoder's four stage-1 3x3 convs through
+``csrc/conv3x3_fwd.cu``, so the encode range reads with and without it.
+CUDA only.
 """
 
 from __future__ import annotations
@@ -57,6 +60,8 @@ def summarize(prof, device_type, top: int, ranges=("encode", "track")) -> dict:
         "chanff_bwd_ms": {re.search(r"chanff_bwd_\w+", k).group(0): v[0] / 1e3
                           for k, v in by_name.items() if "chanff_bwd" in k},
         "corr_sample_ms": sum(v[0] for k, v in by_name.items() if "corr_sample" in k) / 1e3,
+        "conv3x3_ms": sum(v[0] for k, v in by_name.items() if "conv3x3_" in k) / 1e3,
+        "conv3x3_launches": sum(v[1] for k, v in by_name.items() if "conv3x3_" in k),
         "top_kernels": [{"name": k[:90], "ms": v[0] / 1e3, "count": v[1]} for k, v in ranked],
     }
 
@@ -65,6 +70,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--corr-mode", default="onehot", choices=CORR_MODES)
     ap.add_argument("--dense", action="store_true", help="N=7680 queries, one every 8 px")
+    ap.add_argument("--fuse-conv3", action="store_true",
+                    help="the stage-1 3x3 convs through the conv kernel")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_window needs a CUDA device")
@@ -77,7 +84,8 @@ def main() -> None:
     else:
         xys = (rng.rand(1, 256, 2) * [W - 8, H - 8] + 4).astype(np.float32)
     N = xys.shape[1]
-    tracker = WindowTracker(make_pips(seed=0, dtype=torch.bfloat16, fuse_chanff=True),
+    tracker = WindowTracker(make_pips(seed=0, dtype=torch.bfloat16, fuse_chanff=True,
+                                      fuse_conv3=args.fuse_conv3),
                             iters=6, corr_mode=args.corr_mode)
     frames = torch.from_numpy(rgbs).cuda()
 
@@ -105,7 +113,8 @@ def main() -> None:
             torch.cuda.synchronize()
         t_end = time.perf_counter()
 
-    res = {"device": torch.cuda.get_device_name(0), "corr_mode": args.corr_mode, "n": N,
+    res = {"device": torch.cuda.get_device_name(0), "corr_mode": args.corr_mode,
+           "fuse_conv3": args.fuse_conv3, "n": N,
            "hw": [H, W],
            "window_ms_median_frames_on_device": wall_ms,
            "profiled_wall_ms": {"encode": (t_enc - t) * 1e3, "track": (t_end - t_enc) * 1e3}}

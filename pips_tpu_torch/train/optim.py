@@ -49,12 +49,13 @@ def onecycle_linear(max_lr: float, total_steps: int, pct_start: float = 0.05,
 @torch.no_grad()
 def clip_by_global_norm_(params: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:
     """Scale the grads in place by max_norm / |g| when the global norm |g| of
-    all of them is at least max_norm, as optax.clip_by_global_norm. Returns |g|."""
+    all of them is at least max_norm, as optax.clip_by_global_norm. The test
+    runs on the device, so the host never waits for |g|. Returns |g|, a 0-d
+    tensor."""
     grads = [p.grad for p in params if p.grad is not None]
     norm = torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
-    if norm >= max_norm:
-        for g in grads:
-            g.copy_(g / norm.to(g.dtype) * max_norm)
+    torch._foreach_mul_(grads, torch.where(norm >= max_norm, max_norm / norm,
+                                           torch.ones_like(norm)))
     return norm
 
 
@@ -81,13 +82,25 @@ class Optimizer:
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
 
-    def step(self) -> float:
-        """One update; returns the global grad norm before clipping."""
+    def step(self) -> torch.Tensor:
+        """One update; returns the global grad norm before clipping, a 0-d
+        tensor (reading it waits for the device)."""
         norm = clip_by_global_norm_(self.params, self.clip)
         self.adamw.step()
         if self.scheduler is not None:
             self.scheduler.step()
-        return float(norm)
+        return norm
+
+    def state_dict(self) -> dict:
+        """AdamW's moments and step counts, and the schedule's position: what a
+        checkpoint needs to resume the optimizer exactly."""
+        return {"adamw": self.adamw.state_dict(),
+                "scheduler": None if self.scheduler is None else self.scheduler.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.adamw.load_state_dict(state["adamw"])
+        if self.scheduler is not None:
+            self.scheduler.load_state_dict(state["scheduler"])
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float, num_steps: int,

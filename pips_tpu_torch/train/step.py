@@ -68,14 +68,17 @@ def train_loss_fn(model, batch: Batch, iters: int, is_train: bool = True):
 
 
 def make_train_step(model, optimizer, iters: int = 4, horz_flip: bool = True,
-                    vert_flip: bool = True, grad_acc: int = 1,
-                    remat: bool = False) -> Callable[[Batch], Dict[str, float]]:
+                    vert_flip: bool = True, grad_acc: int = 1, remat: bool = False,
+                    sync_metrics: bool = True) -> Callable[[Batch], Dict[str, float]]:
     """``step(batch) -> metrics``: one optimizer step of ``model``.
 
     ``batch`` holds numpy arrays or tensors (moved to the model's device as
     f32); with ``grad_acc > 1`` each has a leading (grad_acc,) microbatch axis,
     the microbatches' grads are summed and their metrics averaged. ``remat``
-    recomputes the whole forward in the backward. Metrics come back as floats.
+    recomputes the whole forward in the backward. Metrics come back as floats,
+    which waits for the step to finish on the device; with
+    ``sync_metrics=False`` as 0-d tensors on the device, so a loop can read
+    them only every few steps.
     """
 
     def loss_for_grad(mb: Batch):
@@ -101,6 +104,8 @@ def make_train_step(model, optimizer, iters: int = 4, horz_flip: bool = True,
             m = {k: v.detach() for k, v in metrics.items()}
             sums = m if sums is None else {k: sums[k] + m[k] for k in sums}
         optimizer.step()
+        if not sync_metrics:
+            return {k: v / len(micro) for k, v in sums.items()}
         return {k: float(v) / len(micro) for k, v in sums.items()}
 
     return step

@@ -38,13 +38,20 @@ def test_port_imports_no_jax_and_nothing_of_pips_tpu():
     assert res["banned"] == []
 
 
-def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
     from pips_tpu_torch import Pips, WindowTracker, make_pips
+    from pips_tpu_torch.train import TrainConfig
+    from pips_tpu_torch.train.loop import train
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     tiny = dict(latent_dim=16, mixer_dim=32, mixer_depth=1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_pips(**tiny)
+    cfg = TrainConfig(dataset="synthetic", max_iters=1, ckpt_dir=str(tmp_path / "c"),
+                      log_dir=str(tmp_path / "l"), **tiny)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train(cfg)  # the default device; nothing runs on the CPU
+    assert not (tmp_path / "c").exists() and not (tmp_path / "l").exists()
     model = make_pips(device="cpu", **tiny)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         WindowTracker(model)
