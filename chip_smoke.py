@@ -42,13 +42,27 @@ Phases, each printing a progress line with the elapsed seconds:
      step's checkpoint exist, ``events.jsonl`` hold pooled and val_pooled
      keys, and a relaunch with more steps resume at the saved step; conv
      kernel launches: 8 per train step, 4 per validation batch and media
-     render.
+     render;
+  9. slice, the profiling tools: ``pips_tpu_torch.tools.profile_block_kernel``
+     and ``profile_stem_wgrad``'s ``main`` at their full-width shapes (the
+     stage-1 residual block at 8x64x192x256 bf16; the stem weight gradient at
+     B=1 and B=8, 384x512 bf16); ``res_block64`` must launch the conv-pass
+     kernel 2 times per forward and 4 per forward+backward, ``stem_wgrad``
+     its kernel once per weight gradient.
 Phase 3 also holds (3d) ``conv3x3_same`` (the encoder's stage-1 3x3 conv)
 against its plain version, forward and dx, at a window's, the training
 default's and the bench train shape's stage 1 in bf16 and a small ragged
 shape in bf16 and f32, all channels_last, with dW and db through its autograd Function, timed in turns with
 ``F.conv2d``; and phase 4 (4b) serves the N=256 window with ``fuse_conv3``
-against the same weights without it, 4 conv launches per window.
+against the same weights without it, 4 conv launches per window. 3e holds
+``conv_pass`` (the residual block's conv with the norm statistics in its
+epilogue), with and without its prologue, against its plain version at the
+block's bench shape in bf16 and a ragged f32 shape, and the whole
+``res_block64``, forward and five grads, against ``res_block64_reference``;
+timed in turns with ``F.conv2d`` and the modular ``ResidualBlock``. 3f holds
+``stem_wgrad`` against its plain version at B=1 and B=8, 384x512 bf16 and a
+small f32 shape, timed in turns with the library's weight grad of the s2d
+conv and of the x7 conv.
 Kernel launch counts are zeroed just before each main-path run and read
 just after; comparison runs are not counted. Then a ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": ...}``. Any failure exits non-zero
@@ -117,6 +131,23 @@ CONV_SHAPES = [("window", 8, 240, 512, "bfloat16"),
                ("small f32", 2, 31, 70, "float32")]
 CONV_PER_ENCODE = 4  # layer1_0.conv1/conv2 and layer1_1.conv1/conv2
 LOOP_STEPS, LOOP_EVERY, LOOP_MORE = 12, 6, 6  # phase 8: steps, val/save/media period, relaunch
+# phase 3e: the residual block's conv pass at the stage-1 bench shape of
+# tools/profile_block_kernel.py (8 frames at 192x256, 64 channels, bf16) and a
+# small shape with ragged tiles in f32; the whole block at the first
+PASS_CASES = [("bench", 8, 192, 256, "bfloat16"), ("small f32", 2, 31, 70, "float32")]
+# phase 3f: the stem weight gradient at tools/profile_stem_wgrad.py's shapes,
+# and a small one in f32 whose rows end in a partial segment of columns
+STEM_CASES = [("B=1", 1, 384, 512, "bfloat16"), ("B=8", 8, 384, 512, "bfloat16"),
+              ("small f32", 2, 64, 96, "float32")]
+U32 = 2.0 ** -24  # unit roundoff of f32
+# the whole block against its plain version: the forward within four bf16
+# ulps at its largest magnitude (both round y1, the pass-2 input, y2 and the
+# output, from f32 values that differ in summation order); the grads of x, w1
+# and w2 by the encoder-leaf rule of phase 7 (a relu mask can flip where two
+# forwards differ by an ulp, which moves a grad at that pixel by its whole
+# size), tightened; each db is rounding noise around zero (the norm removes
+# the bias), held against the weight grads' scale
+BLOCK_TOL = dict(grad_cos=0.999, grad_rel_l2=0.02, db_of_dw=0.01)
 
 
 def log(phase: str, msg: str) -> None:
@@ -301,6 +332,84 @@ def conv_bound(B: int, H: int, W: int, dtype: str, C: int = 64, O: int = 64):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def pass_args(torch, np, B: int, H: int, W: int, dtype: str, seed: int, C: int = 64):
+    """x (B, C, H, W) channels_last in dtype, an f32 weight and bias as the
+    encoder holds them, and a per-image [scale; shift] (B, 2, C) as the
+    block's first norm gives it (scale = rsig > 0, shift of either sign)."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(B, H, W, C).astype(np.float32)).to("cuda", getattr(torch, dtype))
+    w = rng.randn(C, C, 3, 3) * np.sqrt(2.0 / (9 * C))
+    aff = np.stack([0.5 + rng.rand(B, C), 0.3 * rng.randn(B, C)], axis=1)
+    w, b, aff = (torch.from_numpy(v.astype(np.float32)).cuda()
+                 for v in (w, 0.1 * rng.randn(C), aff))
+    return x.permute(0, 3, 1, 2), w, b, aff
+
+
+def pass_tols(torch, F, x, w, b, aff, prologue: bool, tiles: int):
+    """Bounds on |kernel - plain| of a conv pass. Each side sums the same 576
+    products of the pass's input (exact for bf16 operands) and the bias in
+    f32 in its own order, so each accumulator is within gamma_577 = 577 u of
+    the same sum of absolute values A (the conv of |input| with |w|, plus
+    |b|): the two differ by at most twice that, elementwise. The plain
+    statistics are summed in f64; the kernel's add at most tiles + 20
+    accumulators in a chain (four per thread, three shuffle levels, four
+    warps, then the tiles), each rounding within u of the running sum.
+    Returns the accumulators' bound and the (B, 2, 64) bound of the stats."""
+    xin = x.float()
+    if prologue:
+        scale, shift = aff[:, 0, :, None, None], aff[:, 1, :, None, None]
+        xin = (xin * scale + shift).clamp_min(0.0).to(x.dtype).float()
+    wk = w.to(x.dtype).float()
+    acc = F.conv2d(xin, wk, b, padding=1)
+    tol_acc = 2 * 577 * U32 * F.conv2d(xin.abs(), wk.abs(), b.abs(), padding=1)
+    chain = (tiles + 20) * U32
+    tol_s = tol_acc.sum(dim=(2, 3)) + chain * acc.abs().sum(dim=(2, 3))
+    tol_q = ((2 * acc.abs() + tol_acc) * tol_acc).sum(dim=(2, 3)) + chain * (acc * acc).sum(
+        dim=(2, 3))
+    return tol_acc, torch.stack([tol_s, tol_q], dim=1)
+
+
+def pass_bound(B: int, H: int, W: int, dtype: str, C: int = 64):
+    """Least time for one conv pass: the conv's operations at the dtype's
+    peak, or x and y once, the weight, the f32 bias and affine once and the
+    (B, 2, C) f32 statistics once at the HBM rate."""
+    esize = 2 if dtype == "bfloat16" else 4
+    flops = 2.0 * B * H * W * C * 9 * C
+    nbytes = 2 * B * H * W * C * esize + 9 * C * C * esize + 4 * C + 2 * (4 * B * 2 * C)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def stem_args(torch, np, B: int, H: int, W: int, dtype: str, seed: int):
+    """x2 (B, 6, 2*Ho + 6, Wo + 3) and dy (B, 64, Ho, Wo), uniform in
+    [-0.5, 0.5) as tools/profile_stem_wgrad.py draws them, channels_last."""
+    rng = np.random.RandomState(seed)
+    Ho, Wo = H // 2, W // 2
+    x2 = rng.rand(B, 2 * Ho + 6, Wo + 3, 6) - 0.5
+    dy = rng.rand(B, Ho, Wo, 64) - 0.5
+    return [torch.from_numpy(v.astype(np.float32)).to("cuda", getattr(torch, dtype))
+            .permute(0, 3, 1, 2) for v in (x2, dy)]
+
+
+def stem_bound(x2, dy, dtype: str, KY: int = 7, KX: int = 4):
+    """Least time for the weight gradient: 2 * KY*KX*C * O operations per
+    output pixel at the dtype's peak, or x2 and dy once and the f32 dk once
+    at the HBM rate."""
+    B, C = x2.shape[:2]
+    O, Ho, Wo = dy.shape[1:]
+    flops = 2.0 * KY * KX * C * O * B * Ho * Wo
+    nbytes = (x2.numel() * x2.element_size() + dy.numel() * dy.element_size()
+              + 4 * KY * KX * C * O)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def cos_rel(torch, a, b):
+    """Cosine and relative L2 distance of a against b, in f64."""
+    a, b = a.double().ravel(), b.double().ravel()
+    return (torch.dot(a, b) / (a.norm() * b.norm())).item(), ((a - b).norm() / b.norm()).item()
+
+
 @contextlib.contextmanager
 def plain_channel_blocks(mixer_module, reference):
     """Run the model's channel blocks through the plain version."""
@@ -322,6 +431,222 @@ def drift(np, a_trajs, a_vis, b_trajs, b_vis) -> dict:
 def fmt(d: dict) -> str:
     return (f"traj median {d['median']:.3g} px, p90 {d['p90']:.3g}, max {d['max']:.3g}; "
             f"vis median {d['vis_median']:.3g}, max {d['vis_max']:.3g}")
+
+
+def phase_block(torch, np, F, block_cuda) -> dict:
+    """3e: ``conv_pass`` against its plain version, with and without the
+    prologue, then the whole ``res_block64`` forward and five grads against
+    ``res_block64_reference``, with times in turns with the library."""
+    from pips_tpu_torch.models.encoder import ResidualBlock
+
+    out = {}
+    _, tiles = block_cuda._kernel()
+    for case, B, H, W, dtype in PASS_CASES:
+        x, w, b, aff = pass_args(torch, np, B, H, W, dtype, seed=B + H)
+        parts, errs = [], []
+        for prologue in (False, True):
+            y, st = block_cuda.conv_pass(x, w, b, aff, prologue)
+            torch.cuda.synchronize()
+            y_ref, st_ref = block_cuda.conv_pass_reference(x, w, b, aff, prologue)
+            tol_acc, tol_st = pass_tols(torch, F, x, w, b, aff, prologue,
+                                        tiles(H, W, 1 if dtype == "bfloat16" else 0))
+            err = (y.float() - y_ref.float()).abs()
+            if dtype == "bfloat16":
+                y_ratio = err.max().item() / bf16_tol(y_ref.float().abs().max().item())
+            else:
+                y_ratio = (err / (tol_acc + U32 * y_ref.abs())).max().item()
+            st_ratio = ((st - st_ref).abs() / tol_st).max().item()
+            st_rel = ((st - st_ref).abs() / st_ref.abs().clamp_min(1e-30)).max().item()
+            parts.append(f"prologue {prologue}: y max_abs_err {err.max().item():.3g} (err/tol "
+                         f"{y_ratio:.3g}), stats max rel err {st_rel:.3g} (err/tol {st_ratio:.3g})")
+            if not (y.shape == y_ref.shape and y.dtype == y_ref.dtype and st.shape == (B, 2, 64)
+                    and y.is_contiguous(memory_format=torch.channels_last)
+                    and y_ratio <= 1.0 and st_ratio <= 1.0):
+                fail(f"conv_pass {case} prologue={prologue} disagrees with its plain version")
+            errs.append(err.max().item())
+        wk, bl = w.to(x.dtype), b.to(x.dtype)
+        args = (x, wk, b, aff, True)  # the second pass of the block: prologue on
+
+        def library():
+            return F.conv2d(x, wk, bl, padding=1)
+
+        k1 = median_ms(torch, block_cuda.conv_pass, args)
+        l1 = median_ms(torch, library, ())
+        k2 = median_ms(torch, block_cuda.conv_pass, args)
+        l2 = median_ms(torch, library, ())
+        k0 = median_ms(torch, block_cuda.conv_pass, (x, wk, b, aff, False))
+        plain_ms = median_ms(torch, block_cuda.conv_pass_reference, args, launches=5)
+        bound_ms, bound_by = pass_bound(B, H, W, dtype)
+        log("kernels", f"conv_pass {case} {B}x64x{H}x{W} {dtype} channels_last: "
+                       + "; ".join(parts) + f"; prologue on {k1:.4f}/{k2:.4f} ms, F.conv2d "
+                       f"{l1:.4f}/{l2:.4f} ms (in turns), prologue off {k0:.4f} ms, plain "
+                       f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        out[case] = dict(max_abs_err=max(errs), ms=(k1 + k2) / 2, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, library_ms=(l1 + l2) / 2)
+        del x, w, b, aff, y, st, y_ref, st_ref, tol_acc, tol_st, err
+    torch.cuda.empty_cache()
+
+    # the whole block at the bench shape, forward and all five grads
+    _, B, H, W, dtype = PASS_CASES[0]
+    rng = np.random.RandomState(7)
+    dt = getattr(torch, dtype)
+
+    def cl(a):  # NHWC numpy -> (B, C, H, W) channels_last on the card
+        return torch.from_numpy(a.astype(np.float32)).to("cuda", dt).permute(0, 3, 1, 2)
+
+    x, dout = cl(rng.randn(B, H, W, 64)), cl(rng.randn(B, H, W, 64))
+    params = [torch.from_numpy(v.astype(np.float32)).cuda() for v in
+              (rng.randn(64, 64, 3, 3) * 0.06, 0.1 * rng.randn(64),
+               rng.randn(64, 64, 3, 3) * 0.06, 0.1 * rng.randn(64))]
+    runs = {}
+    for side, fn in (("kernel", block_cuda.res_block64),
+                     ("plain", block_cuda.res_block64_reference)):
+        leaves = [t.clone().requires_grad_(True) for t in (x, *params)]
+        y = fn(*leaves)
+        y.backward(dout)
+        torch.cuda.synchronize()
+        runs[side] = (y.detach(), [t.grad for t in leaves])
+    (y, grads), (y_ref, grads_ref) = runs["kernel"], runs["plain"]
+    err = (y.float() - y_ref.float()).abs().max().item()
+    tol = 2 * bf16_tol(y_ref.float().abs().max().item())
+    parts = [f"out {err:.3g} (tol {tol:.3g})"]
+    ok = y.shape == y_ref.shape and y.dtype == y_ref.dtype and err <= tol
+    dw_max = max(grads_ref[1].abs().max().item(), grads_ref[3].abs().max().item())
+    for name, g, r in zip(("dx", "dw1", "db1", "dw2", "db2"), grads, grads_ref):
+        ok = ok and g.shape == r.shape and g.dtype == r.dtype
+        if name.startswith("db"):
+            d = (g - r).abs().max().item()
+            parts.append(f"{name} {d:.3g} (|db| <= {r.abs().max().item():.3g}, tol "
+                         f"{BLOCK_TOL['db_of_dw'] * dw_max:.3g})")
+            ok = ok and d <= BLOCK_TOL["db_of_dw"] * dw_max
+        else:
+            c, rel = cos_rel(torch, g, r)
+            parts.append(f"{name} cos {c:.6f}, rel L2 {rel:.3g}, max_abs_err "
+                         f"{(g.float() - r.float()).abs().max().item():.3g}")
+            ok = ok and c >= BLOCK_TOL["grad_cos"] and rel <= BLOCK_TOL["grad_rel_l2"]
+    log("kernels", f"res_block64 {B}x64x{H}x{W} {dtype} against res_block64_reference: "
+                   + "; ".join(parts))
+    if not ok:
+        fail(f"res_block64 disagrees with its plain version beyond {BLOCK_TOL}")
+    del runs, y, grads, y_ref, grads_ref
+
+    # the block forward, and forward+backward, in turns with the modular block (cuDNN)
+    blk = ResidualBlock(64, 64, 1, dtype=dt).cuda()
+    with torch.no_grad():
+        for conv, w_, b_ in ((blk.conv1, params[0], params[1]), (blk.conv2, params[2], params[3])):
+            conv.weight.copy_(w_)
+            conv.bias.copy_(b_)
+    xg = x.clone().requires_grad_(True)
+    pg = [t.clone().requires_grad_(True) for t in params]
+
+    def fwd(fn):
+        def call():
+            with torch.no_grad():
+                fn()
+        return call
+
+    def kernel_block():
+        return block_cuda.res_block64(xg, *pg)
+
+    def library_block():
+        return blk(xg)
+
+    def fwd_bwd(fn):
+        return lambda: fn().backward(dout)
+
+    times = {}
+    for mode, mk in (("forward", fwd), ("forward+backward", fwd_bwd)):
+        t = {"kernel": [], "library": []}
+        for _ in range(2):
+            t["kernel"].append(median_ms(torch, mk(kernel_block), (), launches=5))
+            t["library"].append(median_ms(torch, mk(library_block), (), launches=5))
+        times[mode] = t
+    log("kernels", "res_block64 block times (ms, in turns with ResidualBlock on cuDNN): "
+                   + "; ".join(f"{m} kernel {'/'.join(f'{v:.4f}' for v in t['kernel'])}, "
+                               f"library {'/'.join(f'{v:.4f}' for v in t['library'])}"
+                               for m, t in times.items()))
+    out["block_ms"] = {m: {k: sum(v) / len(v) for k, v in t.items()} for m, t in times.items()}
+    del x, dout, params, xg, pg, blk
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_stem(torch, np, stem_cuda) -> dict:
+    """3f: ``stem_wgrad`` against its plain version, timed in turns with the
+    library's weight grad of the s2d conv and of the x7 conv."""
+    out = {}
+    for case, B, H, W, dtype in STEM_CASES:
+        x2, dy = stem_args(torch, np, B, H, W, dtype, seed=B + H)
+        dk = stem_cuda.stem_wgrad(x2, dy)
+        torch.cuda.synchronize()
+        ref = stem_cuda.stem_wgrad_reference(x2, dy)
+        # each side sums K products (exact for bf16 operands) of magnitude at
+        # most m in f32 in its own order; partial sums of these zero-mean
+        # terms stay near sqrt(k) m, so a chain's rounding errors add up to
+        # about u m K / sqrt(2) at worst (one chain over all K): held to 4 u K m
+        K = B * dy.shape[2] * dy.shape[3]
+        tol = 4 * U32 * K * x2.float().abs().max().item() * dy.float().abs().max().item()
+        if dk is None or dk.shape != ref.shape or dk.dtype != torch.float32:
+            fail(f"stem_wgrad {case} returned {None if dk is None else (dk.shape, dk.dtype)}")
+        err = (dk - ref).abs().max().item()
+        O, C, KY, KX = ref.shape
+        x7 = torch.cat([x2[:, :, ky:ky + 2 * dy.shape[2] - 1:2] for ky in range(KY)], dim=1)
+
+        def library():
+            return torch.nn.grad.conv2d_weight(x2, (O, C, KY, KX), dy, stride=(2, 1))
+
+        def library_x7():
+            return torch.nn.grad.conv2d_weight(x7, (O, KY * C, 1, KX), dy)
+
+        k1 = median_ms(torch, stem_cuda.stem_wgrad, (x2, dy))
+        l1 = median_ms(torch, library, ())
+        x1 = median_ms(torch, library_x7, ())
+        k2 = median_ms(torch, stem_cuda.stem_wgrad, (x2, dy))
+        l2 = median_ms(torch, library, ())
+        x7_2 = median_ms(torch, library_x7, ())
+        plain_ms = median_ms(torch, stem_cuda.stem_wgrad_reference, (x2, dy), launches=3)
+        bound_ms, bound_by = stem_bound(x2, dy, dtype)
+        log("kernels", f"stem_wgrad {case} x2 {tuple(x2.shape)} dy {tuple(dy.shape)} {dtype} "
+                       f"channels_last: max_abs_err {err:.3g} (tol {tol:.3g}, |dk| <= "
+                       f"{ref.abs().max().item():.3g}); {k1:.4f}/{k2:.4f} ms, library wgrad "
+                       f"{l1:.4f}/{l2:.4f} ms, x7 wgrad {x1:.4f}/{x7_2:.4f} ms (x7 built "
+                       f"beforehand; in turns), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                       f"({bound_by})")
+        if err > tol:
+            fail(f"stem_wgrad {case} disagrees with its plain version: {err} > {tol}")
+        out[case] = dict(max_abs_err=err, ms=(k1 + k2) / 2, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=(l1 + l2) / 2, x7_ms=(x1 + x7_2) / 2)
+        del x2, dy, dk, ref, x7
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tools(torch, block_cuda, stem_cuda) -> dict:
+    """9: the slice's path, both profiling tools' ``main`` on the card, with
+    the two kernels' launch counts zeroed before and read after."""
+    from pips_tpu_torch.tools import profile_block_kernel, profile_stem_wgrad
+
+    block_cuda.launches = 0
+    t = time.perf_counter()
+    res = profile_block_kernel.main()
+    n_block, want = block_cuda.launches, profile_block_kernel.kernel_launches()
+    log("tools", f"profile_block_kernel.main() in {time.perf_counter() - t:.1f} s: "
+                 f"{json.dumps(res)}; {n_block} conv_pass launches (expected {want})")
+    if n_block != want or not all(math.isfinite(v) and v > 0 for v in res.values()):
+        fail(f"profile_block_kernel: {n_block} launches, expected {want}; {res}")
+    stem_cuda.launches = 0
+    t = time.perf_counter()
+    res_s = profile_stem_wgrad.main()
+    n_stem = stem_cuda.launches
+    want = len(profile_stem_wgrad.SHAPES) * profile_stem_wgrad.kernel_launches()
+    log("tools", f"profile_stem_wgrad.main() in {time.perf_counter() - t:.1f} s: "
+                 f"{json.dumps(res_s)}; {n_stem} stem_wgrad launches (expected {want})")
+    if n_stem != want or not all(math.isfinite(v) for r in res_s.values() for v in r.values()):
+        fail(f"profile_stem_wgrad: {n_stem} launches, expected {want}; {res_s}")
+    # the kernel's dk against the library's (rounded to bf16 as the weight's dtype)
+    if max(r["rel"] for r in res_s.values()) > 2.0 ** -7:
+        fail(f"profile_stem_wgrad: dk differs from the library's beyond a bf16 ulp: {res_s}")
+    return {"res_block64": n_block, "stem_wgrad": n_stem}
 
 
 def check_window(np, name, trajs, vis, xys, S: int = 8) -> None:
@@ -362,7 +687,8 @@ def main() -> int:
                                 dense_queries, grid_queries, make_pips)
     import torch.nn.functional as F
 
-    from pips_tpu_torch.kernels import _build, conv_cuda, corr_cuda, mixer_cuda
+    from pips_tpu_torch.kernels import (_build, block_cuda, conv_cuda, corr_cuda, mixer_cuda,
+                                        stem_wgrad_cuda)
     from pips_tpu_torch.models import mixer as mixer_module
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -373,12 +699,15 @@ def main() -> int:
         mixer_cuda.bwd_launches = 0
         corr_cuda.launches = 0
         conv_cuda.launches = 0
+        block_cuda.launches = 0
+        stem_wgrad_cuda.launches = 0
 
     def counts():
         return mixer_cuda.launches, corr_cuda.launches
 
     # launches summed over main-path runs
-    main_path = {"chan_ff_block": 0, "corr_sample": 0, "chan_ff_bwd": 0, "conv3x3_same": 0}
+    main_path = {"chan_ff_block": 0, "corr_sample": 0, "chan_ff_bwd": 0, "conv3x3_same": 0,
+                 "res_block64": 0, "stem_wgrad": 0}
 
     def add_main(chanff_n, corr_n):
         main_path["chan_ff_block"] += chanff_n
@@ -547,6 +876,12 @@ def main() -> int:
                           bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
         del x, w, b, dy, w_rot, outs, refs
     torch.cuda.empty_cache()
+
+    # 3e. the residual block's conv pass and the whole block; 3f. the stem
+    # weight gradient: each against its plain version, timed in turns with
+    # the library
+    block = phase_block(torch, np, F, block_cuda)
+    stem = phase_stem(torch, np, stem_wgrad_cuda)
 
     # 4. slice: the served windows, onehot
     t = time.perf_counter()
@@ -984,6 +1319,11 @@ def main() -> int:
                 f"phase {time.perf_counter() - t8:.1f} s")
     shutil.rmtree(root)
 
+    # 9. slice: the two profiling tools, the paths of the residual-block and
+    # stem weight-gradient kernels
+    zero_counts()
+    main_path.update(phase_tools(torch, block_cuda, stem_wgrad_cuda))
+
     log("slice", f"main-path launches: {main_path}")
     if min(main_path.values()) == 0:
         fail(f"a kernel of the path never launched on it: {main_path}")
@@ -1003,7 +1343,14 @@ def main() -> int:
          "library_ms": None},
         {"name": "conv3x3_same", "route": "cuda", "source": "pips_tpu_torch/csrc/conv3x3_fwd.cu",
          "replaces": "pips_tpu/kernels/conv_pallas.py:148",
-         "launches": main_path["conv3x3_same"], **conv["window"]}]}), flush=True)
+         "launches": main_path["conv3x3_same"], **conv["window"]},
+        {"name": "res_block64", "route": "cuda", "source": "pips_tpu_torch/csrc/conv3x3_stats.cu",
+         "replaces": "pips_tpu/kernels/block_pallas.py:110",
+         "launches": main_path["res_block64"], **block["bench"]},
+        {"name": "stem_wgrad", "route": "cuda", "source": "pips_tpu_torch/csrc/stem_wgrad.cu",
+         "replaces": "pips_tpu/kernels/stem_wgrad_pallas.py:97",
+         "launches": main_path["stem_wgrad"],
+         **{k: v for k, v in stem["B=8"].items() if k != "x7_ms"}}]}), flush=True)
     log("done", f"all phases passed in {time.perf_counter() - T0:.1f} s "
                 f"(chained video {chain_s:.2f} s; windows {json.dumps(window_ms)}; "
                 f"training default {json.dumps(train_default)})")

@@ -43,7 +43,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <string.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -75,29 +76,6 @@ static_assert(kThreads / 32 * 32 == TH * TW, "each warp owns 32 output pixels");
 // element offset of 16-byte chunk j (channels 8j..8j+7) of row r of a
 // [rows][64] bf16 array whose chunks are XOR-swizzled by the row's low bits
 __device__ __forceinline__ int swz(int r, int j) { return r * kC + ((j ^ (r & 7)) << 3); }
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  uint32_t u;
-  memcpy(&u, &v, sizeof(u));
-  return u;
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                            uint32_t& r3, const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(a));
-}
-
-// d += a (16x16, row-major) * b (16x8, column-major), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __global__ void __launch_bounds__(kThreads, 2)
 conv3x3_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
