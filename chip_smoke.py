@@ -9,8 +9,10 @@ Phases, each printing a progress line with the elapsed seconds:
   2. build: every kernel under pips_tpu_torch/csrc, with nvcc, timed;
   3. kernels: each kernel against its plain PyTorch version at the main
      paths' shapes, with its tolerance, median time and bound:
-     ``chan_ff_block`` (fused channel block) and ``corr_sample`` (fused corr
-     sampler, three point counts by three dtype pairs); and ``chan_ff_bwd``
+     ``chan_ff_block`` (fused channel block, bf16 and f32 at the windows'
+     R=2048 and 2000, f32 also at the f32 train path's R=1024 and 24,576) and
+     ``corr_sample`` (fused corr sampler, three point counts by three dtype
+     pairs); and ``chan_ff_bwd``
      (the channel block's backward, bf16, at the train shapes R=1024, 24,576
      and 800), all seven grads;
   4. slice, onehot windows: the full-width bf16 PIPs model (S=8, mixer
@@ -43,12 +45,26 @@ Phases, each printing a progress line with the elapsed seconds:
      keys, and a relaunch with more steps resume at the saved step; conv
      kernel launches: 8 per train step, 4 per validation batch and media
      render;
-  9. slice, the profiling tools: ``pips_tpu_torch.tools.profile_block_kernel``
-     and ``profile_stem_wgrad``'s ``main`` at their full-width shapes (the
-     stage-1 residual block at 8x64x192x256 bf16; the stem weight gradient at
-     B=1 and B=8, 384x512 bf16); ``res_block64`` must launch the conv-pass
-     kernel 2 times per forward and 4 per forward+backward, ``stem_wgrad``
-     its kernel once per weight gradient.
+  7d. slice, f32 training with fused channel blocks (the f32 backward
+     kernel's path): the full-width model with ``dtype=None``, (a) one step
+     at the bench train shape against the plain channel block, with one
+     refinement iteration (loss within 0.1%, every leaf's grad cosine at
+     least 0.999) and with six (phase 7a's bounds; beside it, printed, the
+     plain block summed in F chunks against the plain block, the reading of
+     what summation order alone does at six); (b) the loop's own entry
+     point, ``train.loop.main`` with ``--dtype float32 --fuse_chanff 1``, 12
+     steps with a validation pass and a checkpoint, the loss finite and
+     falling; (c) 2 timed steps at the training default; 12*I forward and
+     12*I f32 backward launches per step;
+  9. slice, the profiling tools: ``pips_tpu_torch.tools.profile_block_kernel``,
+     ``profile_stem_wgrad`` and ``profile_chanff_chunk``'s ``main`` at their
+     full-width shapes (the stage-1 residual block at 8x64x192x256 bf16; the
+     stem weight gradient at B=1 and B=8, 384x512 bf16; a chain of 12 channel
+     blocks at R=1024, chunk widths 512 and 1024); ``res_block64`` must
+     launch the conv-pass kernel 2 times per forward and 4 per
+     forward+backward, ``stem_wgrad`` its kernel once per weight gradient,
+     and the chunked chain 12 forward launches per chain forward and 12
+     backward launches per chain backward.
 Phase 3 also holds (3d) ``conv3x3_same`` (the encoder's stage-1 3x3 conv)
 against its plain version, forward and dx, at a window's, the training
 default's and the bench train shape's stage 1 in bf16 and a small ragged
@@ -62,7 +78,13 @@ block's bench shape in bf16 and a ragged f32 shape, and the whole
 timed in turns with ``F.conv2d`` and the modular ``ResidualBlock``. 3f holds
 ``stem_wgrad`` against its plain version at B=1 and B=8, 384x512 bf16 and a
 small f32 shape, timed in turns with the library's weight grad of the s2d
-conv and of the x7 conv.
+conv and of the x7 conv. 3g holds ``chan_ff_bwd`` in f32 (the f32 kernel) at
+R=1024, 800 and 24,576 against its plain version, all seven grads, with
+matmuls in full f32 (TF32 off). 3h holds the F-chunked channel block
+(``chan_ff_block_chunked`` and ``chan_ff_chunked_bwd``) at R=1024 and 800,
+bf16, against its plain versions at every chunk width the kernels take (128,
+256, 512, 1024); at the tool's 512 and 1024 also timed in turns with the
+monolithic kernels.
 Kernel launch counts are zeroed just before each main-path run and read
 just after; comparison runs are not counted. Then a ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": ...}``. Any failure exits non-zero
@@ -74,11 +96,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import math
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -140,6 +164,23 @@ PASS_CASES = [("bench", 8, 192, 256, "bfloat16"), ("small f32", 2, 31, 70, "floa
 STEM_CASES = [("B=1", 1, 384, 512, "bfloat16"), ("B=8", 8, 384, 512, "bfloat16"),
               ("small f32", 2, 64, 96, "float32")]
 U32 = 2.0 ** -24  # unit roundoff of f32
+CHUNK_FCS = (512, 1024)  # phase 3h times these: tools/profile_chanff_chunk.py's chunk widths
+# phase 7d, f32 with fused channel blocks against the plain block: both keep
+# f32 products and differ only in summation order. One refinement iteration
+# is compared tightly: loss within 0.1%, every leaf's grad cosine (zero-
+# gradient biases left out) at least 0.999 (first card run: 6.3e-8 and
+# 1.0000000). Six iterate the corr lookups through floor(), which turns any
+# difference into bounded chaos (docs/TESTING.md), so the bench shape's I=6
+# step is held to PARITY, the bf16 step's bounds (first card run: 4.3e-4,
+# global cosine 0.99986, worst leaf 0.9968)
+PARITY_F32 = dict(loss_rel=1e-3, leaf_cos=0.999)
+WITNESS_FC = 512  # 7d's witness at I=6: the plain block with fc2 and dxa summed in F chunks
+# the kernels of a train step, as train_counts reads their launches
+TRAIN_KERNELS = ("chan_ff_block", "chan_ff_bwd", "chan_ff_bwd_f32", "corr_sample")
+# phase 7d: steps of train.loop.main, with one validation pass and a save at
+# the last. Not 6: AdamW's warm-up raises the loss over the first 4-6 steps
+# (phase 8's bf16 loop: 68, 78, 99, 117, 87, 73, then 70 ... 47 by step 12)
+LOOP_F32_STEPS = 12
 # the whole block against its plain version: the forward within four bf16
 # ulps at its largest magnitude (both round y1, the pass-2 input, y2 and the
 # output, from f32 values that differ in summation order); the grads of x, w1
@@ -205,25 +246,27 @@ def chanff_bound(R: int, dtype: str, D: int = 512, F: int = 2048):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def chanff_bwd_args(torch, np, R: int, seed: int, D: int = 512, F: int = 2048):
-    """x, dy, ln_scale, ln_bias, w1, b1, w2 for chan_ff_bwd, bf16 where the
-    kernel takes the compute dtype."""
+def chanff_bwd_args(torch, np, R: int, seed: int, D: int = 512, F: int = 2048, dtype=None):
+    """x, dy, ln_scale, ln_bias, w1, b1, w2 for chan_ff_bwd, in the compute
+    dtype (bf16 unless given) where the kernel takes it."""
     rng = np.random.RandomState(seed)
     vals = [rng.randn(R, D), rng.randn(R, D), 1.0 + 0.1 * rng.randn(D), 0.1 * rng.randn(D),
             rng.randn(D, F) / np.sqrt(D), 0.1 * rng.randn(F), rng.randn(F, D) / np.sqrt(F)]
-    dts = [torch.bfloat16, torch.bfloat16, torch.float32, torch.float32, torch.bfloat16,
-           torch.float32, torch.bfloat16]
+    cd = dtype or torch.bfloat16
+    dts = [cd, cd, torch.float32, torch.float32, cd, torch.float32, cd]
     return [torch.from_numpy(v.astype(np.float32)).to("cuda", dt) for v, dt in zip(vals, dts)]
 
 
-def chanff_bwd_bound(R: int, D: int = 512, F: int = 2048):
+def chanff_bwd_bound(R: int, dtype: str = "bfloat16", D: int = 512, F: int = 2048):
     """Least time for the backward: five products of 2RDF operations (a1
-    recomputed, dg1, dxa, dw1, dw2) at the bf16 peak, or x, dy and dx once,
-    both bf16 weights and the f32 vectors once, the f32 weight and vector
-    grads once, at the HBM rate."""
+    recomputed, dg1, dxa, dw1, dw2) at the dtype's peak, or x, dy and dx once,
+    both weights in the dtype and the f32 vectors once, the f32 weight and
+    vector grads once, at the HBM rate."""
+    esize = 2 if dtype == "bfloat16" else 4
     flops = 10.0 * R * D * F
-    nbytes = 3 * R * D * 2 + 2 * D * F * 2 + 4 * (2 * D + F) + 2 * D * F * 4 + 4 * (3 * D + F)
-    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
+    nbytes = (3 * R * D * esize + 2 * D * F * esize + 4 * (2 * D + F) + 2 * D * F * 4
+              + 4 * (3 * D + F))
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -236,10 +279,20 @@ def chanff_bwd_tols(torch, mixer_cuda, args):
     (2^-7 of it). Such flips are sparse and of either sign, so their sum
     grows as the root of the sum of squares: 4 * 2^-7 * sqrt(sum t_k^2) holds
     four flips' worth on every term. dx is bf16: two ulps at its largest
-    magnitude (``bf16_tol``)."""
+    magnitude (``bf16_tol``).
+
+    In f32 no operand is rounded to a coarser type: each differs only by its
+    own f32 sums (a1 and dg1 over D, dxa over F) taken in other orders, so the
+    flip term's 2^-7 becomes (D + F) 2^-24. dx is f32 and held elementwise:
+    the LN backward (|rsig| times |dxn|, its mean and |xn| times the mean of
+    |dxn xn|) of dxa's bound, which is 2F 2^-24 of |da1| @ |w1|^T for the
+    order plus the operand term, and 4D 2^-24 of each of the LN backward's
+    terms for the statistics and means over D."""
     t = mixer_cuda.chan_ff_bwd_terms(*args)
     R = args[0].shape[0]
-    flip, gamma = 4.0 * 2.0 ** -7, 2.0 * R * 2.0 ** -24
+    D, F = args[4].shape
+    f32 = args[0].dtype == torch.float32
+    flip, gamma = 4.0 * ((D + F) * U32 if f32 else 2.0 ** -7), 2.0 * R * 2.0 ** -24
 
     def products(a, b):  # t_k = a[k, i] * b[k, j]
         return flip * torch.sqrt((a * a).t() @ (b * b)) + gamma * (a.abs().t() @ b.abs())
@@ -247,10 +300,38 @@ def chanff_bwd_tols(torch, mixer_cuda, args):
     def column(a):  # t_k = a[k, j]
         return flip * torch.sqrt((a * a).sum(0)) + gamma * a.abs().sum(0)
 
-    dx_ref = mixer_cuda.chan_ff_bwd_reference(*args)[0]
-    return [bf16_tol(dx_ref.float().abs().max().item()), column(t["dxa"] * t["xn"]),
+    if f32:
+        w1, scale = args[4], args[2]
+        e_dxa = (2 * F * U32 * (t["da1_c"].abs() @ w1.abs().t())
+                 + flip * torch.sqrt((t["da1_c"] ** 2) @ (w1 ** 2).t()))
+        e_n, xn = scale.abs() * e_dxa, t["xn"].abs()
+        dxn = t["dxa"] * scale
+        m1, m2 = dxn.mean(-1, keepdim=True), (dxn * t["xn"]).mean(-1, keepdim=True)
+        ln_bwd = e_n + e_n.mean(-1, keepdim=True) + xn * (e_n * xn).mean(-1, keepdim=True)
+        terms = t["dy"].abs() + t["rsig"] * (dxn.abs() + m1.abs() + xn * m2.abs())
+        dx_tol = t["rsig"] * ln_bwd + 4 * D * U32 * terms
+    else:
+        dx_tol = bf16_tol(mixer_cuda.chan_ff_bwd_reference(*args)[0].float().abs().max().item())
+    return [dx_tol, column(t["dxa"] * t["xn"]),
             column(t["dxa"]), products(t["xa_c"], t["da1_c"]), column(t["da1"]),
             products(t["g1_c"], t["dy"]), column(t["dy"])]
+
+
+def grad_errors(torch, label: str, out, ref, tols):
+    """The seven grads of a backward against its plain version: the worst
+    err/tol, a printable part per grad and the largest abs error. Fails on a
+    shape or dtype that differs."""
+    worst, parts, errs = 0.0, [], []
+    for name, o, r, tol in zip(GRAD_NAMES, out, ref, tols):
+        if o.shape != r.shape or o.dtype != r.dtype:
+            fail(f"{label} {name}: {tuple(o.shape)} {o.dtype}, plain {tuple(r.shape)} {r.dtype}")
+        diff = (o.float() - r.float()).abs()
+        ratio = (diff / (tol.clamp_min(1e-30) if torch.is_tensor(tol) else tol)).max().item()
+        worst = max(worst, ratio)
+        errs.append(diff.max().item())
+        parts.append(f"{name} {errs[-1]:.3g} (|g| <= {r.float().abs().max().item():.3g}, "
+                     f"err/tol {ratio:.3g})")
+    return worst, parts, max(errs)
 
 
 def corr_args(torch, np, N: int, H8: int, W8: int, map_dt: str, tgt_dt: str, seed: int):
@@ -621,10 +702,114 @@ def phase_stem(torch, np, stem_cuda) -> dict:
     return out
 
 
-def phase_tools(torch, block_cuda, stem_cuda) -> dict:
-    """9: the slice's path, both profiling tools' ``main`` on the card, with
-    the two kernels' launch counts zeroed before and read after."""
-    from pips_tpu_torch.tools import profile_block_kernel, profile_stem_wgrad
+def require_full_f32(torch) -> None:
+    """The f32 comparisons hold the kernels to plain versions whose matmuls
+    and convs must keep full f32 products: TF32 off."""
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("the f32 comparisons need full-f32 matmuls and convs (TF32 is on)")
+
+
+def phase_chanff_f32(torch, np, mixer_cuda) -> dict:
+    """3g: ``chan_ff_bwd`` in f32 (the f32 kernel of ``csrc/chanff_bwd.cu``)
+    against its plain version at the bench train shape, a ragged R and the
+    training default, all seven grads, with its time and bound."""
+    require_full_f32(torch)
+    out = {}
+    for R in (TRAIN_R, 800, TRAIN_R_DEFAULT):
+        args = chanff_bwd_args(torch, np, R, seed=R + 3, dtype=torch.float32)
+        before = mixer_cuda.bwd_f32_launches, mixer_cuda.bwd_launches
+        got = mixer_cuda.chan_ff_bwd(*args)
+        torch.cuda.synchronize()
+        if (mixer_cuda.bwd_f32_launches, mixer_cuda.bwd_launches) != (before[0] + 1, before[1]):
+            fail(f"chan_ff_bwd f32 R={R} did not launch the f32 kernel once")
+        ref = mixer_cuda.chan_ff_bwd_reference(*args)
+        tols = chanff_bwd_tols(torch, mixer_cuda, args)
+        worst, parts, max_err = grad_errors(torch, f"chan_ff_bwd f32 R={R}", got, ref, tols)
+        n = 20 if R < TRAIN_R_DEFAULT else 5
+        ms = median_ms(torch, mixer_cuda.chan_ff_bwd, args, launches=n)
+        plain_ms = median_ms(torch, mixer_cuda.chan_ff_bwd_reference, args, launches=n)
+        bound_ms, bound_by = chanff_bwd_bound(R, "float32")
+        log("kernels", f"chan_ff_bwd f32 R={R}: max_abs_err " + "; ".join(parts)
+                       + f"; {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                         f"({bound_by})")
+        if worst > 1.0:
+            fail(f"chan_ff_bwd f32 R={R} disagrees with its plain version (worst err/tol "
+                 f"{worst:.3g})")
+        out[R] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by=bound_by)
+        del args, got, ref, tols
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_chunk(torch, np, chunk_cuda, mixer_cuda) -> dict:
+    """3h: the F-chunked channel block (``csrc/chanff_chunk.cu``), forward and
+    backward, bf16, at the tool's R=1024 and a ragged R, against its plain
+    versions at every chunk width the kernels take; at the tool's widths also
+    timed in turns with the monolithic kernels on the same inputs."""
+    out = {}
+    for R in (TRAIN_R, 800):
+        fargs = chanff_args(torch, np, R, torch.bfloat16, seed=R + 5)
+        bargs = chanff_bwd_args(torch, np, R, seed=R + 6)
+        tols = chanff_bwd_tols(torch, mixer_cuda, bargs)
+        for fc in chunk_cuda.FCS:
+            y = chunk_cuda.chan_ff_block_chunked(*fargs, fc=fc)
+            grads = chunk_cuda.chan_ff_chunked_bwd(*bargs, fc=fc)
+            torch.cuda.synchronize()
+            ref = chunk_cuda.chan_ff_chunked_reference(*fargs, fc=fc)
+            err = (y.float() - ref.float()).abs().max().item()
+            tol = bf16_tol(ref.float().abs().max().item())
+            gref = chunk_cuda.chan_ff_chunked_bwd_reference(*bargs, fc=fc)
+            worst, parts, max_err = grad_errors(torch, f"chan_ff_chunked_bwd R={R} fc={fc}",
+                                                grads, gref, tols)
+            log("kernels", f"chunked block R={R} fc={fc} bf16: forward max_abs_err {err:.3g} "
+                           f"(tol {tol:.3g}); backward " + "; ".join(parts))
+            if not (y.shape == ref.shape and y.dtype == ref.dtype and err <= tol):
+                fail(f"chan_ff_block_chunked R={R} fc={fc} disagrees with its plain version: "
+                     f"{err} > {tol}")
+            if worst > 1.0:
+                fail(f"chan_ff_chunked_bwd R={R} fc={fc} disagrees with its plain version (worst "
+                     f"err/tol {worst:.3g})")
+            del y, grads, ref, gref
+            if fc not in CHUNK_FCS:
+                continue
+
+            fwd = functools.partial(chunk_cuda.chan_ff_block_chunked, fc=fc)
+            bwd = functools.partial(chunk_cuda.chan_ff_chunked_bwd, fc=fc)
+            t = {k: [] for k in ("fwd", "base fwd", "bwd", "base bwd")}
+            for _ in range(2):
+                t["fwd"].append(median_ms(torch, fwd, fargs))
+                t["base fwd"].append(median_ms(torch, mixer_cuda.chan_ff_block, fargs))
+                t["bwd"].append(median_ms(torch, bwd, bargs))
+                t["base bwd"].append(median_ms(torch, mixer_cuda.chan_ff_bwd, bargs))
+            ms = {k: sum(v) / 2 for k, v in t.items()}
+            plain = {"fwd": median_ms(torch, functools.partial(
+                         chunk_cuda.chan_ff_chunked_reference, fc=fc), fargs, launches=5),
+                     "bwd": median_ms(torch, functools.partial(
+                         chunk_cuda.chan_ff_chunked_bwd_reference, fc=fc), bargs, launches=5)}
+            bf, bf_by = chanff_bound(R, "bfloat16")
+            bb, bb_by = chanff_bwd_bound(R)
+            log("kernels", f"chunked block R={R} fc={fc} bf16: forward "
+                           f"{'/'.join(f'{v:.4f}' for v in t['fwd'])} ms (monolithic "
+                           f"{'/'.join(f'{v:.4f}' for v in t['base fwd'])}, in turns), plain "
+                           f"{plain['fwd']:.4f}, bound {bf:.4f} ({bf_by}); backward "
+                           f"{'/'.join(f'{v:.4f}' for v in t['bwd'])} ms (monolithic "
+                           f"{'/'.join(f'{v:.4f}' for v in t['base bwd'])}), plain "
+                           f"{plain['bwd']:.4f}, bound {bb:.4f} ({bb_by}); forward+backward "
+                           f"{ms['fwd'] + ms['bwd']:.4f} ms, bound {bf + bb:.4f}")
+            out[("fwd", R, fc)] = dict(max_abs_err=err, ms=ms["fwd"], plain_ms=plain["fwd"],
+                                       bound_ms=bf, bound_by=bf_by, base_ms=ms["base fwd"])
+            out[("bwd", R, fc)] = dict(max_abs_err=max_err, ms=ms["bwd"], plain_ms=plain["bwd"],
+                                       bound_ms=bb, bound_by=bb_by, base_ms=ms["base bwd"])
+        del fargs, bargs, tols
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tools(torch, block_cuda, stem_cuda, chunk_cuda) -> dict:
+    """9: the slices' paths, the three profiling tools' ``main`` on the card,
+    with their kernels' launch counts zeroed before and read after."""
+    from pips_tpu_torch.tools import profile_block_kernel, profile_chanff_chunk, profile_stem_wgrad
 
     block_cuda.launches = 0
     t = time.perf_counter()
@@ -646,7 +831,289 @@ def phase_tools(torch, block_cuda, stem_cuda) -> dict:
     # the kernel's dk against the library's (rounded to bf16 as the weight's dtype)
     if max(r["rel"] for r in res_s.values()) > 2.0 ** -7:
         fail(f"profile_stem_wgrad: dk differs from the library's beyond a bf16 ulp: {res_s}")
-    return {"res_block64": n_block, "stem_wgrad": n_stem}
+    chunk_cuda.launches = chunk_cuda.bwd_launches = 0
+    t = time.perf_counter()
+    res_c = profile_chanff_chunk.main()
+    got = chunk_cuda.launches, chunk_cuda.bwd_launches
+    want = profile_chanff_chunk.kernel_launches()
+    log("tools", f"profile_chanff_chunk.main() in {time.perf_counter() - t:.1f} s: "
+                 f"{json.dumps(res_c)}; chunked forward and backward "
+                 f"launches {got} (expected {want}: 12 per chain forward, 12 per chain backward)")
+    times = [v for mode in ("fwd", "fwd+bwd") for v in res_c[mode].values()]
+    if got != want or not all(math.isfinite(v) and v > 0 for v in times):
+        fail(f"profile_chanff_chunk: launches {got}, expected {want}; {res_c}")
+    # both chains keep the products in f32 and round each block's output once,
+    # in other summation orders: 16 bf16 ulps at the output's largest magnitude
+    # hold a flip at every block carried through the rest of the chain
+    bound = 8 * bf16_tol(res_c["y_absmax"])
+    if max(res_c["parity"].values()) > bound:
+        fail(f"profile_chanff_chunk: a chunked chain differs from the base chain by more than "
+             f"{bound}: {res_c['parity']}")
+    return {"res_block64": n_block, "stem_wgrad": n_stem, "chan_ff_chunked_fwd": got[0],
+            "chan_ff_chunked_bwd": got[1]}
+
+
+def train_batch(torch, np, cfg: dict, seed: int) -> dict:
+    """A batch of ``cfg["B"]`` synthetic samples on the card."""
+    from pips_tpu_torch.data import SyntheticPointDataset
+
+    ds = SyntheticPointDataset(S=8, N=cfg["N"], H=cfg["H"], W=cfg["W"], seed=seed)
+    samples = [ds[i][0] for i in range(cfg["B"])]
+    return {k: torch.from_numpy(np.stack([x[k] for x in samples])).cuda() for k in samples[0]}
+
+
+def zero_grad_leaf(name: str) -> bool:
+    """Biases that a following normalisation removes: their grads are zero in
+    exact math and rounding noise in practice."""
+    return ((name.startswith("fnet.") and name.endswith(".bias")
+             and not name.startswith("fnet.conv3.")) or
+            (name.endswith("_token.fc2.bias")))
+
+
+def zero_train_counts(mixer_cuda, corr_cuda) -> None:
+    mixer_cuda.launches = mixer_cuda.bwd_launches = mixer_cuda.bwd_f32_launches = 0
+    corr_cuda.launches = 0
+
+
+def train_counts(mixer_cuda, corr_cuda) -> tuple:
+    """Launches so far of the channel block's forward, its bf16 and its f32
+    backward, and the corr kernel: the order of ``TRAIN_KERNELS``."""
+    return (mixer_cuda.launches, mixer_cuda.bwd_launches, mixer_cuda.bwd_f32_launches,
+            corr_cuda.launches)
+
+
+def step_launches(torch, dtype, iters: int, steps: int = 1) -> tuple:
+    """``train_counts`` of ``steps`` train steps at ``iters`` refinement
+    iterations: 12 channel-block forwards and 12 backwards in the model's
+    dtype per iteration, no corr kernel (training samples through onehot)."""
+    n = DEPTH * iters * steps
+    f32 = dtype == torch.float32
+    return (n, 0 if f32 else n, n if f32 else 0, 0)
+
+
+def add_launches(total: dict, got: tuple) -> None:
+    """Add ``train_counts``' launches to a tally of the kernels line."""
+    for name, n in zip(TRAIN_KERNELS, got):
+        total[name] = total.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def channel_blocks_as(mixer_cuda, forward, backward):
+    """Run the channel block's autograd Function on other forward and
+    backward functions (a plain version) in place of the kernels."""
+    kernels = mixer_cuda._forward, mixer_cuda.chan_ff_bwd
+    mixer_cuda._forward, mixer_cuda.chan_ff_bwd = forward, backward
+    try:
+        yield
+    finally:
+        mixer_cuda._forward, mixer_cuda.chan_ff_bwd = kernels
+
+
+def loss_and_grads(torch, model, batch, cfg: dict, iters: int):
+    """One train step's metrics and every leaf's grad in f32, nothing applied."""
+    from pips_tpu_torch.train import apply_flip_doubling, train_loss_fn
+
+    model.zero_grad(set_to_none=True)
+    total, metrics = train_loss_fn(model, apply_flip_doubling(batch, *cfg["flips"]), iters)
+    total.backward()
+    torch.cuda.synchronize()
+    out = ({k: float(v.detach()) for k, v in metrics.items()},
+           {n: p.grad.detach().float().clone() for n, p in model.named_parameters()})
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def grad_parity(torch, step, plain) -> dict:
+    """A step's (metrics, grads) against a plain step's: the loss's relative
+    error and, in f64 over the leaves whose grad is not zero in exact math, the
+    cosine and relative L2 distance of all grads together, and the worst leaf
+    cosine overall, in the encoder and outside it."""
+    (km, kg), (pm, pg) = step, plain
+    cos_of = {n: cos_rel(torch, g, pg[n])[0] for n, g in kg.items() if not zero_grad_leaf(n)}
+    global_cos, global_rel = cos_rel(torch, torch.cat([kg[n].ravel() for n in cos_of]),
+                                     torch.cat([pg[n].ravel() for n in cos_of]))
+    enc = min((n for n in cos_of if n.startswith("fnet.")), key=cos_of.get)
+    mix = min((n for n in cos_of if not n.startswith("fnet.")), key=cos_of.get)
+    return dict(loss_rel=abs(km["total_loss"] - pm["total_loss"]) / abs(pm["total_loss"]),
+                global_cos=global_cos, global_rel=global_rel, leaf_cos=min(cos_of.values()),
+                encoder_cos=cos_of[enc], mixer_cos=cos_of[mix], encoder_leaf=enc, mixer_leaf=mix,
+                below=sum(v < 0.999 for v in cos_of.values()), leaves=len(cos_of))
+
+
+def parity_step(torch, mixer_cuda, corr_cuda, model, batch, dtype, iters: int, bounds: dict,
+                phase: str, witness=None) -> tuple:
+    """(a) of phases 7 and 7d: one step's loss and grads at the bench train
+    shape with ``iters`` refinement iterations, the kernels against the plain
+    channel block (forward and backward). Fails on a launch count, or past
+    ``bounds`` (``grad_parity``'s keys: ``loss_rel`` at most, each cosine at
+    least). ``witness``, a (forward, backward) pair, runs a third step through
+    another plain version of the block, held against the plain step and
+    printed, not bounded: the reading of how far summation order alone moves
+    the step. Returns the kernels' ``train_counts``."""
+    zero_train_counts(mixer_cuda, corr_cuda)
+    k = loss_and_grads(torch, model, batch, TRAIN, iters)
+    got, want = train_counts(mixer_cuda, corr_cuda), step_launches(torch, dtype, iters)
+    if got != want:
+        fail(f"{phase} parity step I={iters}: {TRAIN_KERNELS} launched {got} times, "
+             f"expected {want}")
+
+    def plain_step(forward, backward):
+        with channel_blocks_as(mixer_cuda, forward, backward):
+            zero_train_counts(mixer_cuda, corr_cuda)
+            out = loss_and_grads(torch, model, batch, TRAIN, iters)
+            if any(train_counts(mixer_cuda, corr_cuda)):
+                fail(f"the plain channel block launched kernels: "
+                     f"{train_counts(mixer_cuda, corr_cuda)}")
+        return out
+
+    p = plain_step(mixer_cuda.chan_ff_reference, mixer_cuda.chan_ff_bwd_reference)
+    r = grad_parity(torch, k, p)
+    (km, _), (pm, _) = k, p
+    msg = (f"parity step (B={TRAIN['B']} N={TRAIN['N']} I={iters} {TRAIN['H']}x{TRAIN['W']}, "
+           f"{str(dtype).split('.')[-1]}): loss {km['total_loss']:.6g} (seq {km['seq']:.4g}, vis "
+           f"{km['vis']:.4g}, ce {km['ce']:.4g}) vs plain {pm['total_loss']:.6g}, rel "
+           f"{r['loss_rel']:.3g}; grads: global cos {r['global_cos']:.7f}, rel L2 "
+           f"{r['global_rel']:.3g}; worst leaf cos in the encoder {r['encoder_cos']:.7f} "
+           f"({r['encoder_leaf']}), outside it {r['mixer_cos']:.7f} ({r['mixer_leaf']}); "
+           f"{r['below']} of {r['leaves']} below 0.999; {got[0]} + {got[1] + got[2]} launches")
+    del k
+    if witness is not None:
+        w = grad_parity(torch, plain_step(*witness), p)
+        msg += (f"; plain in F chunks of {WITNESS_FC} against plain: loss rel {w['loss_rel']:.3g}, "
+                f"global cos {w['global_cos']:.7f}, worst leaf cos {w['leaf_cos']:.7f} ("
+                f"{w['encoder_leaf'] if w['encoder_cos'] <= w['mixer_cos'] else w['mixer_leaf']}),"
+                f" {w['below']} of {w['leaves']} below 0.999")
+    del p
+    log(phase, msg)
+    bad = {k: r[k] for k, b in bounds.items() if (r[k] > b if k == "loss_rel" else r[k] < b)}
+    if bad:
+        fail(f"{phase}: the step with the kernels differs from the plain channel block at "
+             f"I={iters} beyond {bounds}: {bad}")
+    return got
+
+
+def timed_steps(torch, mixer_cuda, corr_cuda, model, batch, dtype, n: int, phase: str):
+    """(c) of phases 7 and 7d: a warm-up and ``n`` timed train steps at the
+    training default (host clock around each synchronised step), each with
+    its launches checked and finite metrics. Returns the median step ms,
+    points*frames/s and peak memory, and the launches of all ``n + 1``."""
+    from pips_tpu_torch.train import make_optimizer, make_train_step
+
+    opt = make_optimizer(model.parameters(), lr=5e-4, num_steps=100)
+    step = make_train_step(model, opt, iters=TRAIN_DEFAULT["iters"], horz_flip=True,
+                           vert_flip=True)
+    want = step_launches(torch, dtype, TRAIN_DEFAULT["iters"])
+    zero_train_counts(mixer_cuda, corr_cuda)
+    step(batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for _ in range(n):
+        before = train_counts(mixer_cuda, corr_cuda)
+        t = time.perf_counter()
+        m = step(batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        got = tuple(a - b for a, b in zip(train_counts(mixer_cuda, corr_cuda), before))
+        if got != want:
+            fail(f"a default train step in {dtype} launched {TRAIN_KERNELS} {got} times, "
+                 f"expected {want}")
+        if not all(math.isfinite(v) for v in m.values()):
+            fail(f"non-finite metrics at the training default in {dtype}: {m}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med_s = statistics.median(step_s)
+    pf = 4 * TRAIN_DEFAULT["N"] * 8 / med_s
+    c = TRAIN_DEFAULT
+    log(phase, f"training default (B={c['B']} x4 flips, N={c['N']}, I={c['iters']}, "
+               f"{c['H']}x{c['W']}, {str(dtype).split('.')[-1]}): steps "
+               f"{', '.join(f'{x * 1e3:.1f}' for x in step_s)} ms, median {med_s * 1e3:.1f} ms; "
+               f"{pf:.0f} points*frames/s (4 x {c['N']} x 8 per step); "
+               f"peak memory {peak_gb:.2f} GB; {want[0]} chan_ff_block + {want[1] + want[2]} "
+               f"chan_ff_bwd launches per step; total_loss {m['total_loss']:.4g}")
+    return (dict(step_ms=med_s * 1e3, points_frames_per_s=pf, peak_gb=peak_gb),
+            train_counts(mixer_cuda, corr_cuda))
+
+
+def phase_train_f32(torch, np, mixer_cuda, chunk_cuda, corr_cuda, build_dir: Path) -> dict:
+    """7d: the full-width model in f32 with fused channel blocks, the path of
+    the f32 backward kernel: (a) one step's loss and grads at the bench train
+    shape against the plain channel block, with I=1 and with I=6 (and at I=6
+    the plain block in F chunks against the plain block, the witness for
+    PARITY's looser bounds); (b) ``train.loop.main`` with ``--dtype float32
+    --fuse_chanff 1`` for 12 steps with a validation pass and a checkpoint;
+    (c) 2 timed steps at the training default. Returns the launches of the
+    forward and f32 backward kernels and the step numbers."""
+    from pips_tpu_torch import make_pips
+    from pips_tpu_torch.train import parse_cli
+    from pips_tpu_torch.train import loop as train_loop
+    from pips_tpu_torch.utils import saverloader
+
+    require_full_f32(torch)
+    launched = {}
+    f32 = torch.float32
+
+    # (a) one step's loss and grads, kernels against the plain channel block,
+    # with one refinement iteration and with the bench shape's six
+    model = make_pips(device="cuda", seed=0, dtype=None, fuse_chanff=True).train()
+    batch = train_batch(torch, np, TRAIN, seed=0)
+    add_launches(launched, parity_step(torch, mixer_cuda, corr_cuda, model, batch, f32, 1,
+                                       PARITY_F32, "train f32"))
+    witness = (functools.partial(chunk_cuda.chan_ff_chunked_reference, fc=WITNESS_FC),
+               functools.partial(mixer_cuda.chan_ff_bwd_reference, fc=WITNESS_FC))
+    add_launches(launched, parity_step(torch, mixer_cuda, corr_cuda, model, batch, f32,
+                                       TRAIN["iters"], PARITY, "train f32", witness))
+    del model, batch
+    torch.cuda.empty_cache()
+
+    # (b) the loop's own entry point, as a user runs it
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_f32_", dir=build_dir))
+    argv = ["--dtype", "float32", "--fuse_chanff", "1", "--dataset", "synthetic",
+            "--B", str(TRAIN["B"]), "--N", str(TRAIN["N"]), "--I", str(TRAIN["iters"]),
+            "--crop_size", f"{TRAIN['H']},{TRAIN['W']}", "--horz_flip", "false",
+            "--vert_flip", "false", "--max_iters", str(LOOP_F32_STEPS),
+            "--save_freq", str(LOOP_F32_STEPS), "--val_freq", str(LOOP_F32_STEPS),
+            "--val_batches", "1", "--log_freq", str(LOOP_F32_STEPS), "--log_media", "false",
+            "--metrics_every", "1", "--num_workers", "4", "--ckpt_dir", str(root / "ckpts"),
+            "--log_dir", str(root / "logs")]
+    cfg = parse_cli(argv)
+    zero_train_counts(mixer_cuda, corr_cuda)
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        metrics = train_loop.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    want = (DEPTH * cfg.I * (LOOP_F32_STEPS + cfg.val_batches), 0, DEPTH * cfg.I * LOOP_F32_STEPS,
+            0)
+    got = train_counts(mixer_cuda, corr_cuda)
+    if got != want:
+        fail(f"the f32 loop: {TRAIN_KERNELS} launched {got} times, expected {want}")
+    add_launches(launched, got)
+    losses = [float(v) for v in re.findall(r"loss = ([0-9.eE+-]+)", buf.getvalue())]
+    if len(losses) != LOOP_F32_STEPS or not all(math.isfinite(v)
+                                                for v in losses + [*metrics.values()]):
+        fail(f"the f32 loop: {len(losses)} step losses, metrics {metrics}")
+    head, tail = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    steps_saved = saverloader.list_steps(str(root / "ckpts" / cfg.model_name()))
+    log("train f32", f"train.loop.main({' '.join(argv[:4])} ...): {LOOP_F32_STEPS} steps, a "
+                     f"validation pass and a checkpoint in {secs:.1f} s; total_loss "
+                     f"{' '.join(f'{v:.4g}' for v in losses)}; checkpoints {steps_saved}; "
+                     f"launches {got}")
+    if not tail < head:
+        fail(f"the f32 loop's loss did not fall: first three {head:.4g}, last three {tail:.4g}")
+    if steps_saved != [LOOP_F32_STEPS]:
+        fail(f"the f32 loop's checkpoints are {steps_saved}, expected [{LOOP_F32_STEPS}]")
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+
+    # (c) timed steps at the training default
+    model = make_pips(device="cuda", seed=0, dtype=None, fuse_chanff=True).train()
+    big = train_batch(torch, np, TRAIN_DEFAULT, seed=1)
+    numbers, got = timed_steps(torch, mixer_cuda, corr_cuda, model, big, f32, 2, "train f32")
+    add_launches(launched, got)
+    del model, big
+    torch.cuda.empty_cache()
+    return dict(launched=launched, **numbers, loop_s=secs)
 
 
 def check_window(np, name, trajs, vis, xys, S: int = 8) -> None:
@@ -687,8 +1154,8 @@ def main() -> int:
                                 dense_queries, grid_queries, make_pips)
     import torch.nn.functional as F
 
-    from pips_tpu_torch.kernels import (_build, block_cuda, conv_cuda, corr_cuda, mixer_cuda,
-                                        stem_wgrad_cuda)
+    from pips_tpu_torch.kernels import (_build, block_cuda, chanff_chunk_cuda, conv_cuda, corr_cuda,
+                                        mixer_cuda, stem_wgrad_cuda)
     from pips_tpu_torch.models import mixer as mixer_module
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -697,6 +1164,9 @@ def main() -> int:
     def zero_counts():
         mixer_cuda.launches = 0
         mixer_cuda.bwd_launches = 0
+        mixer_cuda.bwd_f32_launches = 0
+        chanff_chunk_cuda.launches = 0
+        chanff_chunk_cuda.bwd_launches = 0
         corr_cuda.launches = 0
         conv_cuda.launches = 0
         block_cuda.launches = 0
@@ -707,7 +1177,8 @@ def main() -> int:
 
     # launches summed over main-path runs
     main_path = {"chan_ff_block": 0, "corr_sample": 0, "chan_ff_bwd": 0, "conv3x3_same": 0,
-                 "res_block64": 0, "stem_wgrad": 0}
+                 "res_block64": 0, "stem_wgrad": 0, "chan_ff_bwd_f32": 0,
+                 "chan_ff_chunked_fwd": 0, "chan_ff_chunked_bwd": 0}
 
     def add_main(chanff_n, corr_n):
         main_path["chan_ff_block"] += chanff_n
@@ -729,11 +1200,15 @@ def main() -> int:
                      f"-> {i['path']}")
     log("build", f"all kernels ready in {time.perf_counter() - t:.2f} s")
 
-    # 3a. chan_ff_block against its plain version, at the main path's shapes
+    # 3a. chan_ff_block against its plain version, at the main path's shapes:
+    # the served windows' (R_MAIN, and 2000, no multiple of the kernel's row
+    # blocks) in bf16 and f32, and the f32 train path's (the bench train shape
+    # and the training default)
+    require_full_f32(torch)
     R_MAIN = 1 * 256 * 8  # B*N*S of the first request
     chanff = {}
     for dtype in ("bfloat16", "float32"):
-        for R in (R_MAIN, 2000):
+        for R in (R_MAIN, 2000) + ((TRAIN_R, TRAIN_R_DEFAULT) if dtype == "float32" else ()):
             args = chanff_args(torch, np, R, getattr(torch, dtype), seed=R)
             y = mixer_cuda.chan_ff_block(*args)
             torch.cuda.synchronize()
@@ -741,8 +1216,9 @@ def main() -> int:
             err = (y.float() - ref.float()).abs().max().item()
             ref_max = ref.float().abs().max().item()
             tol = bf16_tol(ref_max) if dtype == "bfloat16" else TOL_F32
-            ms = median_ms(torch, mixer_cuda.chan_ff_block, args)
-            plain_ms = median_ms(torch, mixer_cuda.chan_ff_reference, args)
+            n = 20 if R < TRAIN_R_DEFAULT else 5
+            ms = median_ms(torch, mixer_cuda.chan_ff_block, args, launches=n)
+            plain_ms = median_ms(torch, mixer_cuda.chan_ff_reference, args, launches=n)
             bound_ms, bound_by = chanff_bound(R, dtype)
             log("kernels", f"chan_ff_block {dtype} R={R}: max_abs_err {err:.3g} (tol {tol:.3g}, "
                            f"|y| <= {ref_max:.3g}); {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -751,6 +1227,8 @@ def main() -> int:
                 fail(f"chan_ff_block {dtype} R={R} disagrees with its plain version: {err} > {tol}")
             chanff[(dtype, R)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                       bound_ms=bound_ms, bound_by=bound_by)
+            del args, y, ref
+    torch.cuda.empty_cache()
 
     # 3b. corr_sample against its plain version: the flagship's level 0 at
     # 480x1024 is 60x128 (N=256, and the dense probe's N=7680); 32x48 with
@@ -790,16 +1268,7 @@ def main() -> int:
         torch.cuda.synchronize()
         ref = mixer_cuda.chan_ff_bwd_reference(*args)
         tols = chanff_bwd_tols(torch, mixer_cuda, args)
-        worst, parts = 0.0, []
-        for name, o, r, tol in zip(GRAD_NAMES, out, ref, tols):
-            if o.shape != r.shape or o.dtype != r.dtype:
-                fail(f"chan_ff_bwd R={R} {name}: {tuple(o.shape)} {o.dtype}, plain "
-                     f"{tuple(r.shape)} {r.dtype}")
-            diff = (o.float() - r.float()).abs()
-            ratio = (diff / (tol.clamp_min(1e-30) if torch.is_tensor(tol) else tol)).max().item()
-            worst = max(worst, ratio)
-            parts.append(f"{name} {diff.max().item():.3g} (|g| <= {r.float().abs().max().item():.3g}, "
-                         f"err/tol {ratio:.3g})")
+        worst, parts, max_err = grad_errors(torch, f"chan_ff_bwd R={R}", out, ref, tols)
         ms = median_ms(torch, mixer_cuda.chan_ff_bwd, args)
         plain_ms = median_ms(torch, mixer_cuda.chan_ff_bwd_reference, args)
         bound_ms, bound_by = chanff_bwd_bound(R)
@@ -808,9 +1277,8 @@ def main() -> int:
                          f"({bound_by})")
         if worst > 1.0:
             fail(f"chan_ff_bwd R={R} disagrees with its plain version (worst err/tol {worst:.3g})")
-        chanff_bwd[R] = dict(max_abs_err=max((o.float() - r.float()).abs().max().item()
-                                             for o, r in zip(out, ref)),
-                             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        chanff_bwd[R] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by)
         del args, out, ref, tols
     torch.cuda.empty_cache()
 
@@ -882,6 +1350,11 @@ def main() -> int:
     # the library
     block = phase_block(torch, np, F, block_cuda)
     stem = phase_stem(torch, np, stem_wgrad_cuda)
+
+    # 3g. the f32 backward of the channel block; 3h. the F-chunked channel
+    # block, forward and backward: each against its plain version
+    chanff_f32 = phase_chanff_f32(torch, np, mixer_cuda)
+    chunk = phase_chunk(torch, np, chanff_chunk_cuda, mixer_cuda)
 
     # 4. slice: the served windows, onehot
     t = time.perf_counter()
@@ -1100,83 +1573,15 @@ def main() -> int:
         fail(f"ChainTrackerOnDevice differs from the host tracker beyond {EXACT_PX}: {d_dev}")
 
     # 7. slice: training through pips_tpu_torch.train
-    from pips_tpu_torch.data import SyntheticPointDataset
-    from pips_tpu_torch.train import (apply_flip_doubling, make_optimizer, make_train_step,
-                                      train_loss_fn)
+    from pips_tpu_torch.train import make_optimizer, make_train_step
 
     torch.cuda.empty_cache()
-    train_model = make_pips(device="cuda", seed=0, dtype=torch.bfloat16, fuse_chanff=True).train()
-
-    def train_batch(cfg, seed):
-        ds = SyntheticPointDataset(S=8, N=cfg["N"], H=cfg["H"], W=cfg["W"], seed=seed)
-        samples = [ds[i][0] for i in range(cfg["B"])]
-        return {k: torch.from_numpy(np.stack([x[k] for x in samples])).cuda()
-                for k in samples[0]}
-
-    def loss_and_grads(batch, cfg):
-        train_model.zero_grad(set_to_none=True)
-        total, metrics = train_loss_fn(train_model, apply_flip_doubling(batch, *cfg["flips"]),
-                                       cfg["iters"])
-        total.backward()
-        torch.cuda.synchronize()
-        return ({k: float(v.detach()) for k, v in metrics.items()},
-                {n: p.grad.detach().float().clone() for n, p in train_model.named_parameters()})
-
-    def train_counts():
-        return mixer_cuda.launches, mixer_cuda.bwd_launches, corr_cuda.launches
-
-    def zero_grad_leaf(name):  # biases that a following normalisation removes
-        return ((name.startswith("fnet.") and name.endswith(".bias")
-                 and not name.startswith("fnet.conv3.")) or
-                (name.endswith("_token.fc2.bias")))
-
-    batch = train_batch(TRAIN, seed=0)
-    per_step = DEPTH * TRAIN["iters"]
+    bf16 = torch.bfloat16
+    train_model = make_pips(device="cuda", seed=0, dtype=bf16, fuse_chanff=True).train()
+    batch = train_batch(torch, np, TRAIN, seed=0)
     # (a) one step's loss and grads, kernels against the plain channel block
-    zero_counts()
-    k_metrics, k_grads = loss_and_grads(batch, TRAIN)
-    n_fwd, n_bwd, n_corr = train_counts()
-    if (n_fwd, n_bwd, n_corr) != (per_step, per_step, 0):
-        fail(f"parity step launched chan_ff_block {n_fwd}, chan_ff_bwd {n_bwd} and corr_sample "
-             f"{n_corr} times, expected {per_step}, {per_step} and 0")
-    main_path["chan_ff_block"] += n_fwd
-    main_path["chan_ff_bwd"] += n_bwd
-    kernel_fwd, kernel_bwd = mixer_cuda._forward, mixer_cuda.chan_ff_bwd
-    mixer_cuda._forward, mixer_cuda.chan_ff_bwd = (mixer_cuda.chan_ff_reference,
-                                                   mixer_cuda.chan_ff_bwd_reference)
-    try:
-        zero_counts()
-        p_metrics, p_grads = loss_and_grads(batch, TRAIN)
-        if any(train_counts()):
-            fail(f"the plain channel block launched kernels: {train_counts()}")
-    finally:
-        mixer_cuda._forward, mixer_cuda.chan_ff_bwd = kernel_fwd, kernel_bwd
-    loss_rel = abs(k_metrics["total_loss"] - p_metrics["total_loss"]) / abs(p_metrics["total_loss"])
-    cos_of = {}  # in f64: ~29M terms
-    for name, g in k_grads.items():
-        if zero_grad_leaf(name):
-            continue
-        g, p = g.double(), p_grads[name].double()
-        cos_of[name] = (torch.dot(g.ravel(), p.ravel()) / (g.norm() * p.norm())).item()
-    flat_k = torch.cat([g.ravel().double() for n, g in k_grads.items() if n in cos_of])
-    flat_p = torch.cat([p_grads[n].ravel().double() for n in cos_of])
-    global_cos = (torch.dot(flat_k, flat_p) / (flat_k.norm() * flat_p.norm())).item()
-    global_rel = ((flat_k - flat_p).norm() / flat_p.norm()).item()
-    enc = {n: c for n, c in cos_of.items() if n.startswith("fnet.")}
-    mix = {n: c for n, c in cos_of.items() if not n.startswith("fnet.")}
-    worst_enc, worst_mix = min(enc, key=enc.get), min(mix, key=mix.get)
-    log("train", f"parity step (B=1 N=128 I=6 384x512): loss {k_metrics['total_loss']:.5g} "
-                 f"(seq {k_metrics['seq']:.4g}, vis {k_metrics['vis']:.4g}, ce {k_metrics['ce']:.4g}) "
-                 f"vs plain {p_metrics['total_loss']:.5g}, rel {loss_rel:.3g}; grads: global cos "
-                 f"{global_cos:.6f}, rel L2 {global_rel:.3g}; worst leaf cos {enc[worst_enc]:.5f} "
-                 f"({worst_enc}), outside the encoder {mix[worst_mix]:.5f} ({worst_mix}); "
-                 f"{n_fwd} + {n_bwd} launches")
-    if not (loss_rel <= PARITY["loss_rel"] and global_cos >= PARITY["global_cos"]
-            and enc[worst_enc] >= PARITY["encoder_cos"]
-            and mix[worst_mix] >= PARITY["mixer_cos"]):
-        fail(f"training with the kernels differs from the plain channel block beyond {PARITY}")
-    del k_grads, p_grads, flat_k, flat_p
-    train_model.zero_grad(set_to_none=True)
+    add_launches(main_path, parity_step(torch, mixer_cuda, corr_cuda, train_model, batch, bf16,
+                                        TRAIN["iters"], PARITY, "train"))
 
     # (b) 20 steps on the fixed batch
     opt = make_optimizer(train_model.parameters(), lr=5e-4, num_steps=TRAIN_RUN_STEPS)
@@ -1188,12 +1593,10 @@ def main() -> int:
     run = [step(batch) for _ in range(TRAIN_RUN_STEPS)]
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t
-    n_fwd, n_bwd, n_corr = train_counts()
-    if (n_fwd, n_bwd, n_corr) != (per_step * TRAIN_RUN_STEPS, per_step * TRAIN_RUN_STEPS, 0):
-        fail(f"the 20-step run launched chan_ff_block {n_fwd}, chan_ff_bwd {n_bwd}, corr_sample "
-             f"{n_corr} times")
-    main_path["chan_ff_block"] += n_fwd
-    main_path["chan_ff_bwd"] += n_bwd
+    got = train_counts(mixer_cuda, corr_cuda)
+    if got != step_launches(torch, bf16, TRAIN["iters"], TRAIN_RUN_STEPS):
+        fail(f"the 20-step run launched {TRAIN_KERNELS} {got} times")
+    add_launches(main_path, got)
     losses = [m["total_loss"] for m in run]
     log("train", f"{TRAIN_RUN_STEPS} steps on one batch (lr 5e-4, onecycle over "
                  f"{TRAIN_RUN_STEPS + 100}): total_loss {' '.join(f'{x:.4g}' for x in losses)}; "
@@ -1207,40 +1610,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # (c) timed steps at the training default
-    big = train_batch(TRAIN_DEFAULT, seed=1)
-    opt = make_optimizer(train_model.parameters(), lr=5e-4, num_steps=100)
-    step = make_train_step(train_model, opt, iters=TRAIN_DEFAULT["iters"], horz_flip=True,
-                           vert_flip=True)
-    per_step = DEPTH * TRAIN_DEFAULT["iters"]
-    zero_counts()
-    step(big)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    step_s = []
-    for _ in range(3):
-        before = train_counts()
-        t = time.perf_counter()
-        m = step(big)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t)
-        n_fwd, n_bwd, n_corr = (a - b for a, b in zip(train_counts(), before))
-        if (n_fwd, n_bwd, n_corr) != (per_step, per_step, 0):
-            fail(f"a default train step launched chan_ff_block {n_fwd}, chan_ff_bwd {n_bwd}, "
-                 f"corr_sample {n_corr} times, expected {per_step}, {per_step}, 0")
-        if not all(math.isfinite(v) for v in m.values()):
-            fail(f"non-finite metrics at the training default: {m}")
-    n_fwd, n_bwd, _ = train_counts()
-    main_path["chan_ff_block"] += n_fwd
-    main_path["chan_ff_bwd"] += n_bwd
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    med_s = sorted(step_s)[1]
-    pf = 4 * TRAIN_DEFAULT["N"] * 8 / med_s
-    train_default = dict(step_ms=med_s * 1e3, points_frames_per_s=pf, peak_gb=peak_gb)
-    log("train", f"training default (B=1 x4 flips, N=768, I=4, 368x496): steps "
-                 f"{', '.join(f'{x * 1e3:.1f}' for x in step_s)} ms, median {med_s * 1e3:.1f} ms; "
-                 f"{pf:.0f} points*frames/s (4 x 768 x 8 per step); peak memory {peak_gb:.2f} GB; "
-                 f"{per_step} chan_ff_block + {per_step} chan_ff_bwd launches per step; "
-                 f"total_loss {m['total_loss']:.4g}")
+    big = train_batch(torch, np, TRAIN_DEFAULT, seed=1)
+    train_default, got = timed_steps(torch, mixer_cuda, corr_cuda, train_model, big, bf16, 3,
+                                     "train")
+    add_launches(main_path, got)
 
     # 8. slice: the train loop end to end with fuse_conv3, at full width on the
     # synthetic set at the bench train shape; media at 384x512 render the
@@ -1249,7 +1622,7 @@ def main() -> int:
     from pips_tpu_torch.train.loop import train as train_loop
     from pips_tpu_torch.utils import saverloader
 
-    del train_model, opt, step, big
+    del train_model, big
     torch.cuda.empty_cache()
     t8 = time.perf_counter()
     build_dir = Path(__file__).resolve().parent / "build"
@@ -1319,14 +1692,22 @@ def main() -> int:
                 f"phase {time.perf_counter() - t8:.1f} s")
     shutil.rmtree(root)
 
-    # 9. slice: the two profiling tools, the paths of the residual-block and
-    # stem weight-gradient kernels
+    # 7d. slice: the f32 train path with fused channel blocks, the f32
+    # backward kernel's path
     zero_counts()
-    main_path.update(phase_tools(torch, block_cuda, stem_wgrad_cuda))
+    train_f32 = phase_train_f32(torch, np, mixer_cuda, chanff_chunk_cuda, corr_cuda, build_dir)
+    for k, n in train_f32.pop("launched").items():
+        main_path[k] += n
+
+    # 9. slice: the three profiling tools, the paths of the residual-block,
+    # stem weight-gradient and chunked channel-block kernels
+    zero_counts()
+    main_path.update(phase_tools(torch, block_cuda, stem_wgrad_cuda, chanff_chunk_cuda))
 
     log("slice", f"main-path launches: {main_path}")
     if min(main_path.values()) == 0:
         fail(f"a kernel of the path never launched on it: {main_path}")
+    print(smi, flush=True)  # again, so that the tail of the log holds the card and its limit
     main_ff = chanff[("bfloat16", R_MAIN)]
     main_corr = corr[("flagship", "bfloat16", "bfloat16")]
     print(json.dumps({"kernels": [
@@ -1350,10 +1731,26 @@ def main() -> int:
         {"name": "stem_wgrad", "route": "cuda", "source": "pips_tpu_torch/csrc/stem_wgrad.cu",
          "replaces": "pips_tpu/kernels/stem_wgrad_pallas.py:97",
          "launches": main_path["stem_wgrad"],
-         **{k: v for k, v in stem["B=8"].items() if k != "x7_ms"}}]}), flush=True)
+         **{k: v for k, v in stem["B=8"].items() if k != "x7_ms"}},
+        {"name": "chan_ff_bwd_f32", "route": "cuda", "source": "pips_tpu_torch/csrc/chanff_bwd.cu",
+         "replaces": "pips_tpu/kernels/mixer_pallas.py:245",
+         "launches": main_path["chan_ff_bwd_f32"], **chanff_f32[TRAIN_R_DEFAULT],
+         "library_ms": None},
+        {"name": "chan_ff_chunked_fwd", "route": "cuda",
+         "source": "pips_tpu_torch/csrc/chanff_chunk.cu",
+         "replaces": "tools/profile_chanff_chunk.py:121",
+         "launches": main_path["chan_ff_chunked_fwd"],
+         **{k: v for k, v in chunk[("fwd", TRAIN_R, 512)].items() if k != "base_ms"},
+         "library_ms": None},
+        {"name": "chan_ff_chunked_bwd", "route": "cuda",
+         "source": "pips_tpu_torch/csrc/chanff_chunk.cu",
+         "replaces": "tools/profile_chanff_chunk.py:149",
+         "launches": main_path["chan_ff_chunked_bwd"],
+         **{k: v for k, v in chunk[("bwd", TRAIN_R, 512)].items() if k != "base_ms"},
+         "library_ms": None}]}), flush=True)
     log("done", f"all phases passed in {time.perf_counter() - T0:.1f} s "
                 f"(chained video {chain_s:.2f} s; windows {json.dumps(window_ms)}; "
-                f"training default {json.dumps(train_default)})")
+                f"training default {json.dumps(train_default)}; f32 {json.dumps(train_f32)})")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

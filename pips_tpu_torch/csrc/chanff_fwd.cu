@@ -37,64 +37,16 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "chanff_rows.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
 using namespace nvcuda;
 
-constexpr int kD = 512;        // channel width the kernel is built for
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kTR = 32;        // rows per block
-constexpr float kEps = 1e-5f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat16(v); }
-
-__device__ __forceinline__ float gelu_erf(float a) {
-  return 0.5f * a * (1.0f + erff(a * 0.70710678118654752f));
-}
-
-// LayerNorm rows [row0, row0 + kTR) of x (R, kD) into xa (shared, row stride
-// lda) in the compute dtype T. One warp per row; rows past R become zeros.
-template <typename T>
-__device__ void layernorm_rows(const T* __restrict__ x, const float* __restrict__ scale,
-                               const float* __restrict__ bias, T* xa, int lda, int row0,
-                               int R) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < kTR; r += kWarps) {
-    T* dst = xa + r * lda;
-    const int row = row0 + r;
-    if (row >= R) {
-      for (int c = lane; c < kD; c += 32) dst[c] = from_f32<T>(0.0f);
-      continue;
-    }
-    const T* src = x + (size_t)row * kD;
-    float v[kD / 32];
-    float s = 0.0f, s2 = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kD / 32; ++i) {
-      v[i] = to_f32(src[lane + 32 * i]);
-      s += v[i];
-      s2 += v[i] * v[i];
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, o);
-      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
-    }
-    const float mu = s / kD;
-    const float rsig = rsqrtf(fmaxf(s2 / kD - mu * mu, 0.0f) + kEps);
-#pragma unroll
-    for (int i = 0; i < kD / 32; ++i) {
-      const int c = lane + 32 * i;
-      dst[c] = from_f32<T>((v[i] - mu) * rsig * scale[c] + bias[c]);
-    }
-  }
-}
 
 // ---------------------------------------------------------------- bf16 (WMMA)
 namespace tc {
@@ -130,7 +82,7 @@ chanff_fwd_bf16(const bf16* __restrict__ x, const float* __restrict__ ln_scale,
 
   const int row0 = blockIdx.x * kTR;
   const int warp = threadIdx.x / 32;
-  layernorm_rows<bf16>(x, ln_scale, ln_bias, xa, LDA, row0, R);
+  ln_rows<kTR>(x, ln_scale, ln_bias, xa, LDA, row0, R);
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kAccRows][kAccCols];
 #pragma unroll
@@ -172,7 +124,7 @@ chanff_fwd_bf16(const bf16* __restrict__ x, const float* __restrict__ ln_scale,
     __syncthreads();
     for (int i = threadIdx.x; i < kTR * FC; i += kThreads) {
       const int r = i / FC, c = i % FC;
-      hb[r * LDW1 + c] = __float2bfloat16(gelu_erf(hf[r * LDH + c] + b1[f0 + c]));
+      hb[r * LDW1 + c] = __float2bfloat16(gelu(hf[r * LDH + c] + b1[f0 + c]));
     }
     __syncthreads();
 
@@ -239,7 +191,7 @@ chanff_fwd_f32(const float* __restrict__ x, const float* __restrict__ ln_scale,
 
   const int row0 = blockIdx.x * kTR;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  layernorm_rows<float>(x, ln_scale, ln_bias, xa, kD, row0, R);
+  ln_rows<kTR>(x, ln_scale, ln_bias, xa, kD, row0, R);
 
   const int ar = (threadIdx.x / 128) * kRowsPerThread;
   const int ac = (threadIdx.x % 128) * 4;
@@ -271,7 +223,7 @@ chanff_fwd_f32(const float* __restrict__ x, const float* __restrict__ ln_scale,
         for (int i = 0; i < 4; ++i) h[i] = fmaf(xa[(warp * 4 + i) * kD + k], w, h[i]);
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) hs[(warp * 4 + i) * FC + lane] = gelu_erf(h[i] + b1[f0 + lane]);
+      for (int i = 0; i < 4; ++i) hs[(warp * 4 + i) * FC + lane] = gelu(h[i] + b1[f0 + lane]);
     }
     __syncthreads();
 

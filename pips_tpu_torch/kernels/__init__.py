@@ -6,6 +6,9 @@ first use.
 
 from pips_tpu_torch.kernels.block_cuda import (conv_pass, conv_pass_reference, res_block64,
                                                res_block64_reference)
+from pips_tpu_torch.kernels.chanff_chunk_cuda import (chan_ff_block_chunked,
+                                                      chan_ff_chunked_bwd_reference,
+                                                      chan_ff_chunked_reference)
 from pips_tpu_torch.kernels.conv_cuda import conv3x3_reference, conv3x3_same
 from pips_tpu_torch.kernels.corr_cuda import corr_sample, corr_sample_reference
 from pips_tpu_torch.kernels.corr_onehot import sample_corr_onehot
@@ -14,7 +17,8 @@ from pips_tpu_torch.kernels.mixer_cuda import (chan_ff_block, chan_ff_bwd, chan_
 from pips_tpu_torch.kernels.stem_wgrad_cuda import (stem_conv_s2d, stem_wgrad,
                                                     stem_wgrad_reference, stem_wgrad_supported)
 
-__all__ = ["chan_ff_block", "chan_ff_bwd", "chan_ff_bwd_reference", "chan_ff_reference",
+__all__ = ["chan_ff_block", "chan_ff_block_chunked", "chan_ff_bwd", "chan_ff_bwd_reference",
+           "chan_ff_chunked_bwd_reference", "chan_ff_chunked_reference", "chan_ff_reference",
            "conv3x3_reference", "conv3x3_same", "conv_pass", "conv_pass_reference",
            "corr_sample", "corr_sample_reference", "res_block64", "res_block64_reference",
            "sample_corr_onehot", "stem_conv_s2d", "stem_wgrad", "stem_wgrad_reference",

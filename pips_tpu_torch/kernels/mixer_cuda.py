@@ -4,8 +4,9 @@ Counterpart of ``pips_tpu/kernels/mixer_pallas.py``: ``chan_ff_block`` has the
 JAX signature and its gradient. On a CUDA tensor the forward launches the
 hand-written kernel in ``pips_tpu_torch/csrc/chanff_fwd.cu`` (which replaces
 the TPU kernel ``_chanff_fwd``) and the backward the one in
-``csrc/chanff_bwd.cu`` (which replaces ``_chanff_bwd``); each source's header
-says what bounds it and how its design answers that. ``chan_ff_reference``
+``csrc/chanff_bwd.cu`` (which replaces ``_chanff_bwd``), in bf16 on the tensor
+cores and in f32 on SIMT FMAs; each source's header says what bounds it and
+how its design answers that. ``chan_ff_reference``
 and ``chan_ff_bwd_reference`` are their plain PyTorch versions, transcriptions
 of the JAX kernels' math.
 
@@ -28,8 +29,9 @@ _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
 KERNEL_D = 512      # channel width the kernels are compiled for
 KERNEL_F_MULT = 64  # F must be a multiple of the kernels' F chunk
 
-launches = 0      # forward kernel launches so far; read (and reset) by chip_smoke.py
-bwd_launches = 0  # backward kernel launches so far
+launches = 0          # forward kernel launches so far; read (and reset) by chip_smoke.py
+bwd_launches = 0      # bf16 backward kernel launches so far
+bwd_f32_launches = 0  # f32 backward kernel launches so far
 _fns: dict[str, object] = {}
 
 
@@ -59,11 +61,13 @@ def _mm(a, b):
     return torch.matmul(a.float(), b.float())
 
 
-def chan_ff_bwd_terms(x, dy, ln_scale, ln_bias, w1, b1, w2) -> dict:
+def chan_ff_bwd_terms(x, dy, ln_scale, ln_bias, w1, b1, w2, fc=None) -> dict:
     """The plain backward's intermediates, widened to f32: xn and rsig of the
     LN; xa_c, g1_c, dy (the compute-dtype operands of the weight-grad
-    products, as rounded); da1 and its rounding da1_c; dxa = da1_c @ w1^T.
-    ``chan_ff_bwd_reference`` sums these into the grads."""
+    products, as rounded); da1 and its rounding da1_c; dxa = da1_c @ w1^T,
+    summed in f32 over F chunks of ``fc`` columns when ``fc`` is given (the
+    JAX chunked kernel's order). ``chan_ff_bwd_reference`` sums these into
+    the grads."""
     cd = x.dtype
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
@@ -78,11 +82,14 @@ def chan_ff_bwd_terms(x, dy, ln_scale, ln_bias, w1, b1, w2) -> dict:
     phi = torch.exp(-0.5 * a1 * a1) * _INV_SQRT2PI
     da1 = dg1 * (0.5 * (1.0 + torch.erf(a1 / _SQRT2)) + a1 * phi)
     da1_c = da1.to(cd).float()
-    return dict(xn=xn, rsig=rsig, xa_c=xa_c, g1_c=g1_c, dy=dy, da1=da1, da1_c=da1_c,
-                dxa=_mm(da1_c, w1.t()))
+    if fc is None:
+        dxa = _mm(da1_c, w1.t())
+    else:
+        dxa = sum(_mm(da1_c[:, f:f + fc], w1[:, f:f + fc].t()) for f in range(0, w1.shape[1], fc))
+    return dict(xn=xn, rsig=rsig, xa_c=xa_c, g1_c=g1_c, dy=dy, da1=da1, da1_c=da1_c, dxa=dxa)
 
 
-def chan_ff_bwd_reference(x, dy, ln_scale, ln_bias, w1, b1, w2):
+def chan_ff_bwd_reference(x, dy, ln_scale, ln_bias, w1, b1, w2, fc=None):
     """Plain PyTorch backward of the block, the JAX ``_chanff_bwd_kernel``'s math.
 
     x, dy: (R, D) in the compute dtype (x's); w1 (D, F), w2 (F, D) in x's
@@ -91,9 +98,11 @@ def chan_ff_bwd_reference(x, dy, ln_scale, ln_bias, w1, b1, w2):
     x; the four products take operands rounded to the compute dtype (xa_c,
     g1_c, da1_c, dy_c) and accumulate in f32; db1, db2 and the LN grads are
     summed in f32 from unrounded values. Not autograd of ``chan_ff_reference``,
-    which would round dw1 and dw2 to the compute dtype.
+    which would round dw1 and dw2 to the compute dtype. With ``fc``, the JAX
+    chunked kernel's backward (``tools/profile_chanff_chunk.py``): dxa summed
+    chunk by chunk; every other grad is the same sum.
     """
-    t = chan_ff_bwd_terms(x, dy, ln_scale, ln_bias, w1, b1, w2)
+    t = chan_ff_bwd_terms(x, dy, ln_scale, ln_bias, w1, b1, w2, fc)
     xn, dxa = t["xn"], t["dxa"]
     dxn = dxa * ln_scale.float()
     m1 = dxn.mean(-1, keepdim=True)
@@ -122,18 +131,21 @@ def _check(x, ln_scale, ln_bias, w1, b1, w2, b2):
     return R, D, F
 
 
-def _kernel(stem: str):
-    fn = _fns.get(stem)
+# C entry -> (library stem, pointer arguments, int arguments); each ends in
+# the device index and a stream pointer
+_ENTRIES = {"pips_chanff_fwd": ("chanff_fwd", 8, 4), "pips_chanff_bwd": ("chanff_bwd", 19, 4),
+            "pips_chanff_bwd_finish": ("chanff_bwd", 12, 3)}
+
+
+def _kernel(name: str):
+    """The C entry ``name`` of its library (built at first use), typed."""
+    fn = _fns.get(name)
     if fn is None:
-        lib = _build.load(stem)
-        if stem == "chanff_fwd":
-            fn = lib.pips_chanff_fwd
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        else:
-            fn = lib.pips_chanff_bwd
-            fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        stem, n_ptr, n_int = _ENTRIES[name]
+        fn = getattr(_build.load(stem), name)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * (n_int + 1) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fns[stem] = fn
+        _fns[name] = fn
     return fn
 
 
@@ -158,9 +170,9 @@ def _forward(x, ln_scale, ln_bias, w1, b1, w2, b2):
     args = (x, ln_scale, ln_bias, w1, b1, w2, b2)
     _cuda_ready("chan_ff_block", args, R, D, w1.shape[1])
     y = torch.empty_like(x)
-    err = _kernel("chanff_fwd")(*(t.data_ptr() for t in args), y.data_ptr(), R, D, w1.shape[1],
-                                int(x.dtype == torch.bfloat16), x.device.index,
-                                torch.cuda.current_stream(x.device).cuda_stream)
+    err = _kernel("pips_chanff_fwd")(*(t.data_ptr() for t in args), y.data_ptr(), R, D,
+                                     w1.shape[1], int(x.dtype == torch.bfloat16), x.device.index,
+                                     torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"chanff_fwd kernel launch failed: CUDA error {err}")
     launches += 1
@@ -169,39 +181,69 @@ def _forward(x, ln_scale, ln_bias, w1, b1, w2, b2):
 
 def chan_ff_bwd(x, dy, ln_scale, ln_bias, w1, b1, w2):
     """Gradients of the block: ``chan_ff_bwd_reference``'s contract. On a CUDA
-    tensor it launches ``csrc/chanff_bwd.cu`` (bf16 only: an f32 x raises), on
-    a CPU tensor it runs the plain version."""
-    global bwd_launches
+    tensor it launches ``csrc/chanff_bwd.cu`` (its bf16 kernel for a bf16 x,
+    its f32 kernel for an f32 x), on a CPU tensor it runs the plain version."""
+    global bwd_launches, bwd_f32_launches
     if x.device.type == "cpu":
         return chan_ff_bwd_reference(x, dy, ln_scale, ln_bias, w1, b1, w2)
     if x.device.type != "cuda":
         raise ValueError(f"chan_ff_bwd runs on cpu or cuda, not {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise ValueError("the CUDA backward of chan_ff_block takes bfloat16 only; an f32 "
-                         "kernel is ROADMAP item B5")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the CUDA backward of chan_ff_block takes bfloat16 or float32, "
+                         f"not {x.dtype}")
     R, D = x.shape
     F = w1.shape[1]
     args = (x, dy, ln_scale, ln_bias, w1, b1, w2)
     if dy.shape != x.shape or dy.dtype != x.dtype or w1.dtype != x.dtype or w2.dtype != x.dtype:
         raise ValueError("dy, w1 and w2 must be in x's dtype, dy of x's shape")
     _cuda_ready("chan_ff_bwd", args, R, D, F)
-    nblk = -(-R // 16)  # the kernel's 16-row blocks (pips_chanff_bwd_blocks)
+    outs, scratch = bwd_buffers(x, F)
+    dev = x.device
+    bf16 = x.dtype == torch.bfloat16
+    err = _kernel("pips_chanff_bwd")(*(t.data_ptr() for t in args + outs + scratch), R, D, F,
+                                     int(bf16), dev.index,
+                                     torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"chanff_bwd kernel launch failed: CUDA error {err}")
+    if bf16:
+        bwd_launches += 1
+    else:
+        bwd_f32_launches += 1
+    return outs
+
+
+def bwd_buffers(x, F: int):
+    """The backward's outputs (dx in x's dtype; f32 d ln_scale, d ln_bias, dw1,
+    db1, dw2, db2) and the kernel's scratch: xa (R, D), g1 and da1 (R, F) in
+    x's dtype, f32 per-block partials (nblk, 3, D) and (nblk, F) over the
+    kernel's 16-row blocks (``pips_chanff_bwd_blocks``)."""
+    R, D = x.shape
+    nblk = -(-R // 16)
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
-    dx = torch.empty_like(x)
     dg, db, db2 = (torch.empty(D, **f32) for _ in range(3))
     dw1, db1, dw2 = torch.empty(D, F, **f32), torch.empty(F, **f32), torch.empty(F, D, **f32)
     xa_s = torch.empty(R, D, dtype=x.dtype, device=dev)
     g1_s, da1_s = (torch.empty(R, F, dtype=x.dtype, device=dev) for _ in range(2))
     part_d, part_f = torch.empty(nblk, 3, D, **f32), torch.empty(nblk, F, **f32)
-    outs = (dx, dg, db, dw1, db1, dw2, db2)
-    err = _kernel("chanff_bwd")(*(t.data_ptr() for t in args + outs),
-                                *(t.data_ptr() for t in (xa_s, g1_s, da1_s, part_d, part_f)),
-                                R, D, F, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    return ((torch.empty_like(x), dg, db, dw1, db1, dw2, db2),
+            (xa_s, g1_s, da1_s, part_d, part_f))
+
+
+def bwd_finish(dy, outs, scratch) -> None:
+    """Phases B and C of ``csrc/chanff_bwd.cu`` (the weight-grad GEMMs over R
+    and the partials' ordered column sums) on bf16 scratch in ``bwd_buffers``'
+    layout that another phase A filled; writes ``outs``' f32 grads."""
+    _, dg, db, dw1, db1, dw2, db2 = outs
+    xa_s, g1_s, da1_s, part_d, part_f = scratch
+    dev = dy.device
+    err = _kernel("pips_chanff_bwd_finish")(
+        *(t.data_ptr() for t in (xa_s, g1_s, da1_s, dy, dg, db, dw1, db1, dw2, db2, part_d,
+                                 part_f)),
+        dy.shape[0], dw1.shape[1], part_f.shape[0], dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"chanff_bwd kernel launch failed: CUDA error {err}")
-    bwd_launches += 1
-    return outs
+        raise RuntimeError(f"chanff_bwd finishing launches failed: CUDA error {err}")
 
 
 class _ChanFF(torch.autograd.Function):
@@ -229,13 +271,10 @@ def chan_ff_block(x, ln_scale, ln_bias, w1, b1, w2, b2):
     x.dtype, with a gradient when any input requires one.
 
     On CUDA the kernels take D == 512, F a multiple of 64 and contiguous,
-    16-byte-aligned tensors, and the backward bf16 only; anything else raises.
+    16-byte-aligned tensors; anything else raises.
     """
     _check(x, ln_scale, ln_bias, w1, b1, w2, b2)
     args = (x, ln_scale, ln_bias, w1, b1, w2, b2)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        if x.device.type == "cuda" and x.dtype != torch.bfloat16:
-            raise ValueError("the CUDA backward of chan_ff_block takes bfloat16 only; an f32 "
-                             "kernel is ROADMAP item B5")
         return _ChanFF.apply(*args)
     return _forward(x, ln_scale, ln_bias, w1.to(x.dtype), b1, w2.to(x.dtype), b2)

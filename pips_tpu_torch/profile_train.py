@@ -1,9 +1,10 @@
 """Where a training step's time goes on the card.
 
-    python3 -m pips_tpu_torch.profile_train [--bench] [--fuse-conv3]
+    python3 -m pips_tpu_torch.profile_train [--bench] [--fuse-conv3] [--dtype float32]
 
 Trains the flagship bf16 model (fused channel blocks, random weights from
-seed 0) on a synthetic batch at the training default (B=1 doubled by both
+seed 0; ``--dtype float32`` the f32 one, as ``--dtype float32 --fuse_chanff 1``
+trains it, with PyTorch's default TF32 flags, printed) on a synthetic batch at the training default (B=1 doubled by both
 flips to 4, N=768, I=4, 368x496; with ``--bench``, the bench train shape:
 B=1, N=128, I=6, 384x512, no flips) and prints: the median host-clock step
 of ``make_train_step`` over 5 steps after 2 of warm-up; the peak memory of
@@ -42,13 +43,14 @@ def main() -> None:
     ap.add_argument("--bench", action="store_true", help="the bench train shape")
     ap.add_argument("--fuse-conv3", action="store_true",
                     help="the stage-1 3x3 convs through the conv kernel")
+    ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
     cfg = BENCH if args.bench else DEFAULT
 
-    model = make_pips(seed=0, dtype=torch.bfloat16, fuse_chanff=True,
-                      fuse_conv3=args.fuse_conv3).train()
+    model = make_pips(seed=0, dtype=torch.bfloat16 if args.dtype == "bfloat16" else None,
+                      fuse_chanff=True, fuse_conv3=args.fuse_conv3).train()
     sample, _ = SyntheticPointDataset(S=8, N=cfg["N"], H=cfg["H"], W=cfg["W"], seed=1)[0]
     batch = {k: torch.from_numpy(v[None]).cuda() for k, v in sample.items()}
     opt = make_optimizer(model.parameters(), lr=5e-4, num_steps=100)
@@ -82,8 +84,10 @@ def main() -> None:
             torch.cuda.synchronize()
 
     B = batch["rgbs"].shape[0] * (1 + cfg["flips"][0]) * (1 + cfg["flips"][1])
-    res = {"device": torch.cuda.get_device_name(0), "fuse_conv3": args.fuse_conv3,
-           "batch_after_flips": B, **cfg,
+    res = {"device": torch.cuda.get_device_name(0), "dtype": args.dtype,
+           "fuse_conv3": args.fuse_conv3, "batch_after_flips": B, **cfg,
+           "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                    "cudnn": torch.backends.cudnn.allow_tf32},
            "step_ms_median": step_ms, "points_frames_per_s": B * cfg["N"] * 8 / step_ms * 1e3,
            "peak_memory_gb": peak_gb}
     res.update(summarize(prof, torch.autograd.DeviceType.CUDA, top=15, ranges=RANGES))

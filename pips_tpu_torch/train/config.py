@@ -172,8 +172,10 @@ def resolve_dtype(name: str) -> Optional[torch.dtype]:
 
 
 def resolve_fuse_chanff(flag: int, dtype: Optional[torch.dtype], device) -> bool:
-    """-1 auto: the kernels iff the loop runs on CUDA with bf16 compute (the
-    channel block's backward kernel is bf16 only); 0 and 1 force."""
+    """-1 auto: the kernels iff the loop runs on CUDA with bf16 compute, as
+    JAX's auto is "TPU and bf16"; 0 and 1 force. The CUDA kernels take f32
+    too, forward and backward: ``--fuse_chanff 1 --dtype float32`` trains on
+    the card."""
     if flag >= 0:
         return bool(flag)
     return torch.device(device).type == "cuda" and dtype == torch.bfloat16

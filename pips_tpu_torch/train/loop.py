@@ -252,8 +252,10 @@ def train(cfg: Optional[TrainConfig] = None, device="cuda") -> dict:
     return last_metrics
 
 
-def main(argv: Optional[list[str]] = None):
-    train(parse_cli(argv if argv is not None else sys.argv[1:]))
+def main(argv: Optional[list[str]] = None) -> dict:
+    """The CLI: parse ``argv`` (``sys.argv[1:]`` by default) onto a
+    ``TrainConfig`` and train on CUDA; returns the last synced metrics."""
+    return train(parse_cli(argv if argv is not None else sys.argv[1:]))
 
 
 if __name__ == "__main__":

@@ -36,7 +36,8 @@ def test_port_imports_no_jax_and_nothing_of_pips_tpu():
     assert "pips_tpu_torch.kernels.mixer_cuda" in res["modules"]
     assert "pips_tpu_torch.convert" in res["modules"]
     for name in ("kernels.block_cuda", "kernels.stem_wgrad_cuda", "tools.profile_block_kernel",
-                 "tools.profile_stem_wgrad"):
+                 "tools.profile_stem_wgrad", "kernels.chanff_chunk_cuda",
+                 "tools.profile_chanff_chunk"):
         assert f"pips_tpu_torch.{name}" in res["modules"]
     assert res["banned"] == []
 

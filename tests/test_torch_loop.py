@@ -115,6 +115,33 @@ def test_quick_mode_lowers_the_loss(tmp_path, capsys):
     assert any("trajs_on_rgbs" in m for m in media) and any("fcp_point0" in m for m in media)
 
 
+def test_f32_fused_chanff_cli_trains(tmp_path, monkeypatch):
+    """``--dtype float32 --fuse_chanff 1``, the command that trains with the
+    f32 backward kernel on the card, builds a fused f32 model and takes two
+    loop steps at TINY size. On CPU tensors each channel block's backward is
+    the plain f32 backward: once per block and iteration of each step."""
+    from pips_tpu_torch.kernels import mixer_cuda
+
+    cfg = parse_cli(["--dtype", "float32", "--fuse_chanff", "1"])
+    cfg = dataclasses.replace(cfg, **TINY, max_iters=2, ckpt_dir=str(tmp_path / "c"),
+                              log_dir=str(tmp_path / "l"))
+    model, _ = init_state(cfg, device="cpu")
+    mix = model.delta_block.to_delta
+    assert mix.fuse_chanff and mix.dtype is None
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    dtypes = []
+    real = mixer_cuda.chan_ff_bwd
+
+    def spy(x, *a):
+        dtypes.append(x.dtype)
+        return real(x, *a)
+
+    monkeypatch.setattr(mixer_cuda, "chan_ff_bwd", spy)
+    metrics = train(cfg, device="cpu")
+    assert np.isfinite(metrics["total_loss"])
+    assert dtypes == [torch.float32] * (2 * cfg.I * cfg.mixer_depth)
+
+
 @pytest.mark.parametrize("change", [dict(model_family="pips2"), dict(dataset="flyingthings"),
                                     dict(dataset="pointodyssey"), dict(mesh_shape=(2, 1)),
                                     dict(multihost=True), dict(num_processes=2)])

@@ -192,3 +192,38 @@ def test_chan_ff_block_cpu_grads_are_the_plain_backward(dtype):
         np.testing.assert_array_equal(
             y.detach().float().numpy(),
             mixer_cuda.chan_ff_reference(x, s, b, w1.to(dtp), b1, w2.to(dtp), b2).float().numpy())
+
+
+def test_fused_f32_mlp_mixer_grads_match_jax():
+    """``fuse_chanff=True`` in f32 (the path of the f32 backward kernel): the
+    grads of every parameter and of both inputs against ``jax.grad`` of JAX's
+    fused f32 mixer, whose channel blocks run the Pallas custom VJP in
+    interpret mode, at ``_flax_mixer``'s dims. Each within ``BWD_TOL``'s f32
+    1e-5 of its largest magnitude (summation order and XLA's rational erf);
+    a token block's fc2 bias, whose grad the next LayerNorm makes zero in
+    exact math, is rounding noise and held to 1e-5 of the largest grad."""
+    m, params = _flax_mixer(True, "float32")
+    rng = np.random.RandomState(7)
+    parts = [rng.randn(4, 8, 16), rng.randn(4, 8, 24)]
+    jparts = tuple(jnp.asarray(p, jnp.float32) for p in parts)
+    with pltpu.force_tpu_interpret_mode():
+        out = m.apply(params, jparts)
+        cot = jnp.asarray(rng.randn(*out.shape), jnp.float32)
+        pgrads, xgrads = jax.grad(lambda p, x: jnp.sum(m.apply(p, x) * cot), argnums=(0, 1))(
+            params, jparts)
+    want = state_dict_from_flax(pgrads)
+    tm = mixer.MLPMixer(8, 40, 32, 24, 2, dtype=None, fuse_chanff=True)
+    tm.load_state_dict({k: torch.from_numpy(v) for k, v in state_dict_from_flax(params).items()},
+                       strict=True)
+    tparts = tuple(torch.from_numpy(p.astype(np.float32)).requires_grad_(True) for p in parts)
+    (tm(tparts) * torch.from_numpy(np.array(cot))).sum().backward()
+    got = {k: p.grad for k, p in tm.named_parameters()}
+    assert sorted(got) == sorted(want)
+    pairs = [(k, got[k], want[k]) for k in sorted(want)]
+    pairs += [(f"input {i}", t.grad, np.asarray(g)) for i, (t, g) in enumerate(zip(tparts, xgrads))]
+    top = max(np.abs(w).max() for _, _, w in pairs)
+    for name, g, w in pairs:
+        assert g is not None and g.dtype == torch.float32, name
+        err = np.abs(g.numpy() - w).max()
+        scale = top if name.endswith("_token.fc2.bias") else np.abs(w).max()
+        assert err <= BWD_TOL["float32"] * scale, (name, err, scale)
