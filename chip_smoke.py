@@ -84,7 +84,18 @@ matmuls in full f32 (TF32 off). 3h holds the F-chunked channel block
 (``chan_ff_block_chunked`` and ``chan_ff_chunked_bwd``) at R=1024 and 800,
 bf16, against its plain versions at every chunk width the kernels take (128,
 256, 512, 1024); at the tool's 512 and 1024 also timed in turns with the
-monolithic kernels.
+monolithic kernels; and in f32 at every one of those widths (the f32 chunked
+block is the f32 monolithic block, so it launches ``chanff_fwd.cu``'s and
+``chanff_bwd.cu``'s f32 kernels), with 3g's f32 bounds and TF32 off. 3i holds
+the Mosaic probe kernels of the three probe tools against their plain
+versions at the tools' shapes, each timed beside its bound and one library
+call where there is one: ``gelu``, ``ln_slice`` and ``stream_accum``
+(``tools/debug_mixer_kernel.py``, x (128, 4096) and w1 (12, 512, 2048)
+bf16), ``corr_rows`` (``tools/debug_pallas7.py``, 8 points on a 16x128 map
+of 128 f32 channels) and ``row_contract`` in the four layouts of
+``tools/probe_mosaic_ops.py`` ((24, 256, 6) x (24, 256, 64) bf16). Phase 9
+then runs the ports of those three tools, the probe kernels' paths, each
+probe's kernel launched 2 + 5 * 10 times.
 Kernel launch counts are zeroed just before each main-path run and read
 just after; comparison runs are not counted. Then a ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": ...}``. Any failure exits non-zero
@@ -189,6 +200,17 @@ LOOP_F32_STEPS = 12
 # size), tightened; each db is rounding noise around zero (the norm removes
 # the bias), held against the weight grads' scale
 BLOCK_TOL = dict(grad_cos=0.999, grad_rel_l2=0.02, db_of_dw=0.01)
+
+
+# the Mosaic probe kernels: kernels-line name, source, the pallas_call it replaces
+PROBE_KERNELS = [("gelu", "mixer_probes", "tools/debug_mixer_kernel.py:63"),
+                 ("ln_slice", "mixer_probes", "tools/debug_mixer_kernel.py:66"),
+                 ("stream_accum", "mixer_probes", "tools/debug_mixer_kernel.py:69"),
+                 ("corr_rows", "corr_rows", "tools/debug_pallas7.py:15"),
+                 ("row_contract_a", "row_contract", "tools/probe_mosaic_ops.py:46"),
+                 ("row_contract_a2", "row_contract", "tools/probe_mosaic_ops.py:67"),
+                 ("row_contract_b", "row_contract", "tools/probe_mosaic_ops.py:89"),
+                 ("row_contract_c", "row_contract", "tools/probe_mosaic_ops.py:110")]
 
 
 def log(phase: str, msg: str) -> None:
@@ -806,6 +828,158 @@ def phase_chunk(torch, np, chunk_cuda, mixer_cuda) -> dict:
     return out
 
 
+def phase_chunk_f32(torch, np, chunk_cuda, mixer_cuda) -> None:
+    """3h, f32: ``chan_ff_block_chunked`` and ``chan_ff_chunked_bwd`` on an
+    f32 x at every width in ``FCS``, against the chunked plain versions in
+    f32, with the f32 bounds of 3a (forward) and 3g (backward) and TF32 off.
+    Each call must launch the f32 monolithic kernels once and no chunked
+    kernel: in f32 the chunked block rounds nothing, so it is that block."""
+    require_full_f32(torch)
+
+    def counts():
+        return (mixer_cuda.launches, mixer_cuda.bwd_f32_launches, chunk_cuda.launches,
+                chunk_cuda.bwd_launches)
+
+    for R in (TRAIN_R, 800):
+        fargs = chanff_args(torch, np, R, torch.float32, seed=R + 7)
+        bargs = chanff_bwd_args(torch, np, R, seed=R + 8, dtype=torch.float32)
+        tols = chanff_bwd_tols(torch, mixer_cuda, bargs)
+        for fc in chunk_cuda.FCS:
+            before = counts()
+            y = chunk_cuda.chan_ff_block_chunked(*fargs, fc=fc)
+            grads = chunk_cuda.chan_ff_chunked_bwd(*bargs, fc=fc)
+            torch.cuda.synchronize()
+            if counts() != (before[0] + 1, before[1] + 1, before[2], before[3]):
+                fail(f"f32 chunked block R={R} fc={fc}: launches {before} -> {counts()}, "
+                     f"expected one f32 forward and one f32 backward of the monolithic kernels")
+            ref = chunk_cuda.chan_ff_chunked_reference(*fargs, fc=fc)
+            err = (y - ref).abs().max().item()
+            gref = chunk_cuda.chan_ff_chunked_bwd_reference(*bargs, fc=fc)
+            worst, parts, _ = grad_errors(torch, f"chan_ff_chunked_bwd f32 R={R} fc={fc}", grads,
+                                          gref, tols)
+            log("kernels", f"chunked block R={R} fc={fc} f32: forward max_abs_err {err:.3g} "
+                           f"(tol {TOL_F32:.3g}); backward " + "; ".join(parts))
+            if not (y.shape == ref.shape and y.dtype == ref.dtype and err <= TOL_F32):
+                fail(f"chan_ff_block_chunked f32 R={R} fc={fc} disagrees with its plain version: "
+                     f"{err} > {TOL_F32}")
+            if worst > 1.0:
+                fail(f"chan_ff_chunked_bwd f32 R={R} fc={fc} disagrees with its plain version "
+                     f"(worst err/tol {worst:.3g})")
+            del y, grads, ref, gref
+        del fargs, bargs, tols
+    torch.cuda.empty_cache()
+
+
+def probe_bound(nbytes: float, ops: float, dtype: str):
+    """Least time: the bytes over the HBM rate, or the operations at the
+    dtype's peak (f32: outside the tensor cores)."""
+    t_ops, t_bytes = ops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_probes(torch, F) -> dict:
+    """3i: the Mosaic probe kernels against their plain versions on the
+    three probe tools' inputs, with the tools' tolerances
+    (``pips_tpu_torch/tools/_probes.py``); each timed beside its plain
+    version, its bound and the library call that computes the same function
+    where there is one. Returns the kernels line's numbers by entry name."""
+    from pips_tpu_torch.kernels import corr_rows_cuda
+    from pips_tpu_torch.tools import _probes, debug_mixer_kernel, debug_pallas7, probe_mosaic_ops
+
+    require_full_f32(torch)  # the f32 plain versions of the products
+    x, w1 = debug_mixer_kernel.inputs("cuda")
+    fmap, targets, coords = debug_pallas7.inputs("cuda")
+    a, b = probe_mosaic_ops.inputs("cuda")
+    probes = {**debug_mixer_kernel.probes(x, w1), **debug_pallas7.probes(fmap, targets, coords),
+              **probe_mosaic_ops.probes(a, b)}
+    # the JAX tool's probe -> (kernels-line name, library call or None, bytes, operations, dtype)
+    M, K, NB, N = x.shape[0], debug_mixer_kernel.D, w1.shape[0], w1.shape[2]
+    a_cat = x[:, :K].repeat(1, NB)  # K-concatenated operands of the library's one product
+    w_cat = w1.reshape(NB * K, N)
+    H, W, r = debug_pallas7.H, debug_pallas7.W, debug_pallas7.r
+    idx, valid = corr_rows_cuda._window(coords, H, W, r)
+    rows_read = idx[valid].unique().numel()  # distinct map rows the patches touch
+    S, Np, C = targets.shape
+    TH, Wo, Ca, O, T = (probe_mosaic_ops.TH, probe_mosaic_ops.Wo, probe_mosaic_ops.C,
+                        probe_mosaic_ops.O, probe_mosaic_ops.TILES)
+    ab_bytes = 2 * TH * Wo * (Ca + O) + 4 * Ca * O
+    einsum_a = lambda: torch.einsum("hwc,hwo->co", a, b)  # noqa: E731
+    meta = {
+        "erf": ("gelu", lambda: F.gelu(x), 4 * x.numel(), 5 * x.numel(), "float32"),
+        "ln_slice": ("ln_slice", lambda: F.layer_norm(x[:, :K], (K,)), 4 * M * K, 5 * M * K,
+                     "float32"),
+        "block_stream_accum": ("stream_accum", lambda: torch.mm(a_cat, w_cat),
+                               2 * M * K + 2 * NB * K * N + 4 * M * N, 2 * M * N * K * NB,
+                               "bfloat16"),
+        "rowwise 3d-reduce": ("corr_rows", None,
+                              4 * (rows_read * C + targets.numel() + coords.numel()
+                                   + Np * S * (2 * r + 1) ** 2),
+                              2 * C * int(valid.sum().item()), "float32"),
+        "A dot2contract": ("row_contract_a", einsum_a, ab_bytes, 2 * TH * Wo * Ca * O,
+                           "bfloat16"),
+        "A2 collapse3d->2d": ("row_contract_a2", einsum_a, ab_bytes, 2 * TH * Wo * Ca * O,
+                              "bfloat16"),
+        "B minorsplit": ("row_contract_b", einsum_a, ab_bytes, 2 * TH * Wo * Ca * O, "bfloat16"),
+        "C laneconcat": ("row_contract_c",
+                         lambda: torch.einsum("hic,ho->ico", a[:, :T], b[:, 0]),
+                         2 * TH * (T * Ca + O) + 4 * T * Ca * O, 2 * T * TH * Ca * O,
+                         "bfloat16")}
+    if sorted(meta) != sorted(probes):
+        fail(f"3i: probes {sorted(probes)}, expected {sorted(meta)}")
+    out = {}
+    for probe, p in probes.items():
+        entry, library, nbytes, ops, dtype = meta[probe]
+        got = p.kernel()
+        torch.cuda.synchronize()
+        try:
+            err, worst = _probes.check(probe, got, p.plain(),
+                                       None if p.terms is None else p.terms(),
+                                       None if p.slack is None else p.slack())
+        except RuntimeError as e:
+            fail(f"3i: {e}")
+        ms = median_ms(torch, p.kernel, ())
+        plain_ms = median_ms(torch, p.plain, ())
+        lib_ms = None if library is None else median_ms(torch, library, ())
+        bound_ms, bound_by = probe_bound(nbytes, ops, dtype)
+        log("kernels", f"{entry} ({probe}): max_abs_err {err:.3g} (worst err/tol {worst:.3g}); "
+                       f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                       f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+                       f"{bound_ms:.5f} ms ({bound_by}, {nbytes / 1e6:.3f} MB, "
+                       f"{ops / 1e9:.4f} GFLOP)")
+        out[entry] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=lib_ms)
+    del x, w1, a_cat, w_cat, fmap, targets, coords, a, b, probes
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_probe_tools(torch) -> dict:
+    """9, the probes: the three probe tools' ``main`` on the card, their
+    kernels' launch counts zeroed before each and read after; the tools
+    raise on any probe that misses its tolerance."""
+    from pips_tpu_torch.kernels import corr_rows_cuda, mixer_probes_cuda, row_contract_cuda
+    from pips_tpu_torch.tools import debug_mixer_kernel, debug_pallas7, probe_mosaic_ops
+
+    got = {}  # by kernels-line name: the counter's key, after the prefix
+    for tool, counts, prefix in (
+            (debug_mixer_kernel, lambda: dict(mixer_probes_cuda.launches), ""),
+            (debug_pallas7, lambda: {"corr_rows": corr_rows_cuda.launches}, ""),
+            (probe_mosaic_ops, lambda: dict(row_contract_cuda.launches), "row_contract_")):
+        mixer_probes_cuda.launches.clear()
+        row_contract_cuda.launches.clear()
+        corr_rows_cuda.launches = 0
+        t = time.perf_counter()
+        res = tool.main()
+        n, want = counts(), tool.kernel_launches()
+        log("tools", f"{tool.__name__.rsplit('.', 1)[-1]}.main() in "
+                     f"{time.perf_counter() - t:.1f} s: {json.dumps(res)}; launches {n} "
+                     f"(expected {want})")
+        if n != want or not all(math.isfinite(v) for r in res.values() for v in r.values()):
+            fail(f"{tool.__name__}: launches {n}, expected {want}; {res}")
+        got.update({prefix + k.lower(): v for k, v in n.items()})
+    return got
+
+
 def phase_tools(torch, block_cuda, stem_cuda, chunk_cuda) -> dict:
     """9: the slices' paths, the three profiling tools' ``main`` on the card,
     with their kernels' launch counts zeroed before and read after."""
@@ -1155,7 +1329,8 @@ def main() -> int:
     import torch.nn.functional as F
 
     from pips_tpu_torch.kernels import (_build, block_cuda, chanff_chunk_cuda, conv_cuda, corr_cuda,
-                                        mixer_cuda, stem_wgrad_cuda)
+                                        corr_rows_cuda, mixer_cuda, mixer_probes_cuda,
+                                        row_contract_cuda, stem_wgrad_cuda)
     from pips_tpu_torch.models import mixer as mixer_module
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1171,6 +1346,9 @@ def main() -> int:
         conv_cuda.launches = 0
         block_cuda.launches = 0
         stem_wgrad_cuda.launches = 0
+        mixer_probes_cuda.launches.clear()
+        corr_rows_cuda.launches = 0
+        row_contract_cuda.launches.clear()
 
     def counts():
         return mixer_cuda.launches, corr_cuda.launches
@@ -1178,7 +1356,9 @@ def main() -> int:
     # launches summed over main-path runs
     main_path = {"chan_ff_block": 0, "corr_sample": 0, "chan_ff_bwd": 0, "conv3x3_same": 0,
                  "res_block64": 0, "stem_wgrad": 0, "chan_ff_bwd_f32": 0,
-                 "chan_ff_chunked_fwd": 0, "chan_ff_chunked_bwd": 0}
+                 "chan_ff_chunked_fwd": 0, "chan_ff_chunked_bwd": 0, "gelu": 0, "ln_slice": 0,
+                 "stream_accum": 0, "corr_rows": 0, "row_contract_a": 0, "row_contract_a2": 0,
+                 "row_contract_b": 0, "row_contract_c": 0}
 
     def add_main(chanff_n, corr_n):
         main_path["chan_ff_block"] += chanff_n
@@ -1352,9 +1532,14 @@ def main() -> int:
     stem = phase_stem(torch, np, stem_wgrad_cuda)
 
     # 3g. the f32 backward of the channel block; 3h. the F-chunked channel
-    # block, forward and backward: each against its plain version
+    # block, forward and backward, in bf16 and in f32: each against its plain
+    # version
     chanff_f32 = phase_chanff_f32(torch, np, mixer_cuda)
     chunk = phase_chunk(torch, np, chanff_chunk_cuda, mixer_cuda)
+    phase_chunk_f32(torch, np, chanff_chunk_cuda, mixer_cuda)
+
+    # 3i. the Mosaic probe kernels of the three probe tools
+    probes = phase_probes(torch, F)
 
     # 4. slice: the served windows, onehot
     t = time.perf_counter()
@@ -1703,6 +1888,9 @@ def main() -> int:
     # stem weight-gradient and chunked channel-block kernels
     zero_counts()
     main_path.update(phase_tools(torch, block_cuda, stem_wgrad_cuda, chanff_chunk_cuda))
+    # ... and the three probe tools, the paths of the Mosaic probe kernels
+    zero_counts()
+    main_path.update(phase_probe_tools(torch))
 
     log("slice", f"main-path launches: {main_path}")
     if min(main_path.values()) == 0:
@@ -1747,7 +1935,10 @@ def main() -> int:
          "replaces": "tools/profile_chanff_chunk.py:149",
          "launches": main_path["chan_ff_chunked_bwd"],
          **{k: v for k, v in chunk[("bwd", TRAIN_R, 512)].items() if k != "base_ms"},
-         "library_ms": None}]}), flush=True)
+         "library_ms": None}] + [
+        {"name": name, "route": "cuda", "source": f"pips_tpu_torch/csrc/{source}.cu",
+         "replaces": replaces, "launches": main_path[name], **probes[name]}
+        for name, source, replaces in PROBE_KERNELS]}), flush=True)
     log("done", f"all phases passed in {time.perf_counter() - T0:.1f} s "
                 f"(chained video {chain_s:.2f} s; windows {json.dumps(window_ms)}; "
                 f"training default {json.dumps(train_default)}; f32 {json.dumps(train_f32)})")

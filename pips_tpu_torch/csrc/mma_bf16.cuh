@@ -1,6 +1,7 @@
 // bf16 tensor-core helpers shared by the conv kernels (conv3x3_fwd.cu,
-// conv3x3_stats.cu): ldmatrix fragments from shared memory and the
-// mma.sync m16n8k16 product with f32 accumulators (sm_80 and later).
+// conv3x3_stats.cu) and mixer_probes.cu: ldmatrix fragments from shared
+// memory (the .trans form reads a B operand stored k-major, n contiguous) and
+// the mma.sync m16n8k16 product with f32 accumulators (sm_80 and later).
 
 #pragma once
 
@@ -20,6 +21,14 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t& r0, uint32_t& r1, uint32_t
                                             uint32_t& r3, const __nv_bfloat16* p) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                                  uint32_t& r3, const __nv_bfloat16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
                : "r"(a));
 }

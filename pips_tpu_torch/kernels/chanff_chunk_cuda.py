@@ -3,7 +3,7 @@
 Counterpart of ``tools/profile_chanff_chunk.py``'s ``make_chunked(fc)``: the
 channel block with F walked in static chunks of ``fc`` columns, forward and
 backward, with the JAX custom VJP's contract (``chan_ff_block_chunked``). On
-a CUDA tensor the forward launches ``csrc/chanff_chunk.cu:chanff_chunk_fwd``
+a bf16 CUDA tensor the forward launches ``csrc/chanff_chunk.cu:chanff_chunk_fwd``
 (which replaces the TPU kernel of ``make_chunked``'s fwd, :121) and the
 backward ``chanff_chunk_bwd_rows`` (its bwd, :149), finished by
 ``csrc/chanff_bwd.cu``'s weight-grad GEMMs and ordered column sums.
@@ -16,8 +16,14 @@ is not ``mixer_cuda.chan_ff_reference``, which rounds the products to x's
 dtype before the bias, as the flax model does.
 
 A CPU tensor goes to the plain versions, in f32 or bf16. A CUDA tensor
-launches the kernels or raises: they take bf16 only, as the tool that is
-their one path runs bf16 (an f32 kernel is ROADMAP item B8).
+launches the kernels or raises. In bf16 those are ``chanff_chunk.cu``'s, at
+the widths in ``FCS``. In f32 they are ``mixer_cuda``'s f32 SIMT kernels
+(``csrc/chanff_fwd.cu``, and ``chanff_bwd.cu``'s ``rows32`` / ``wgrad32``),
+at any fc that divides F: with ``cdtype = f32`` every cast to the compute
+dtype in ``_fwd_kernel_chunked`` and ``_bwd_kernel_chunked`` is the
+identity, so chunking F rounds nothing, and the f32 chunked block is the f32
+monolithic block with its sums taken in another order. Those launches count
+in ``mixer_cuda.launches`` and ``mixer_cuda.bwd_f32_launches``, not here.
 """
 
 from __future__ import annotations
@@ -73,12 +79,8 @@ def _check_fc(x, w1, fc) -> None:
     F = w1.shape[-1]
     if not isinstance(fc, int) or fc <= 0 or F % fc:
         raise ValueError(f"fc must be a positive divisor of F={F}, got {fc!r}")
-    if x.device.type == "cuda":
-        if fc not in FCS:
-            raise ValueError(f"the CUDA chunked channel block takes fc in {FCS}, got {fc}")
-        if x.dtype != torch.bfloat16:
-            raise ValueError("the CUDA chunked channel block takes bfloat16 only; an f32 kernel "
-                             "is ROADMAP item B8")
+    if x.device.type == "cuda" and x.dtype == torch.bfloat16 and fc not in FCS:
+        raise ValueError(f"the CUDA bf16 chunked channel block takes fc in {FCS}, got {fc}")
 
 
 def _kernel(name: str):
@@ -100,6 +102,8 @@ def _forward(x, ln_scale, ln_bias, w1, b1, w2, b2, fc: int):
         return chan_ff_chunked_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, fc=fc)
     if x.device.type != "cuda":
         raise ValueError(f"chan_ff_block_chunked runs on cpu or cuda, not {x.device}")
+    if x.dtype == torch.float32:  # chunking F rounds nothing in f32: the monolithic kernel
+        return mixer_cuda._forward(x, ln_scale, ln_bias, w1, b1, w2, b2)
     R, D = x.shape
     F = w1.shape[1]
     args = (x, ln_scale, ln_bias, w1, b1, w2, b2)
@@ -116,8 +120,9 @@ def _forward(x, ln_scale, ln_bias, w1, b1, w2, b2, fc: int):
 
 def chan_ff_chunked_bwd(x, dy, ln_scale, ln_bias, w1, b1, w2, *, fc: int):
     """Gradients of the chunked block: ``chan_ff_chunked_bwd_reference``'s
-    contract. On a CUDA tensor it launches ``chanff_chunk_bwd_rows`` and then
-    ``chanff_bwd.cu``'s phases B and C; on a CPU tensor it runs the plain
+    contract. On a bf16 CUDA tensor it launches ``chanff_chunk_bwd_rows`` and
+    then ``chanff_bwd.cu``'s phases B and C, on an f32 one
+    ``mixer_cuda.chan_ff_bwd``'s f32 kernel; on a CPU tensor it runs the plain
     version."""
     global bwd_launches
     if x.device.type == "cpu":
@@ -125,6 +130,8 @@ def chan_ff_chunked_bwd(x, dy, ln_scale, ln_bias, w1, b1, w2, *, fc: int):
     if x.device.type != "cuda":
         raise ValueError(f"chan_ff_chunked_bwd runs on cpu or cuda, not {x.device}")
     _check_fc(x, w1, fc)
+    if x.dtype == torch.float32:  # as in _forward: the monolithic f32 backward kernel
+        return mixer_cuda.chan_ff_bwd(x, dy, ln_scale, ln_bias, w1, b1, w2)
     R, D = x.shape
     F = w1.shape[1]
     args = (x, dy, ln_scale, ln_bias, w1, b1, w2)
@@ -168,8 +175,8 @@ def chan_ff_block_chunked(x, ln_scale, ln_bias, w1, b1, w2, b2, *, fc: int):
     chunks of ``fc`` columns, which must divide F. Returns (R, D) in x.dtype,
     with a gradient when any input requires one.
 
-    On CUDA the kernels take bf16, D == 512, fc in ``FCS`` and contiguous,
-    16-byte-aligned tensors; anything else raises.
+    On CUDA the kernels take D == 512, contiguous, 16-byte-aligned tensors,
+    and in bf16 fc in ``FCS``; anything else raises.
     """
     mixer_cuda._check(x, ln_scale, ln_bias, w1, b1, w2, b2)
     _check_fc(x, w1, fc)

@@ -37,7 +37,9 @@ def test_port_imports_no_jax_and_nothing_of_pips_tpu():
     assert "pips_tpu_torch.convert" in res["modules"]
     for name in ("kernels.block_cuda", "kernels.stem_wgrad_cuda", "tools.profile_block_kernel",
                  "tools.profile_stem_wgrad", "kernels.chanff_chunk_cuda",
-                 "tools.profile_chanff_chunk"):
+                 "tools.profile_chanff_chunk", "kernels.mixer_probes_cuda",
+                 "kernels.corr_rows_cuda", "kernels.row_contract_cuda",
+                 "tools.debug_mixer_kernel", "tools.debug_pallas7", "tools.probe_mosaic_ops"):
         assert f"pips_tpu_torch.{name}" in res["modules"]
     assert res["banned"] == []
 
