@@ -76,11 +76,12 @@ epilogue), with and without its prologue, against its plain version at the
 block's bench shape in bf16 and a ragged f32 shape, and the whole
 ``res_block64``, forward and five grads, against ``res_block64_reference``;
 timed in turns with ``F.conv2d`` and the modular ``ResidualBlock``. 3f holds
-``stem_wgrad`` against its plain version at B=1 and B=8, 384x512 bf16 and a
-small f32 shape, timed in turns with the library's weight grad of the s2d
-conv and of the x7 conv. 3g holds ``chan_ff_bwd`` in f32 (the f32 kernel) at
-R=1024, 800 and 24,576 against its plain version, all seven grads, with
-matmuls in full f32 (TF32 off). 3h holds the F-chunked channel block
+``stem_wgrad`` against its plain version, and two calls against each other
+(the same bits), at B=1 and B=8, 384x512 bf16, at B=2, 192x328 bf16 (each
+row's last segment of columns partial) and a small f32 shape, timed in turns
+with the library's weight grad of the s2d conv and of the x7 conv. 3g holds
+``chan_ff_bwd`` in f32 (the f32 kernel) at R=1024, 800 and 24,576 against
+its plain version, all seven grads, with matmuls in full f32 (TF32 off). 3h holds the F-chunked channel block
 (``chan_ff_block_chunked`` and ``chan_ff_chunked_bwd``) at R=1024 and 800,
 bf16, against its plain versions at every chunk width the kernels take (128,
 256, 512, 1024); at the tool's 512 and 1024 also timed in turns with the
@@ -88,12 +89,16 @@ monolithic kernels; and in f32 at every one of those widths (the f32 chunked
 block is the f32 monolithic block, so it launches ``chanff_fwd.cu``'s and
 ``chanff_bwd.cu``'s f32 kernels), with 3g's f32 bounds and TF32 off. 3i holds
 the Mosaic probe kernels of the three probe tools against their plain
-versions at the tools' shapes, each timed beside its bound and one library
-call where there is one: ``gelu``, ``ln_slice`` and ``stream_accum``
+versions at the tools' shapes, and each against itself (two calls, the
+same bits), each timed in turns with one library call where there is one,
+beside its bound: ``gelu``, ``ln_slice`` and ``stream_accum``
 (``tools/debug_mixer_kernel.py``, x (128, 4096) and w1 (12, 512, 2048)
 bf16), ``corr_rows`` (``tools/debug_pallas7.py``, 8 points on a 16x128 map
 of 128 f32 channels) and ``row_contract`` in the four layouts of
-``tools/probe_mosaic_ops.py`` ((24, 256, 6) x (24, 256, 64) bf16). Phase 9
+``tools/probe_mosaic_ops.py`` ((24, 256, 6) x (24, 256, 64) bf16); then
+``stream_accum`` at 100 rows and five weight blocks. Phase 2 prints ptxas's
+registers and spills for ``stem_wgrad``'s bf16 kernel and ``stream_accum``'s
+(the tensor-core kernels with asynchronous copy rings). Phase 9
 then runs the ports of those three tools, the probe kernels' paths, each
 probe's kernel launched 2 + 5 * 10 times.
 Kernel launch counts are zeroed just before each main-path run and read
@@ -171,9 +176,11 @@ LOOP_STEPS, LOOP_EVERY, LOOP_MORE = 12, 6, 6  # phase 8: steps, val/save/media p
 # small shape with ragged tiles in f32; the whole block at the first
 PASS_CASES = [("bench", 8, 192, 256, "bfloat16"), ("small f32", 2, 31, 70, "float32")]
 # phase 3f: the stem weight gradient at tools/profile_stem_wgrad.py's shapes,
-# and a small one in f32 whose rows end in a partial segment of columns
+# a bf16 one whose rows end in a partial segment of columns (Wo = 164 = 128 +
+# 36, and 36 is no multiple of the kernel's 16-pixel steps) and a small one in
+# f32 whose rows do too
 STEM_CASES = [("B=1", 1, 384, 512, "bfloat16"), ("B=8", 8, 384, 512, "bfloat16"),
-              ("small f32", 2, 64, 96, "float32")]
+              ("ragged", 2, 192, 328, "bfloat16"), ("small f32", 2, 64, 96, "float32")]
 U32 = 2.0 ** -24  # unit roundoff of f32
 CHUNK_FCS = (512, 1024)  # phase 3h times these: tools/profile_chanff_chunk.py's chunk widths
 # phase 7d, f32 with fused channel blocks against the plain block: both keep
@@ -211,6 +218,24 @@ PROBE_KERNELS = [("gelu", "mixer_probes", "tools/debug_mixer_kernel.py:63"),
                  ("row_contract_a2", "row_contract", "tools/probe_mosaic_ops.py:67"),
                  ("row_contract_b", "row_contract", "tools/probe_mosaic_ops.py:89"),
                  ("row_contract_c", "row_contract", "tools/probe_mosaic_ops.py:110")]
+
+
+# kernels whose registers and spills the build report prints (ptxas -v)
+PTXAS_REPORT = [("stem_wgrad", "stem_wgrad_tc"), ("mixer_probes", "probe_stream_accum")]
+
+
+def ptxas_report(log_path: Path, kernel: str) -> str:
+    """The registers, stack and spill lines that ptxas -v printed for the
+    entry function whose (mangled) name holds ``kernel``."""
+    found, lines = False, []
+    for line in log_path.read_text(errors="replace").splitlines():
+        if "Compiling entry function" in line:
+            found = kernel in line
+        elif found and ("registers" in line or "spill" in line):
+            lines.append(line.split(":", 1)[-1].strip())
+    if not lines:
+        fail(f"the build log {log_path} has no ptxas report for {kernel}")
+    return "; ".join(lines)
 
 
 def log(phase: str, msg: str) -> None:
@@ -675,13 +700,17 @@ def phase_block(torch, np, F, block_cuda) -> dict:
 
 
 def phase_stem(torch, np, stem_cuda) -> dict:
-    """3f: ``stem_wgrad`` against its plain version, timed in turns with the
-    library's weight grad of the s2d conv and of the x7 conv."""
+    """3f: ``stem_wgrad`` against its plain version (and against itself: two
+    calls give the same bits), timed in turns with the library's weight grad
+    of the s2d conv and of the x7 conv."""
     out = {}
     for case, B, H, W, dtype in STEM_CASES:
         x2, dy = stem_args(torch, np, B, H, W, dtype, seed=B + H)
         dk = stem_cuda.stem_wgrad(x2, dy)
+        again = stem_cuda.stem_wgrad(x2, dy)
         torch.cuda.synchronize()
+        if not torch.equal(dk, again):  # partials added in a fixed order, no atomics
+            fail(f"stem_wgrad {case}: two calls on the same input differ")
         ref = stem_cuda.stem_wgrad_reference(x2, dy)
         # each side sums K products (exact for bf16 operands) of magnitude at
         # most m in f32 in its own order; partial sums of these zero-mean
@@ -880,10 +909,12 @@ def probe_bound(nbytes: float, ops: float, dtype: str):
 def phase_probes(torch, F) -> dict:
     """3i: the Mosaic probe kernels against their plain versions on the
     three probe tools' inputs, with the tools' tolerances
-    (``pips_tpu_torch/tools/_probes.py``); each timed beside its plain
-    version, its bound and the library call that computes the same function
-    where there is one. Returns the kernels line's numbers by entry name."""
-    from pips_tpu_torch.kernels import corr_rows_cuda
+    (``pips_tpu_torch/tools/_probes.py``), and against themselves (two calls
+    give the same bits); each timed in turns with the library call that
+    computes the same function where there is one, beside its plain version
+    and its bound; then ``stream_accum`` at ragged rows and five weight
+    blocks. Returns the kernels line's numbers by entry name."""
+    from pips_tpu_torch.kernels import corr_rows_cuda, mixer_probes_cuda
     from pips_tpu_torch.tools import _probes, debug_mixer_kernel, debug_pallas7, probe_mosaic_ops
 
     require_full_f32(torch)  # the f32 plain versions of the products
@@ -930,25 +961,52 @@ def phase_probes(torch, F) -> dict:
     for probe, p in probes.items():
         entry, library, nbytes, ops, dtype = meta[probe]
         got = p.kernel()
+        again = p.kernel()
         torch.cuda.synchronize()
+        if not torch.equal(got, again):  # fixed summation orders, no atomics
+            fail(f"3i: {entry} ({probe}): two calls on the same input differ")
         try:
             err, worst = _probes.check(probe, got, p.plain(),
                                        None if p.terms is None else p.terms(),
                                        None if p.slack is None else p.slack())
         except RuntimeError as e:
             fail(f"3i: {e}")
-        ms = median_ms(torch, p.kernel, ())
+        # kernel and library in turns
+        k1 = median_ms(torch, p.kernel, ())
+        l1 = None if library is None else median_ms(torch, library, ())
+        k2 = median_ms(torch, p.kernel, ())
+        l2 = None if library is None else median_ms(torch, library, ())
+        ms, lib_ms = (k1 + k2) / 2, None if library is None else (l1 + l2) / 2
         plain_ms = median_ms(torch, p.plain, ())
-        lib_ms = None if library is None else median_ms(torch, library, ())
         bound_ms, bound_by = probe_bound(nbytes, ops, dtype)
+        lib = "none" if library is None else f"{l1:.4f}/{l2:.4f} ms"
         log("kernels", f"{entry} ({probe}): max_abs_err {err:.3g} (worst err/tol {worst:.3g}); "
-                       f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-                       f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-                       f"{bound_ms:.5f} ms ({bound_by}, {nbytes / 1e6:.3f} MB, "
-                       f"{ops / 1e9:.4f} GFLOP)")
+                       f"{k1:.4f}/{k2:.4f} ms, library {lib} (in turns), plain "
+                       f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}, "
+                       f"{nbytes / 1e6:.3f} MB, {ops / 1e9:.4f} GFLOP)")
         out[entry] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=lib_ms)
     del x, w1, a_cat, w_cat, fmap, targets, coords, a, b, probes
+    # stream_accum's tiles at their edges: 100 rows (a ragged row tile), five
+    # weight blocks (a quarter of K is 10 stages), x wider than the slice
+    g = torch.Generator(device="cuda").manual_seed(11)
+    xr = torch.randn(100, 1024, device="cuda", generator=g).to(torch.bfloat16)
+    wr = (torch.randn(5, 512, 2048, device="cuda", generator=g) * 0.02).to(torch.bfloat16)
+    got = mixer_probes_cuda.stream_accum(xr, wr)
+    again = mixer_probes_cuda.stream_accum(xr, wr)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        fail("3i: stream_accum M=100 NB=5: two calls on the same input differ")
+    try:
+        err, worst = _probes.check("stream_accum M=100 NB=5", got,
+                                   mixer_probes_cuda.stream_accum_reference(xr, wr),
+                                   mixer_probes_cuda.stream_accum_reference(xr.abs(), wr.abs()))
+    except RuntimeError as e:
+        fail(f"3i: {e}")
+    log("kernels", f"stream_accum M=100 NB=5 x {tuple(xr.shape)} w1 {tuple(wr.shape)}: "
+                   f"max_abs_err {err:.3g} (worst err/tol {worst:.3g}); "
+                   f"{median_ms(torch, mixer_probes_cuda.stream_accum, (xr, wr)):.4f} ms")
+    del xr, wr, got, again
     torch.cuda.empty_cache()
     return out
 
@@ -1379,6 +1437,9 @@ def main() -> int:
         log("build", f"{stem}: {'cached' if i['cached'] else 'built'} in {i['seconds']:.2f} s "
                      f"-> {i['path']}")
     log("build", f"all kernels ready in {time.perf_counter() - t:.2f} s")
+    for stem, kernel in PTXAS_REPORT:
+        log("build", f"{kernel} ({stem}.cu): "
+                     + ptxas_report(Path(info[stem]["path"]).with_suffix(".log"), kernel))
 
     # 3a. chan_ff_block against its plain version, at the main path's shapes:
     # the served windows' (R_MAIN, and 2000, no multiple of the kernel's row

@@ -1,7 +1,9 @@
 // bf16 tensor-core helpers shared by the conv kernels (conv3x3_fwd.cu,
-// conv3x3_stats.cu) and mixer_probes.cu: ldmatrix fragments from shared
-// memory (the .trans form reads a B operand stored k-major, n contiguous) and
-// the mma.sync m16n8k16 product with f32 accumulators (sm_80 and later).
+// conv3x3_stats.cu), stem_wgrad.cu and mixer_probes.cu: ldmatrix fragments
+// from shared memory (the .trans form reads a B operand stored k-major, n
+// contiguous) and the mma.sync m16n8k16 product with f32 accumulators (sm_80
+// and later); and wgmma, the warpgroup's asynchronous product, its operands
+// from shared-memory descriptors or A from registers (sm_90a).
 
 #pragma once
 
@@ -43,3 +45,85 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b
 }
 
 }  // namespace
+
+// ---- wgmma (sm_90a): a warpgroup's asynchronous product from shared memory ----
+
+namespace {
+
+// A shared-memory matrix descriptor: lbo and sbo in bytes, as the operand's
+// major mode reads them. swz = 128 (a tile as TMA writes it, 128-byte rows,
+// 8-row atoms, 1024-byte aligned): K-major, sbo is the stride between 8-row
+// groups along M or N (lbo unused); MN-major, sbo is the stride between 8-row
+// groups along K, lbo between 64-element groups along M or N. swz = 0
+// (unswizzled, MN-major: core matrices of 8 rows of 16 bytes, 128 contiguous
+// bytes, rows along K): sbo is the stride between core matrices along M or N,
+// lbo along K.
+__device__ __forceinline__ uint64_t gmma_desc(const void* tile, uint32_t lbo, uint32_t sbo,
+                                              int swz) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(tile));
+  const uint64_t mode = swz == 128 ? 1 : 0;  // the descriptor's 128-byte swizzle, or none
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (mode << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d (64 x 64 f32: this thread's 32 values in the mma C-fragment order of its
+// warp's 16 rows, n8 tile after n8 tile) += A (64 x 16) B (16 x 64), bf16
+// operands from shared memory; TA, TB: 0 for a K-major operand, 1 for an
+// MN-major one
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16(float* d, uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TA), "n"(TB)
+      : "memory");
+}
+
+// d (64 x 32 f32: 16 values a thread, laid out as above) += A (64 x 16) B
+// (16 x 32) with A from registers: a holds this warp's 16 rows of A as the
+// mma.sync m16n8k16 A fragment (as ldmatrix gives it); B from shared memory,
+// MN-major (TB 1) or K-major (0). a must not change until the product's group
+// has completed
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float* d, const uint32_t* a,
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TB)
+      : "memory");
+}
+
+}  // namespace
+

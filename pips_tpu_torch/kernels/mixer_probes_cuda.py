@@ -7,8 +7,9 @@ one f32 accumulator (:69). On a CUDA tensor ``gelu``, ``ln_slice`` and
 ``stream_accum`` launch their kernels in ``pips_tpu_torch/csrc/mixer_probes.cu``
 (whose header says what bounds them); ``gelu_reference``,
 ``ln_slice_reference`` and ``stream_accum_reference`` are the plain versions,
-which repeat the probes' arithmetic in f32. A CPU tensor runs the plain
-version; a CUDA tensor launches the kernel or raises.
+which repeat the probes' arithmetic in f32 (GELU's in f64, see
+``gelu_reference``). A CPU tensor runs the plain version; a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 from pips_tpu_torch.kernels import _build
 
 SLICE = 512  # lanes of x in the probes' LayerNorm and product (the tool's D)
+STREAM_COLS = 64  # output columns of a stream_accum block: N must be a multiple
 _SQRT2 = math.sqrt(2.0)
 
 launches: collections.Counter = collections.Counter()  # per kernel name; read by chip_smoke.py
@@ -33,9 +35,13 @@ _ENTRIES = {"pips_probe_gelu": (2, 1), "pips_probe_ln_slice": (2, 3),
 
 
 def gelu_reference(x: torch.Tensor) -> torch.Tensor:
-    """``k_erf``: 0.5 x (1 + erf(x / sqrt 2)) in f32, rounded to bf16."""
-    xf = x.float()
-    return (0.5 * xf * (1.0 + torch.erf(xf / _SQRT2))).to(torch.bfloat16)
+    """``k_erf``'s function, 0.5 x (1 + erf(x / sqrt 2)), in f64 and rounded
+    once to bf16. ``k_erf`` computes it in f32, where 1 + erf cancels for
+    x << 0 and so carries its erf's absolute error (a few f32 ulps of 1, and
+    not the same few in XLA, in PyTorch's f32 erf or in CUDA's ``erff``): in
+    f64 the plain version carries none, and each side is held to it alone."""
+    xd = x.double()
+    return (0.5 * xd * (1.0 + torch.erf(xd / _SQRT2))).to(torch.bfloat16)
 
 
 def ln_slice_reference(x: torch.Tensor, width: int = SLICE) -> torch.Tensor:
@@ -124,17 +130,17 @@ def ln_slice(x: torch.Tensor, width: int = SLICE) -> torch.Tensor:
 
 def stream_accum(x: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
     """sum_b x[:, 0:512] @ w1[b] for x (M, >= 512) and w1 (NB, 512, N) bf16:
-    (M, N) f32. On CUDA, N must be a multiple of 16, x's row stride a multiple
-    of 8 and w1 contiguous."""
+    (M, N) f32. On CUDA, N must be a multiple of 64 (the kernel's column
+    tile), x's row stride a multiple of 8 and w1 contiguous."""
     if x.dim() != 2 or x.shape[1] < SLICE or w1.dim() != 3 or w1.shape[1] != SLICE:
         raise ValueError(f"stream_accum takes x (M, >= {SLICE}) and w1 (NB, {SLICE}, N), got "
                          f"{tuple(x.shape)} and {tuple(w1.shape)}")
     if not _on_cuda("stream_accum", x, w1):
         return stream_accum_reference(x, w1)
     M, (NB, _, N) = x.shape[0], w1.shape
-    if N % 16 or x.stride(0) % 8 or not w1.is_contiguous():
-        raise ValueError(f"the CUDA stream_accum takes N % 16 == 0, x's row stride % 8 == 0 and "
-                         f"a contiguous w1; got N={N}, stride {x.stride(0)}")
+    if N % STREAM_COLS or x.stride(0) % 8 or not w1.is_contiguous():
+        raise ValueError(f"the CUDA stream_accum takes N % {STREAM_COLS} == 0, x's row stride "
+                         f"% 8 == 0 and a contiguous w1; got N={N}, stride {x.stride(0)}")
     o = torch.empty(M, N, dtype=torch.float32, device=x.device)
     if M:
         _launch("stream_accum", "pips_probe_stream_accum", x.data_ptr(), w1.data_ptr(),

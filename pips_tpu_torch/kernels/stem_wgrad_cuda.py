@@ -12,8 +12,9 @@ a sum over K = B * Ho * Wo pixels for each of 7*4*6*64 = 10,752 outputs. On a
 CUDA tensor ``stem_wgrad`` launches the hand-written kernel in
 ``pips_tpu_torch/csrc/stem_wgrad.cu``, which replaces the TPU kernel
 ``_wgrad_kernel`` and reads x2 in place at row stride 2, so the row-tap
-tensor x7 is never written to device memory (the source's header says what
-bounds it); ``stem_wgrad_reference`` is its plain version.
+tensor x7 is never written to device memory: in bf16 on tensor cores behind
+a ring of asynchronous copies, in f32 on the SIMT cores (the source's header
+says what bounds it); ``stem_wgrad_reference`` is its plain version.
 
 ``stem_wgrad`` returns None exactly where JAX's does (a row count that
 ``_pick_tile`` does not tile, or a width too narrow for the taps), and
@@ -77,7 +78,7 @@ def _kernel():
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         blocks = lib.pips_stem_wgrad_blocks
-        blocks.argtypes = [ctypes.c_int] * 4
+        blocks.argtypes = [ctypes.c_int] * 5
         blocks.restype = ctypes.c_int
         _fns = fn, blocks
     return _fns
@@ -108,7 +109,7 @@ def stem_wgrad(x2: torch.Tensor, dy: torch.Tensor, KY: int = 7, KX: int = 4):
         raise ValueError("the CUDA stem_wgrad reads x2 and dy in torch.channels_last memory "
                          f"format; got strides {x2.stride()} and {dy.stride()}")
     fn, blocks = _kernel()
-    nblocks = blocks(B, Ho, Wo, x2.device.index)
+    nblocks = blocks(B, Ho, Wo, _DTYPE_CODE[x2.dtype], x2.device.index)
     if nblocks <= 0:
         raise RuntimeError(f"stem_wgrad: no launch configuration for B={B}, Ho={Ho}, Wo={Wo}")
     dk = torch.empty(O, C, KY, KX, dtype=torch.float32, device=x2.device)

@@ -52,9 +52,11 @@ def grid_sample_zeros(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> to
             + tap(y0 + 1, x0) * w10 + tap(y0 + 1, x0 + 1) * w11)
 
 
-def bilinear_sample2d(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def bilinear_sample2d(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                      return_inbounds: bool = False):
     """Border-replicating bilinear point sample. img: (B, H, W, C); x, y: (B, N).
-    Returns (B, N, C)."""
+    Returns (B, N, C); with ``return_inbounds`` also (B, N) f32, 1 where the
+    point lies inside the image's pixel area (-0.5 < x < W - 0.5, likewise y)."""
     B, H, W, C = img.shape
     x, y, x0f, y0f, x0, y0 = _corners(x, y)
     x0c, x1c = x0.clamp(0, W - 1), (x0 + 1).clamp(0, W - 1)
@@ -64,5 +66,9 @@ def bilinear_sample2d(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> to
     w01 = ((x - x0f) * (y1f - y))[..., None]
     w10 = ((x1f - x) * (y - y0f))[..., None]
     w11 = ((x - x0f) * (y - y0f))[..., None]
-    return (w00 * _gather_hw(img, y0c, x0c) + w01 * _gather_hw(img, y0c, x1c)
-            + w10 * _gather_hw(img, y1c, x0c) + w11 * _gather_hw(img, y1c, x1c))
+    out = (w00 * _gather_hw(img, y0c, x0c) + w01 * _gather_hw(img, y0c, x1c)
+           + w10 * _gather_hw(img, y1c, x0c) + w11 * _gather_hw(img, y1c, x1c))
+    if return_inbounds:
+        inbounds = (x > -0.5) & (x < W - 0.5) & (y > -0.5) & (y < H - 0.5)
+        return out, inbounds.float()
+    return out

@@ -2,13 +2,13 @@
 plain version with the probe's tolerance, then all of them timed in turns.
 
 A probe with a bf16 output is held elementwise to one bf16 ulp of the larger
-magnitude: kernel and plain version compute in f32 and round once. Where its
-formula cancels in f32 before that rounding, the probe adds the slack that
-the cancellation allows (GELU's left tail: ``GELU_SLACK``). A probe
-with an f32 output gives ``terms``, the sum of |term| behind each output (its
-plain version on the operands' magnitudes), and is held to ``F32_SUM_TOL``
-of it: bf16 products are exact in f32, so only the order of the f32 sums
-differs. Nothing is caught: a miss raises, as a build or launch error does.
+magnitude: the kernel computes in f32 and the plain version in f32 or f64,
+and each rounds once. Where the kernel's formula cancels in f32 before that
+rounding, the probe adds the slack that the cancellation allows (GELU's left
+tail: ``GELU_SLACK``). A probe with an f32 output gives ``terms``, the sum
+of |term| behind each output (its plain version on the operands'
+magnitudes), and is held to ``F32_SUM_TOL`` of it: bf16 products are exact
+in f32, so only the order of the f32 sums differs. Nothing is caught: a miss raises, as a build or launch error does.
 """
 
 from __future__ import annotations
@@ -21,8 +21,11 @@ import torch
 from pips_tpu_torch.tools.profile_block_kernel import in_turns
 
 F32_SUM_TOL = 1e-5
-# 0.5 x (1 + erf(x / sqrt 2)) cancels for x << 0, where erf is near -1: two
-# erfs four f32 ulps (2^-24 each, near 1) apart move it by 0.5 |x| 4 2^-24
+# 0.5 x (1 + erf(x / sqrt 2)) cancels in f32 for x << 0, where erf is near -1,
+# so an erf off by e moves it by 0.5 |x| e. The plain version is f64 (no
+# error of its own); the kernel's erff is within 2 f32 ulps (2^-24 each near
+# 1: CUDA's documented bound) and its argument x * f32(1/sqrt 2) within one
+# more: 0.5 |x| 3 2^-24, held to |x| 2^-23
 GELU_SLACK = 2.0 ** -23
 
 

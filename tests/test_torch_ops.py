@@ -46,6 +46,41 @@ def _img_and_oob_coords(rng):
     return img, x, y
 
 
+
+def test_meshgrid2d_stacked_and_coords_grid():
+    """``stack`` in JAX's position (the 4th argument), and ``coords_grid``, xy order."""
+    np.testing.assert_array_equal(grids.meshgrid2d(2, 3, 5, True).numpy(),
+                                  np.asarray(jgrids.meshgrid2d(2, 3, 5, True)))
+    got = grids.meshgrid2d(1, 4, 6, stack=True, dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == (1, 4, 6, 2)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(jgrids.meshgrid2d(1, 4, 6, stack=True)))
+    np.testing.assert_array_equal(grids.coords_grid(2, 3, 4).numpy(),
+                                  np.asarray(jgrids.coords_grid(2, 3, 4)))
+    assert grids.coords_grid(1, 2, 3, dtype=torch.float64).dtype == torch.float64
+
+
+def test_bilinear_sample2d_inbounds_flag():
+    """As ``tests/test_ops.py``: a 4x4 image at x = [-0.6, 0, 3.4, 3.6], y = 1."""
+    x, y = np.array([[-0.6, 0.0, 3.4, 3.6]]), np.ones((1, 4))
+    img = np.zeros((1, 4, 4, 1))
+    out, inb = samp.bilinear_sample2d(t(img), t(x), t(y), return_inbounds=True)
+    want_out, want_inb = jsamp.bilinear_sample2d(j(img), j(x), j(y), return_inbounds=True)
+    assert inb.dtype == torch.float32
+    np.testing.assert_array_equal(inb[0].numpy(), [0, 1, 1, 0])
+    np.testing.assert_array_equal(inb.numpy(), np.asarray(want_inb))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(want_out))
+
+
+def test_bilinear_sample2d_inbounds_matches_jax(rng):
+    img, x, y = _img_and_oob_coords(rng)
+    out, inb = samp.bilinear_sample2d(t(img), t(x), t(y), return_inbounds=True)
+    want_out, want_inb = jsamp.bilinear_sample2d(j(img), j(x), j(y), return_inbounds=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), **TIGHT)
+    np.testing.assert_array_equal(inb.numpy(), np.asarray(want_inb))
+    assert 0 < inb.sum() < inb.numel()
+
+
 @pytest.mark.parametrize("name", ["grid_sample_zeros", "bilinear_sample2d"])
 def test_samplers_out_of_bounds(rng, name):
     img, x, y = _img_and_oob_coords(rng)

@@ -12,11 +12,14 @@ on its own inputs, which the port's ``inputs()`` must reproduce bit for bit.
 three ``pallas_call``s from the tool's own kernel bodies and specs.
 
 Tolerances: a bf16 output within one bf16 ulp (of the larger magnitude),
-since both sides compute in f32 and round once; GELU's within that plus
-|x| 2^-23, because for x << 0 its formula 0.5 x (1 + erf(x / sqrt 2))
-cancels in f32 before the rounding, and XLA's erf and PyTorch's differ there
-by an f32 ulp of 1 (seen: ten bf16 ulps at x = -4.84, one f32 ulp of erf;
-the slack allows four); an f32 output within
+since both sides compute in f32 (or f64) and round once. GELU's within that
+plus 0.5 |x| (ERF_ABS["xla"] + ERF_ABS["torch_f64"]): for x << 0 its formula
+0.5 x (1 + erf(x / sqrt 2)) cancels in f32 before the rounding, so JAX's
+output carries its erf's absolute error times 0.5 |x|, and the plain version
+(f64) carries its own. Each library's erf is held to those bounds against the
+f64 erf over every finite bf16 x, the whole set the probe can see
+(``test_erf_is_held_to_f64_over_every_bf16_input``), so the GELU bound holds
+on any machine where those checks pass. An f32 output within
 1e-5 of the sum of |term| behind it, since bf16 products are exact in f32
 and only the order of the f32 sums differs. A tool's sums (``main`` on the
 CPU against what the JAX tool prints, or the sum of its output where it
@@ -28,6 +31,7 @@ import contextlib
 import functools
 import importlib.util
 import io
+import math
 import re
 from pathlib import Path
 
@@ -45,13 +49,24 @@ from pips_tpu_torch.kernels.mixer_probes_cuda import (gelu, gelu_reference, ln_s
                                                       ln_slice_reference, stream_accum,
                                                       stream_accum_reference)
 from pips_tpu_torch.kernels.row_contract_cuda import row_contract, row_contract_reference
-from pips_tpu_torch.tools import debug_mixer_kernel, debug_pallas7, probe_mosaic_ops
+from pips_tpu_torch.tools import (debug_mixer_kernel, debug_pallas7, probe_mosaic_ops,
+                                  profile_pipelines)
 
 TOOLS_DIR = Path(__file__).resolve().parents[1] / "tools"
 PORTS = {"debug_mixer_kernel": debug_mixer_kernel, "debug_pallas7": debug_pallas7,
          "probe_mosaic_ops": probe_mosaic_ops}
 F32_REL = 1e-5
 BF16_REL = 2.0 ** -8  # one bf16 ulp is at most this much of the value
+# |erf - f64 erf| over erf(x / sqrt 2) for every finite bf16 x, each computed
+# as its caller does: XLA's in f32 as k_erf calls it (a rational approximation
+# evaluated in f32, whose roundings follow the host's vector width and FMA
+# use; 3.06 f32 ulps of 1 (2^-24) with jax 0.9 on an AVX512 host, held to 8),
+# PyTorch's f32 erf (the former plain version: 0.94 ulps with torch 2.13 on
+# that host; vectorised builds have used a 1.5e-7 (2.5 ulp) approximation;
+# held to 8) and PyTorch's f64 erf, the plain version's (an f64 ulp against
+# libm's, held to 2^-50)
+ERF_ABS = {"xla": 2.0 ** -21, "torch_f32": 2.0 ** -21, "torch_f64": 2.0 ** -50}
+GELU_SLACK = 0.5 * (ERF_ABS["xla"] + ERF_ABS["torch_f64"])  # times |x|
 
 
 @functools.lru_cache(maxsize=None)
@@ -91,13 +106,48 @@ def _jax_mixer_probes():
     return {"erf": _np(erf), "ln_slice": _np(ln), "block_stream_accum": _np(acc)}
 
 
-def _assert_bf16_close(got: torch.Tensor, want: np.ndarray, what: str, slack=0.0):
+def _assert_bf16_close(got: torch.Tensor, want: np.ndarray, what: str, slack=0.0, x=None):
+    """Within one bf16 ulp plus ``slack`` elementwise; a miss names the worst
+    input ``x`` (where given), both values and the bound there."""
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape, what
     g = got.float().numpy()
     _, e = np.frexp(np.maximum(np.abs(g), np.abs(want)))
-    ulp = np.ldexp(1.0, e - 8)
-    bad = np.abs(g - want) > ulp + slack
-    assert not bad.any(), f"{what}: {bad.sum()} values more than one bf16 ulp apart"
+    bound = np.ldexp(1.0, e - 8) + slack
+    err = np.abs(g - want)
+    bad = err > bound
+    if bad.any():
+        i = np.unravel_index(np.argmax(err / bound), err.shape)
+        at = "" if x is None else f" x={float(np.asarray(x)[i])!r}"
+        pytest.fail(f"{what}: {bad.sum()} values beyond one bf16 ulp + slack; worst at "
+                    f"{i}{at}: got {g[i]!r}, want {want[i]!r}, |diff| {err[i]:.4g} > bound "
+                    f"{bound[i]:.4g}")
+
+
+@functools.lru_cache(maxsize=None)
+def _every_bf16():
+    """Every finite bf16 value, as f32 numpy."""
+    v = (np.arange(1 << 16, dtype=np.uint32) << 16).view(np.float32)
+    return v[np.isfinite(v)]
+
+
+@pytest.mark.parametrize("lib", sorted(ERF_ABS))
+def test_erf_is_held_to_f64_over_every_bf16_input(lib):
+    """erf(x / sqrt 2) for every finite bf16 x, as each caller computes it,
+    within ``ERF_ABS[lib]`` of the f64 erf of the exact quotient."""
+    x = _every_bf16()
+    want = np.array([math.erf(v / math.sqrt(2.0)) for v in x.astype(np.float64)])
+    if lib == "xla":
+        got = jax.jit(lambda xf: jax.lax.erf(xf / np.sqrt(2.0)))(jnp.asarray(x))
+        assert got.dtype == jnp.float32
+        got = np.asarray(got, np.float64)
+    elif lib == "torch_f32":
+        got = torch.erf(torch.from_numpy(x) / math.sqrt(2.0)).double().numpy()
+    else:
+        got = torch.erf(torch.from_numpy(x).double() / math.sqrt(2.0)).numpy()
+    err = np.abs(got - want)
+    i = int(np.argmax(err))
+    assert err[i] <= ERF_ABS[lib], (f"{lib}: |erf - f64 erf| {err[i]:.4g} > {ERF_ABS[lib]:.4g} "
+                                    f"at x={x[i]!r}: {got[i]!r} against {want[i]!r}")
 
 
 def _assert_f32_close(got: torch.Tensor, want: np.ndarray, terms: torch.Tensor, what: str):
@@ -125,8 +175,8 @@ def test_mixer_probe_references_match_jax(probe):
     want = _jax_mixer_probes()[probe]
     x, w1 = debug_mixer_kernel.inputs("cpu")
     if probe == "erf":
-        _assert_bf16_close(gelu_reference(x), want, probe,
-                           slack=2.0 ** -23 * np.abs(x.float().numpy()))
+        xs = x.float().numpy()
+        _assert_bf16_close(gelu_reference(x), want, probe, slack=GELU_SLACK * np.abs(xs), x=xs)
     elif probe == "ln_slice":
         _assert_bf16_close(ln_slice_reference(x, debug_mixer_kernel.D), want, probe)
     else:
@@ -246,6 +296,44 @@ def test_probe_wrappers_reject_bad_shapes(case):
             row_contract(z(2, 5, 3, dtype=torch.bfloat16), z(2, 6, 4, dtype=torch.bfloat16))
         else:
             ln_slice(z(4, 256, dtype=torch.bfloat16), 512)
+
+
+@pytest.mark.parametrize("case", ["columns", "row_stride", "w1_layout"])
+def test_cuda_stream_accum_rejects_what_its_tiles_cannot_take(case, monkeypatch):
+    """The CUDA path's own checks, made before any build or launch: N a
+    multiple of the kernel's column tile, x's row stride a multiple of 8 (its
+    rows are TMA boxes), w1 contiguous."""
+    monkeypatch.setattr(mixer_probes_cuda, "_on_cuda", lambda name, *t: True)
+    monkeypatch.setattr(mixer_probes_cuda, "_kernel", lambda *a: pytest.fail("built a kernel"))
+    cols = mixer_probes_cuda.STREAM_COLS
+    z = functools.partial(torch.zeros, dtype=torch.bfloat16)
+    x, w1 = z(4, 1024), z(2, 512, cols)
+    if case == "columns":
+        w1 = z(2, 512, cols + 16)
+    elif case == "row_stride":
+        x = z(4, 1028)[:, :1024]
+    else:
+        w1 = z(2, 512, 2 * cols)[:, :, :cols]
+    with pytest.raises(ValueError, match="stream_accum"):
+        stream_accum(x, w1)
+
+
+@pytest.mark.parametrize("source", sorted(profile_pipelines.VARIANTS))
+def test_pipeline_variants_still_match_their_kernels(source):
+    """Each variant of ``tools/profile_pipelines.py`` takes a phase out of the
+    kernel's source by replacing a line that must be there exactly once."""
+    text = (Path(mixer_probes_cuda.__file__).resolve().parents[1] / "csrc"
+            / f"{source}.cu").read_text()
+    for subs in profile_pipelines.VARIANTS[source].values():
+        for old, new in subs:
+            assert text.count(old) == 1, old
+            assert new != old
+
+
+def test_profile_pipelines_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        profile_pipelines.main()
 
 
 @pytest.mark.parametrize("name", sorted(PORTS))
