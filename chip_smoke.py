@@ -72,8 +72,9 @@ shape in bf16 and f32, all channels_last, with dW and db through its autograd Fu
 ``F.conv2d``; and phase 4 (4b) serves the N=256 window with ``fuse_conv3``
 against the same weights without it, 4 conv launches per window. 3e holds
 ``conv_pass`` (the residual block's conv with the norm statistics in its
-epilogue), with and without its prologue, against its plain version at the
-block's bench shape in bf16 and a ragged f32 shape, and the whole
+epilogue), with and without its prologue, against its plain version and
+against itself (two calls, the same bits) at the block's bench shape in bf16
+and at a ragged shape in bf16 and f32, and the whole
 ``res_block64``, forward and five grads, against ``res_block64_reference``;
 timed in turns with ``F.conv2d`` and the modular ``ResidualBlock``. 3f holds
 ``stem_wgrad`` against its plain version, and two calls against each other
@@ -96,9 +97,10 @@ beside its bound: ``gelu``, ``ln_slice`` and ``stream_accum``
 bf16), ``corr_rows`` (``tools/debug_pallas7.py``, 8 points on a 16x128 map
 of 128 f32 channels) and ``row_contract`` in the four layouts of
 ``tools/probe_mosaic_ops.py`` ((24, 256, 6) x (24, 256, 64) bf16); then
-``stream_accum`` at 100 rows and five weight blocks. Phase 2 prints ptxas's
-registers and spills for ``stem_wgrad``'s bf16 kernel and ``stream_accum``'s
-(the tensor-core kernels with asynchronous copy rings). Phase 9
+``stream_accum`` at 100 rows and five weight blocks, and ``row_contract`` at
+three edge shapes (``CONTRACT_EDGES``), with one kernel a call counted under
+the profiler. Phase 2 prints ptxas's registers and spills for the
+tensor-core kernels with asynchronous copy rings (``PTXAS_REPORT``). Phase 9
 then runs the ports of those three tools, the probe kernels' paths, each
 probe's kernel launched 2 + 5 * 10 times.
 Kernel launch counts are zeroed just before each main-path run and read
@@ -173,8 +175,16 @@ CONV_PER_ENCODE = 4  # layer1_0.conv1/conv2 and layer1_1.conv1/conv2
 LOOP_STEPS, LOOP_EVERY, LOOP_MORE = 12, 6, 6  # phase 8: steps, val/save/media period, relaunch
 # phase 3e: the residual block's conv pass at the stage-1 bench shape of
 # tools/profile_block_kernel.py (8 frames at 192x256, 64 channels, bf16) and a
-# small shape with ragged tiles in f32; the whole block at the first
-PASS_CASES = [("bench", 8, 192, 256, "bfloat16"), ("small f32", 2, 31, 70, "float32")]
+# small shape whose H and W are no multiples of the kernels' tiles (4 x 30
+# bf16, 8 x 32 f32: the last tiles hang over the border) in bf16 and f32; the
+# whole block at the first
+PASS_CASES = [("bench", 8, 192, 256, "bfloat16"), ("ragged bf16", 2, 31, 70, "bfloat16"),
+              ("small f32", 2, 31, 70, "float32")]
+# phase 3i: row_contract off the probes' shapes: rows that fill no whole block
+# (G=1, R=1000), b repeated over the batches (batch stride 0, G=3, R=100), and
+# lanes off the fast path (CA=20, CB=24: the general branch)
+CONTRACT_EDGES = [("R=1000", 1, 1000, 6, 64, False), ("G=3 R=100 b_bs=0", 3, 100, 6, 64, True),
+                  ("CA=20 CB=24", 1, 1000, 20, 24, False)]
 # phase 3f: the stem weight gradient at tools/profile_stem_wgrad.py's shapes,
 # a bf16 one whose rows end in a partial segment of columns (Wo = 164 = 128 +
 # 36, and 36 is no multiple of the kernel's 16-pixel steps) and a small one in
@@ -221,7 +231,8 @@ PROBE_KERNELS = [("gelu", "mixer_probes", "tools/debug_mixer_kernel.py:63"),
 
 
 # kernels whose registers and spills the build report prints (ptxas -v)
-PTXAS_REPORT = [("stem_wgrad", "stem_wgrad_tc"), ("mixer_probes", "probe_stream_accum")]
+PTXAS_REPORT = [("stem_wgrad", "stem_wgrad_tc"), ("mixer_probes", "probe_stream_accum"),
+                ("conv3x3_stats", "conv3x3_stats_bf16"), ("row_contract", "row_contract_tc")]
 
 
 def ptxas_report(log_path: Path, kernel: str) -> str:
@@ -563,21 +574,25 @@ def fmt(d: dict) -> str:
 
 def phase_block(torch, np, F, block_cuda) -> dict:
     """3e: ``conv_pass`` against its plain version, with and without the
-    prologue, then the whole ``res_block64`` forward and five grads against
+    prologue, and against itself (two calls give the same bits), then the
+    whole ``res_block64`` forward and five grads against
     ``res_block64_reference``, with times in turns with the library."""
     from pips_tpu_torch.models.encoder import ResidualBlock
 
     out = {}
-    _, tiles = block_cuda._kernel()
     for case, B, H, W, dtype in PASS_CASES:
         x, w, b, aff = pass_args(torch, np, B, H, W, dtype, seed=B + H)
         parts, errs = [], []
         for prologue in (False, True):
             y, st = block_cuda.conv_pass(x, w, b, aff, prologue)
+            y2, st2 = block_cuda.conv_pass(x, w, b, aff, prologue)
             torch.cuda.synchronize()
+            if not (torch.equal(y, y2) and torch.equal(st, st2)):  # no atomics, fixed orders
+                fail(f"conv_pass {case} prologue={prologue}: two calls on the same input differ")
+            del y2, st2
             y_ref, st_ref = block_cuda.conv_pass_reference(x, w, b, aff, prologue)
             tol_acc, tol_st = pass_tols(torch, F, x, w, b, aff, prologue,
-                                        tiles(H, W, 1 if dtype == "bfloat16" else 0))
+                                        block_cuda.stats_tiles(H, W, x.dtype))
             err = (y.float() - y_ref.float()).abs()
             if dtype == "bfloat16":
                 y_ratio = err.max().item() / bf16_tol(y_ref.float().abs().max().item())
@@ -1007,8 +1022,58 @@ def phase_probes(torch, F) -> dict:
                    f"max_abs_err {err:.3g} (worst err/tol {worst:.3g}); "
                    f"{median_ms(torch, mixer_probes_cuda.stream_accum, (xr, wr)):.4f} ms")
     del xr, wr, got, again
+    phase_contract_edges(torch)
     torch.cuda.empty_cache()
     return out
+
+
+def phase_contract_edges(torch) -> None:
+    """3i, ``row_contract`` off the probes' shapes (``CONTRACT_EDGES``):
+    against its plain version with the probes' tolerance, against itself (the
+    same bits), and under the profiler: one kernel launch a call, as at each
+    probe's shape."""
+    from pips_tpu_torch.kernels import row_contract_cuda
+    from pips_tpu_torch.tools import _probes, probe_mosaic_ops
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    edges = {}
+    for label, G, R, CA, CB, b_batch0 in CONTRACT_EDGES:
+        a = (torch.rand(G, R, CA, device="cuda", generator=g) - 0.5).to(torch.bfloat16)
+        b = (torch.rand(1 if b_batch0 else G, R, CB, device="cuda", generator=g)
+             - 0.5).to(torch.bfloat16)
+        edges[label] = (a, b.expand(G, R, CB))
+    for label, (a, b) in edges.items():
+        got = row_contract_cuda.row_contract(a, b, probe="edge")
+        again = row_contract_cuda.row_contract(a, b, probe="edge")
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"3i: row_contract {label}: two calls on the same input differ")
+        try:
+            err, worst = _probes.check(f"row_contract {label}", got,
+                                       row_contract_cuda.row_contract_reference(a, b),
+                                       row_contract_cuda.row_contract_reference(a.abs(), b.abs()))
+        except RuntimeError as e:
+            fail(f"3i: {e}")
+        plan = row_contract_cuda.launch_plan(*a.shape, b.shape[2], a.stride()[:2], b.stride()[:2])
+        log("kernels", f"row_contract {label} a {tuple(a.shape)} {a.stride()} b "
+                       f"{tuple(b.shape)} {b.stride()}: {plan}; max_abs_err {err:.3g} "
+                       f"(worst err/tol {worst:.3g}); "
+                       f"{median_ms(torch, row_contract_cuda.row_contract, (a, b)):.4f} ms")
+    # the kernels each call launches, as the profiler sees them
+    a0, b0 = probe_mosaic_ops.inputs("cuda")
+    calls = [lambda a=a, b=b: row_contract_cuda.row_contract(a, b, probe="edge")
+             for a, b in edges.values()]
+    calls += [lambda f=f: f(a0, b0) for f in (probe_mosaic_ops.probe_a, probe_mosaic_ops.probe_c)]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for call in calls:
+            call()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    launched = sum("row_contract" in n for n in names)
+    log("kernels", f"row_contract under the profiler: {launched} kernels for {len(calls)} calls "
+                   f"(the edges, probes A and C); device events {names}")
+    if launched != len(calls):
+        fail(f"3i: {launched} row_contract kernels for {len(calls)} calls: {names}")
 
 
 def phase_probe_tools(torch) -> dict:

@@ -1,16 +1,21 @@
-// Asynchronous copies into shared memory and the mbarriers that track them
-// (sm_90), shared by the pipelined kernels (stem_wgrad.cu, mixer_probes.cu):
-//   TMA: one thread copies a 2D box of a bf16 tensor (a tensor map made on
-//   the host by make_map_2d_bf16) into shared memory, swizzled (with
+// Asynchronous copies between global and shared memory and the mbarriers
+// that track them (sm_90), shared by the pipelined kernels (stem_wgrad.cu,
+// mixer_probes.cu, conv3x3_stats.cu, row_contract.cu):
+//   TMA: one thread copies a 2D or 4D box of a bf16 tensor (a tensor map
+//   made on the host by make_map_bf16) into shared memory, swizzled (with
 //   128-byte rows the 16-byte chunk j of the box's row r lands at chunk
 //   j ^ (r % 8)), which wgmma reads through a descriptor of the same swizzle
 //   (mma_bf16.cuh: gmma_desc); the box completes on an mbarrier that counts
-//   its bytes (expect_tx). One copy should move a whole tile: a ring fed one
-//   128-byte row per cp.async.bulk ran several times slower;
-//   cp.async of 4 bytes a thread, for rows whose stride is no multiple of 16
-//   bytes (no TMA box fits them), completed on the same mbarrier
-//   (cp_async_arrive_noinc);
-//   mbarrier init, arrive and parity wait for full/empty rings.
+//   its bytes (expect_tx). Coordinates outside the tensor read as zero. One
+//   copy should move a whole tile: a ring fed one 128-byte row per
+//   cp.async.bulk ran several times slower. A TMA store writes a box back
+//   from shared memory (clipped at the tensor's edges) in a bulk group;
+//   cp.async.bulk of a contiguous byte range, on an mbarrier the same way;
+//   cp.async of 4 bytes a thread, for rows whose stride fits no TMA box
+//   (cp_async_arrive_noinc completes them on an mbarrier, cp_async_wait_all
+//   waits for them in the issuing thread);
+//   mbarrier init, arrive and parity wait for full/empty rings; named
+//   barriers for a subset of the block's warps.
 // A ring slot used for the u-th time is waited on with parity u & 1: the wait
 // returns once the barrier's phase u has completed.
 
@@ -31,6 +36,11 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
                : "memory");
+}
+
+// this thread's cp.async so far have landed
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // the mbarrier's pending count drops by one once all of this thread's
@@ -102,6 +112,72 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// fetch a tensor map (a __grid_constant__ parameter) ahead of its first copy
+__device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// the box at (c0, c1, c2, c3) of `map` from src (1024-byte aligned), in this
+// thread's current bulk group; parts outside the tensor are not written
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::
+          "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// this thread's bulk groups but the newest N have finished reading shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// ... and finished writing global memory
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// `bytes` (a multiple of 16) from src to dst, both 16-byte aligned, completed on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// this thread's writes to shared memory so far are ordered before later
+// accesses by the async proxy (TMA loads that overwrite them, TMA stores that
+// read them)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- named barriers ----------------------------------------------------------------
+
+// `threads` (a multiple of 32) of the block meet at barrier `id` (1..15; 0 is
+// __syncthreads')
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---- host: tensor maps ------------------------------------------------------------
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -109,11 +185,13 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// A bf16 tensor map of `rows` rows of `inner` elements, `row_bytes` apart (a
-// multiple of 16; base 16-byte aligned), in boxes of box_rows rows of 64
-// elements (128 bytes: the 128-byte swizzle's width).
-inline cudaError_t make_map_2d_bf16(CUtensorMap* map, const void* base, uint64_t inner,
-                                    uint64_t rows, uint64_t row_bytes, uint32_t box_rows) {
+// A bf16 tensor map of `rank` dims (dims[0] innermost, contiguous, 64
+// elements: 128 bytes, the 128-byte swizzle's width), dim i + 1 strides[i]
+// bytes apart (multiples of 16; base 16-byte aligned), in boxes of box[i]
+// elements, 128-byte swizzled; elements outside the tensor read as zero.
+inline cudaError_t make_map_bf16(CUtensorMap* map, const void* base, int rank,
+                                 const uint64_t* dims, const uint64_t* strides,
+                                 const uint32_t* box) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -124,15 +202,28 @@ inline cudaError_t make_map_2d_bf16(CUtensorMap* map, const void* base, uint64_t
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
-  const cuuint64_t dims[2] = {inner, rows};
-  const cuuint64_t strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {64, box_rows};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-                            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  cuuint64_t d[5], st[4];
+  cuuint32_t bx[5], elem_strides[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    bx[i] = box[i];
+    elem_strides[i] = 1;
+    if (i + 1 < rank) st[i] = strides[i];
+  }
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+                            const_cast<void*>(base), d, st, bx, elem_strides,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// `rows` rows of `inner` elements, `row_bytes` apart, in boxes of box_rows
+// rows of 64 elements
+inline cudaError_t make_map_2d_bf16(CUtensorMap* map, const void* base, uint64_t inner,
+                                    uint64_t rows, uint64_t row_bytes, uint32_t box_rows) {
+  const uint64_t dims[2] = {inner, rows};
+  const uint32_t box[2] = {64, box_rows};
+  return make_map_bf16(map, base, 2, dims, &row_bytes, box);
 }
 
 }  // namespace

@@ -24,34 +24,58 @@
 //
 // Design. The TPU kernel works on the W-space-to-depth tensor (128 lanes) and
 // pair-combines the statistics of the two s2d halves; Hopper has no lane width
-// to fill, so this is conv3x3_fwd.cu's implicit GEMM (M = output pixels, N = 64
-// outputs, K = 9 taps x 64 channels) with two additions:
-//   * the prologue is applied in registers as each 16-byte chunk of the
-//     haloed tile is loaded (four loads in flight per thread): only pixels
-//     inside the image are loaded, the halo is zero-filled, so the padding
-//     never sees the affine (a border reading relu(shift) would be the bug
-//     to avoid);
-//   * the statistics come from the f32 accumulators: each thread sums its
-//     in-image pixels for its 16 output columns, warp shuffles sum over the
-//     lanes that share a column, and the four warps' sums are added in a fixed
-//     order into this tile's (sum, sumsq) row. Tiles never share a row, so no
-//     atomics and the result is deterministic; the wrapper sums the tiles
-//     (B, T, 2, 64) -> (B, 2, 64), as JAX sums its grid steps outside the
-//     kernel.
-// The weight (72 KB bf16) stays in shared memory; persistent blocks (two per
-// SM) walk 2x64-pixel tiles; mma.sync m16n8k16 on ldmatrix fragments of
-// XOR-swizzled pixel rows. f32 runs a SIMT kernel with f32 FMAs (mma.sync in
-// f32 would be TF32), one output pixel per thread, its statistics reduced by
-// a shuffle reduce-scatter over the warp.
+// to fill, so this is an implicit GEMM over K = 9 taps x 64 channels.
+// bf16 (conv3x3_stats_bf16): persistent blocks, one an SM (222 KB of shared
+// memory, 16 warps), walk output tiles of 4 x 30 pixels; a tile's haloed
+// input box is 6 x 32 pixels (1.6 input pixels an output pixel). Roles:
+//   * three consumer warpgroups take the tiles by turns. The first thread of
+//     each copies the boxes of its next two tiles into its two slots of a
+//     six-slot ring, each by one TMA load (a 4D tensor map over the NHWC
+//     input, 128-byte swizzled, on an mbarrier); coordinates outside the
+//     image read as zero, which is the SAME padding;
+//   * a prologue warpgroup (with the prologue on) applies relu(x * scale +
+//     shift) to each box's in-image pixels in place as it lands, masked by
+//     their coordinates, so the padding never sees the affine (a border
+//     reading relu(shift) would be the bug to avoid), and hands the slot on
+//     by a second mbarrier: once a pixel, not once for each of its nine taps;
+//   * a consumer warpgroup computes y^T (64 outputs x 128 pixels) = W^T X as
+//     36 wgmma m64n128k16, one per (tap, 16 channels), issued at once, both
+//     operands from shared memory: A is the weight, resident as [tap][o][c]
+//     K-major 128-byte swizzled rows (laid out once a block from
+//     (O, C, 3, 3) by 16-byte loads); B is the box's first four rows, read
+//     straight from the TMA's swizzled tile shifted by the tap: the swizzle
+//     follows the shared-memory address, so a descriptor may start at any
+//     pixel row. B's 128 rows are the four box rows whole, 32 pixels each,
+//     so every tap shifts them alike and the two last columns of a row are
+//     products that are no outputs (6% of the tensor work).
+// Why three: one warpgroup's products alone run at ~156 cycles a product
+// (the tensor cores' rate is 64), two together at ~85 each; with two
+// warpgroups both epilogues fell together and the tensor cores idled, with
+// three two are in products while the third finishes its tile (clock64
+// marks and tools/profile_pipelines.py on the card; the pixels as M, A by
+// ldmatrix, and taking turns or two accumulator chains a warpgroup measured
+// slower).
+// The epilogue: the accumulators start from the f32 bias; each warp owns 16
+// outputs, so the tile's (sum, sumsq) of an output is a tree sum of a
+// thread's 32 pixels and two shuffles over the four lanes that share the
+// output, one row per tile; the rounded outputs are staged by stmatrix
+// (transposed to [pixel][o], swizzled as the box) into the tile's own ring
+// slot, whose products are done, and written back by one TMA store (clipped
+// at the image's edge); the slot takes its next box once the store has read
+// it. Rows never share a writer: no atomics, the same bits every call; the
+// wrapper sums the rows (B, 2, 64, T) -> (B, 2, 64), as JAX sums its grid
+// steps outside the kernel. f32 runs a SIMT kernel with f32 FMAs (mma.sync in
+// f32 would be TF32), one output pixel per thread in 8 x 32 tiles, its
+// statistics reduced by a shuffle reduce-scatter over the warp.
 //
 // Plain C ABI (loaded with ctypes): pips_conv3x3_stats returns
 // cudaGetLastError() after the launch; 0 means launched.
-// pips_conv3x3_stats_tiles gives T, the tiles per image of the partials.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -71,235 +95,281 @@ __device__ __forceinline__ float affine_relu(float v, float scale, float shift) 
   return fmaxf(__fadd_rn(__fmul_rn(v, scale), shift), 0.0f);
 }
 
-// ------------------------------------------------------------ bf16 (mma.sync)
+// ---------------------------------------------------- bf16 (wgmma, TMA ring)
 namespace tc {
-constexpr int kThreads = 128;  // 4 warps, each 32 pixels x 64 outputs
-constexpr int kWarps = kThreads / 32;
-constexpr int TH = 2;          // output tile rows
-constexpr int TW = 64;         // output tile columns
-constexpr int HR = TH + 2;     // haloed input rows: h0-1 .. h0+TH
-constexpr int HC = TW + 2;     // haloed input columns: w0-1 .. w0+TW
-constexpr int kPix = HR * HC;
-constexpr int kWRows = 9 * kC;                          // weight rows [tap][o]
-constexpr size_t kWBytes = (size_t)kWRows * kC * 2;     // 73,728
-constexpr size_t kXBytes = (size_t)kPix * kC * 2;       // 33,792
-constexpr size_t kSBytes = (size_t)kWarps * 2 * kC * 4;  // 2,048: per-warp (sum, sumsq)
-constexpr int LDP = kC + 8;  // staged output: [pixel][o] row stride (16-byte rows)
-constexpr size_t kSmem = kWBytes + kXBytes + kSBytes;   // 109,568: two blocks fit an SM
-static_assert((size_t)TH * TW * LDP * 2 <= kXBytes, "the output stage must fit the input tile");
-static_assert(kWarps * 32 == TH * TW, "each warp owns 32 output pixels");
+constexpr int TH = 4;                    // output tile rows
+constexpr int TW = 30;                   // output tile columns
+constexpr int HR = TH + 2, HC = TW + 2;  // the haloed input box: 6 x 32 pixels
+// the products' N: box rows 0 .. TH - 1 whole, as if each held HC outputs
+// (the last two of a row are no outputs); a tap shifts all of them alike
+constexpr int kN = TH * HC;              // 128
+constexpr int kWGs = 3;                  // consumer warpgroups, taking the tiles by turns
+constexpr int kSlotsWG = 2;              // ring slots of a warpgroup: this tile and the next
+constexpr int kStages = kWGs * kSlotsWG;
+constexpr int kConsumers = 128 * kWGs;
+constexpr int kPrologueThreads = 128;    // one warpgroup: the prologue, in place in the ring
+constexpr int kThreads = kConsumers + kPrologueThreads;  // 16 warps: 128 registers a thread
+constexpr uint32_t kBoxBytes = HR * HC * 128;                      // 24,576: one TMA box
+constexpr size_t kStageBytes = (kBoxBytes + 1023) / 1024 * 1024;   // 24,576
+constexpr size_t kWBytes = 9 * 64 * 128;                           // 73,728: [tap][o][c]
+constexpr size_t kOutBytes = (size_t)TH * TW * 128;                // 15,360: a tile's outputs
+constexpr size_t kJunkBytes = 128;  // where the two columns past a row's outputs are stored
+// 1024 bytes to align the tiles, the ring (a tile's outputs are staged in its
+// own slot once its products are done), the weight, the junk row, 2 * kStages
+// mbarriers
+constexpr size_t kSmem = 1024 + kStages * kStageBytes + kWBytes + kJunkBytes +
+                         2 * kStages * 8;  // 222,432: one block an SM
+static_assert(kStageBytes % 1024 == 0 && kWBytes % 1024 == 0 && kOutBytes <= kStageBytes,
+              "tiles 1024-byte aligned; a tile's outputs fit its slot");
+static_assert(kN == 128 && HC == 32, "a box row is four n8 tiles of the products");
 
+// output tiles of 4 x 30 pixels per image: the rows of partial statistics
 __host__ __device__ constexpr int tiles(int H, int W) {
   return ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
 }
 
-// element offset of 16-byte chunk j (channels 8j..8j+7) of row r of a
-// [rows][64] bf16 array whose chunks are XOR-swizzled by the row's low bits
-__device__ __forceinline__ int swz(int r, int j) { return r * kC + ((j ^ (r & 7)) << 3); }
-
-__global__ void __launch_bounds__(kThreads, 2)
-conv3x3_stats_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                   const float* __restrict__ bias, const float* __restrict__ aff,
-                   bf16* __restrict__ y, float* __restrict__ part, int B, int H, int W,
-                   int prologue) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ws = reinterpret_cast<bf16*>(smem);
-  bf16* xs = reinterpret_cast<bf16*>(smem + kWBytes);
-  bf16* os = xs;  // the output stage reuses the input tile once the MMAs are done
-  float* ss = reinterpret_cast<float*>(smem + kWBytes + kXBytes);  // [warp][2][o]
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-
-  // the weight, once per block: row tap*64 + o holds w[o, :, ky, kx]
-  for (int i = tid; i < kWRows * (kC / 8); i += kThreads) {
-    const int q = i / (kC / 8), j = i % (kC / 8);
-    const int tap = q / kC, o = q % kC;
-    bf16 v[8];
+// the prologue on one haloed box in place: relu(x * scale + shift), rounded
+// to bf16, on its in-image pixels (the zero padding stays zero). 128 threads:
+// thread t takes 16-byte chunk t % 8 (sc, sh: its eight channels' scale and
+// shift) of pixels t / 8, t / 8 + 16, ..., four loads in flight
+__device__ __forceinline__ void prologue_box(unsigned char* st, int t, const float* sc,
+                                             const float* sh, int h0, int w0, int H, int W) {
+  const int jc = t % 8;
+  const bool interior = h0 >= 1 && h0 - 1 + HR <= H && w0 >= 1 && w0 - 1 + HC <= W;
+  static_assert(HR * HC % 64 == 0, "four pixels a thread at a time");
 #pragma unroll
-    for (int k = 0; k < 8; ++k) v[k] = w[((size_t)o * kC + j * 8 + k) * 9 + tap];
-    *reinterpret_cast<uint4*>(ws + swz(q, j)) =
-        make_uint4(bits(__halves2bfloat162(v[0], v[1])), bits(__halves2bfloat162(v[2], v[3])),
-                   bits(__halves2bfloat162(v[4], v[5])), bits(__halves2bfloat162(v[6], v[7])));
+  for (int k0 = 0; k0 < HR * HC / 16; k0 += 4) {
+    uint4 v[4];
+    uint4* ptr[4];
+    bool in[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int p = t / 8 + 16 * (k0 + u);
+      const int h = h0 - 1 + p / HC, col = w0 - 1 + p % HC;
+      in[u] = interior || (h >= 0 && h < H && col >= 0 && col < W);
+      ptr[u] = reinterpret_cast<uint4*>(st + swz128(p, jc));
+      v[u] = *ptr[u];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      __nv_bfloat162* pr = reinterpret_cast<__nv_bfloat162*>(&v[u]);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 f = __bfloat1622float2(pr[k]);
+        pr[k] = __floats2bfloat162_rn(affine_relu(f.x, sc[2 * k], sh[2 * k]),
+                                      affine_relu(f.y, sc[2 * k + 1], sh[2 * k + 1]));
+      }
+      if (in[u]) *ptr[u] = v[u];
+    }
   }
+}
 
+// x_map / y_map: x and y as (64, W, H, B) bf16, boxes of (64, HC, HR, 1) and
+// (64, TW, TH, 1), 128-byte swizzled. part (B, 2, 64, tiles).
+__global__ void __launch_bounds__(kThreads, 1)
+conv3x3_stats_bf16(__grid_constant__ const CUtensorMap x_map,
+                   __grid_constant__ const CUtensorMap y_map, const bf16* __restrict__ w,
+                   const float* __restrict__ bias, const float* __restrict__ aff,
+                   float* __restrict__ part, int B, int H, int W, int prologue) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* xs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* ws = xs + kStages * kStageBytes;
+  unsigned char* junk = ws + kWBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(junk + kJunkBytes);
+  uint64_t* ready = full + kStages;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int tiles_w = (W + TW - 1) / TW;
   const int per_image = tiles(H, W);
   const int ntiles = B * per_image;
-  const size_t plane = (size_t)H * W;
-  const int wr = warp / 2, wc = (warp % 2) * 32;  // this warp's tile row and first column
+  // the block's tile i is tile blockIdx.x + i * gridDim.x; consumer
+  // warpgroup i % 3 takes it, as its tile j = i / 3, through ring slot
+  // (i % 3) * 2 + j % 2
+  auto tile_at = [&](int i, int& b, int& h0, int& w0) {
+    const int t = blockIdx.x + i * gridDim.x;
+    b = t / per_image;
+    const int ti = t % per_image;
+    h0 = ti / tiles_w * TH;
+    w0 = (ti % tiles_w) * TW;
+    return t < ntiles;
+  };
+  auto slot_of = [](int i) { return (i % kWGs) * kSlotsWG + (i / kWGs) % kSlotsWG; };
 
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int b = t / per_image, ti = t % per_image;
-    const int h0 = ti / tiles_w * TH;
-    const int w0 = (ti % tiles_w) * TW;
-    __syncthreads();  // weights stored / the previous tile's output and stats written out
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&ready[s], kPrologueThreads);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    // haloed input tile: item = (pixel, 8-channel chunk), one 16-byte load,
-    // four in flight per thread; pixels outside the image stay zero, with or
-    // without the prologue. A thread's chunk index is tid % 8 for every item
-    // (the stride is a multiple of 8), so its eight channels' scale and shift
-    // are loaded once per tile
-    const bf16* xb = x + (size_t)b * plane * kC;
-    const int jc = tid % (kC / 8);
-    float sc[8], sh[8];
-    if (prologue) {
+  if (tid >= kConsumers) {
+    // the prologue warpgroup: relu(x * scale + shift), rounded to bf16, on
+    // the in-image pixels of each box as it lands, in place, the block's
+    // tiles in order; the zero padding stays zero. A thread's 16-byte chunk
+    // is the same for every item (the stride is a multiple of 8), so its
+    // eight channels' scale and shift are loaded once a tile
+    if (!prologue) return;
+    const int ptid = tid - kConsumers, jc = ptid % 8;
+    int b, h0, w0;
+    for (int i = 0; tile_at(i, b, h0, w0); ++i) {
+      const int s = slot_of(i);
+      mbar_wait(&full[s], (i / kStages) & 1);
       const float4* a4 = reinterpret_cast<const float4*>(aff + (size_t)b * 2 * kC + jc * 8);
       const float4 a0 = a4[0], a1 = a4[1], c0 = a4[kC / 4], c1 = a4[kC / 4 + 1];
-      const float s8[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float t8[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+      const float sc[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float sh[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+      unsigned char* st = xs + s * kStageBytes;
+      prologue_box(st, ptid, sc, sh, h0, w0, H, W);
+      fence_proxy_async();  // the products and the next TMA copy read these writes
+      mbar_arrive(&ready[s]);
+    }
+    return;
+  }
+
+  // warpgroup wg takes the block's tiles wg, wg + 3, ..., so that two run
+  // products while the third finishes a tile. Its first thread copies each
+  // of its tiles' haloed boxes into its two ring slots by one TMA load (a 4D
+  // box; pixels outside the image, the SAME padding, read as zero), a tile
+  // ahead: a slot is refilled once the TMA store of the outputs staged there
+  // has read them
+  const int wg = warp / 4, wl = warp % 4, ctid = tid % 128;
+  const int gq = lane / 4, tq = lane % 4;
+  auto load = [&](int i) {
+    int b, h0, w0;
+    if (!tile_at(i, b, h0, w0)) return;
+    const int s = slot_of(i);
+    mbar_arrive_expect_tx(&full[s], kBoxBytes);
+    tma_load_4d(xs + s * kStageBytes, &x_map, 0, w0 - 1, h0 - 1, b, &full[s]);
+  };
+  if (ctid == 0)
+    for (int k = 0; k < kSlotsWG; ++k) load(wg + k * kWGs);
+  // the weight, once a block, while the first boxes land: A of the products,
+  // [tap][o][c] K-major, each tap's 64 rows of 128 bytes swizzled as TMA
+  // would write them; read from (O, C, 3, 3) by 16-byte loads (eight
+  // consecutive (c, tap) of one output o: 576 = 72 * 8)
+  for (int q = tid; q < 9 * kC * kC / 8; q += kConsumers) {
+    const uint4 u = reinterpret_cast<const uint4*>(w)[q];
+    const bf16* v = reinterpret_cast<const bf16*>(&u);
+    const int o = q / 72, e = (q % 72) * 8;
+    int c = e / 9, tap = e % 9;
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        sc[k] = s8[k];
-        sh[k] = t8[k];
+    for (int k = 0; k < 8; ++k) {
+      *reinterpret_cast<bf16*>(ws + tap * (kC * 128) + swz128(o, c / 8) + (c % 8) * 2) = v[k];
+      if (++tap == 9) {
+        tap = 0;
+        ++c;
       }
     }
-    constexpr int kChunks = kPix * (kC / 8);
-    constexpr int kBatch = 4;
-#pragma unroll 1
-    for (int i0 = tid; i0 < kChunks; i0 += kBatch * kThreads) {
-      uint4 v[kBatch];
-      bool inside[kBatch];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int p = (i0 + u * kThreads) / (kC / 8);
-        const int h = h0 - 1 + p / HC, col = w0 - 1 + p % HC;
-        inside[u] = p < kPix && h >= 0 && h < H && col >= 0 && col < W;
-        v[u] = make_uint4(0u, 0u, 0u, 0u);
-        if (inside[u])
-          v[u] = *reinterpret_cast<const uint4*>(xb + ((size_t)h * W + col) * kC + jc * 8);
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int p = (i0 + u * kThreads) / (kC / 8);
-        if (p >= kPix) continue;
-        if (prologue && inside[u]) {
-          __nv_bfloat162* pr = reinterpret_cast<__nv_bfloat162*>(&v[u]);
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const float2 f = __bfloat1622float2(pr[k]);
-            pr[k] = __floats2bfloat162_rn(affine_relu(f.x, sc[2 * k], sh[2 * k]),
-                                          affine_relu(f.y, sc[2 * k + 1], sh[2 * k + 1]));
-          }
-        }
-        *reinterpret_cast<uint4*>(xs + swz(p, jc)) = v[u];
-      }
-    }
-    __syncthreads();
+  }
+  fence_proxy_async();  // the products read the weight through the async proxy
+  named_sync(1, kConsumers);
+  // this thread's outputs o1 = 16 wl + gq and o1 + 8 (accumulator rows)
+  const int o1 = 16 * wl + gq;
+  const float bias1 = bias[o1], bias2 = bias[o1 + 8];
 
-    float acc[2][8][4];
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.0f;
+  int b, h0, w0;
+  for (int i = wg; tile_at(i, b, h0, w0); i += kWGs) {
+    const int s = slot_of(i);
+    mbar_wait(prologue ? &ready[s] : &full[s], (i / kStages) & 1);
+    const int ti = (blockIdx.x + i * gridDim.x) % per_image;
+    unsigned char* st = xs + s * kStageBytes;
 
+    // y^T (64 outputs x 128 box pixels) = W^T X: per (tap, 16 channels) one
+    // wgmma m64n128k16, all 36 issued at once. A: the weight's rows of the
+    // tap; B: the box's pixel rows shifted by the tap, straight from the
+    // swizzled box (the swizzle follows the shared-memory address, so a
+    // descriptor may start at any row)
+    float acc[64];  // from the f32 bias: accumulator 4 n + 2 hi + e is output o1 + 8 hi
+#pragma unroll
+    for (int j = 0; j < 64; ++j) acc[j] = j & 2 ? bias2 : bias1;
+    wgmma_fence();
 #pragma unroll 1
     for (int tap = 0; tap < 9; ++tap) {
       const int ky = tap / 3, kx = tap % 3;
 #pragma unroll
-      for (int kc = 0; kc < kC / 16; ++kc) {
-        uint32_t bfr[8][2];
+      for (int kc = 0; kc < kC / 16; ++kc)
+        wgmma_m64n128k16<0, 0>(acc, gmma_desc(ws + tap * (kC * 128) + kc * 32, 16, 1024, 128),
+                               gmma_desc(st + (ky * HC + kx) * 128 + kc * 32, 16, 1024, 128));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+
+    // epilogue: every warp's products from this box are done, so its slot
+    // takes the outputs
+    named_sync(2 + wg, 128);
+    // accumulator 4 n + 2 hi + e: output o1 + 8 hi, box pixel q = 8 n + 2 tq
+    // + e (row n / 4, column 8 (n % 4) + 2 tq + e: an output where the
+    // column is below TW and the pixel in the image; bit 2 n + e of `valid`).
+    // Statistics: this thread's values summed as a tree (pairs, the two
+    // n8 tiles of a step, the row's two steps, the rows), then over the four
+    // lanes that share gq (xor 1, 2): each warp owns its 16 outputs, so lane
+    // tq = 0 writes the tile's (sum, sumsq) of its two. Outputs: the values
+    // rounded once, staged [pixel][o] swizzled as the store's box by
+    // stmatrix (transposed: a row of the store is a pixel's 8 outputs); the
+    // two columns past a row's outputs go to a junk row
+    uint32_t cols = 0u, valid = 0u;  // a row's 8 bits (8 j + 2 tq + e < TW, in the image)
 #pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          const int o = np * 16 + (lane % 8) + (lane / 16) * 8;
-          ldmatrix_x4(bfr[2 * np][0], bfr[2 * np][1], bfr[2 * np + 1][0], bfr[2 * np + 1][1],
-                      ws + swz(tap * kC + o, kc * 2 + (lane / 8) % 2));
-        }
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * (j / 2) + 2 * tq + j % 2;
+      cols |= (c < TW && w0 + c < W ? 1u : 0u) << j;
+    }
 #pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          uint32_t a[4];
-          const int p = (wr + ky) * HC + wc + m * 16 + (lane % 16) + kx;
-          ldmatrix_x4(a[0], a[1], a[2], a[3], xs + swz(p, kc * 2 + lane / 16));
+    for (int row = 0; row < TH; ++row) valid |= h0 + row < H ? cols << (8 * row) : 0u;
+    float rs[TH][2][2], ps[2][2];  // [row][output o1 + 8 hi][sum, sumsq]; this step's
 #pragma unroll
-          for (int n = 0; n < 8; ++n) mma_bf16(acc[m][n], a, bfr[n][0], bfr[n][1]);
-        }
+    for (int n2 = 0; n2 < kN / 16; ++n2) {
+      uint32_t r[4];  // matrices (n, hi): (2 n2, 0), (2 n2, 1), (2 n2 + 1, 0), (2 n2 + 1, 1)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int n = 2 * n2 + k / 2, hi = k % 2;
+        const float v0 = acc[4 * n + 2 * hi], v1 = acc[4 * n + 2 * hi + 1];
+        const float m0 = valid >> (2 * n) & 1u ? v0 : 0.0f;
+        const float m1 = valid >> (2 * n + 1) & 1u ? v1 : 0.0f;
+        const float ds = m0 + m1, dq = fmaf(m1, m1, m0 * m0);
+        ps[hi][0] = k < 2 ? ds : ps[hi][0] + ds;
+        ps[hi][1] = k < 2 ? dq : ps[hi][1] + dq;
+        r[k] = bits(__floats2bfloat162_rn(v0, v1));
       }
-    }
-
-    // accumulator (m, n): rows = pixels lane/4 and lane/4 + 8 of the warp's
-    // 16-pixel group m, columns = outputs n*8 + 2*(lane%4) and + 1. Add the
-    // f32 bias; sum this thread's in-image pixels for its 16 columns
-    const bool row_in = h0 + wr < H;
-    const int col0 = w0 + wc + lane / 4;
-    bool in[2][2];
 #pragma unroll
-    for (int m = 0; m < 2; ++m) {
-      in[m][0] = row_in && col0 + m * 16 < W;
-      in[m][1] = row_in && col0 + m * 16 + 8 < W;
-    }
-    float s[8][2], q[8][2];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int o = n * 8 + (lane % 4) * 2;
-      const float bo[2] = {bias[o], bias[o + 1]};
-#pragma unroll
-      for (int k = 0; k < 2; ++k) s[n][k] = q[n][k] = 0.0f;
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float v = acc[m][n][e] + bo[e % 2];
-          acc[m][n][e] = v;
-          if (in[m][e / 2]) {
-            s[n][e % 2] += v;
-            q[n][e % 2] += v * v;
-          }
-        }
-    }
-    // over the eight lanes that share lane%4 (xor 4, 8, 16)
-#pragma unroll
-    for (int off = 4; off < 32; off *= 2)
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          s[n][k] += __shfl_xor_sync(0xffffffffu, s[n][k], off);
-          q[n][k] += __shfl_xor_sync(0xffffffffu, q[n][k], off);
-        }
-    if (lane < 4) {
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          const int o = n * 8 + lane * 2 + k;
-          ss[(warp * 2 + 0) * kC + o] = s[n][k];
-          ss[(warp * 2 + 1) * kC + o] = q[n][k];
-        }
-    }
-    __syncthreads();  // every warp is done with the input tile; its stats are in ss
-
-    // stage [pixel][o], one rounding of the biased f32 value
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int o = n * 8 + (lane % 4) * 2;
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        const int px = wr * TW + wc + m * 16 + lane / 4;
-        *reinterpret_cast<__nv_bfloat162*>(os + px * LDP + o) =
-            __floats2bfloat162_rn(acc[m][n][0], acc[m][n][1]);
-        *reinterpret_cast<__nv_bfloat162*>(os + (px + 8) * LDP + o) =
-            __floats2bfloat162_rn(acc[m][n][2], acc[m][n][3]);
+      for (int k = 0; k < 4; ++k) {
+        float& row = rs[n2 / 2][k / 2][k % 2];
+        row = n2 % 2 ? row + ps[k / 2][k % 2] : ps[k / 2][k % 2];
       }
+      // lane 8 k + j: row j of matrix k, pixel 8 n + j, outputs 16 wl + 8 hi ..
+      const int k = lane / 8, n = 2 * n2 + k / 2, c = 8 * (n % 4) + lane % 8;
+      unsigned char* dst = c < TW ? st + swz128((n / 4) * TW + c, 2 * wl + k % 2) : junk;
+      stmatrix_x4_trans(dst, r[0], r[1], r[2], r[3]);
     }
-    // this tile's (sum, sumsq): the warps added in a fixed order
-    if (tid < 2 * kC) {
-      float v = 0.0f;
+    float sq[2][2];  // [output o1 + 8 hi][sum, sumsq]
 #pragma unroll
-      for (int k = 0; k < kWarps; ++k) v += ss[(k * 2 + tid / kC) * kC + tid % kC];
-      part[((size_t)b * per_image + ti) * 2 * kC + tid] = v;
+    for (int k = 0; k < 4; ++k) {
+      const int hi = k / 2, j = k % 2;
+      sq[hi][j] = (rs[0][hi][j] + rs[1][hi][j]) + (rs[2][hi][j] + rs[3][hi][j]);
     }
-    __syncthreads();
-
-    bf16* yb = y + (size_t)b * plane * kC;
-    for (int i = tid; i < TH * TW * (kC / 8); i += kThreads) {
-      const int px = i / (kC / 8), j = i % (kC / 8);
-      const int h = h0 + px / TW, col = w0 + px % TW;
-      if (h < H && col < W)
-        *reinterpret_cast<uint4*>(yb + ((size_t)h * W + col) * kC + j * 8) =
-            *reinterpret_cast<const uint4*>(os + px * LDP + j * 8);
+#pragma unroll
+    for (int off = 1; off < 4; off *= 2)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        sq[k / 2][k % 2] += __shfl_xor_sync(0xffffffffu, sq[k / 2][k % 2], off);
+    if (tq == 0) {
+      float* pt = part + ((size_t)b * 2 * kC + o1) * per_image + ti;
+      pt[0] = sq[0][0];
+      pt[8 * per_image] = sq[1][0];
+      pt[kC * per_image] = sq[0][1];
+      pt[(kC + 8) * per_image] = sq[1][1];
+    }
+    fence_proxy_async();  // the staged outputs are the TMA store's to read
+    named_sync(2 + wg, 128);
+    if (ctid == 0) {  // the store, then the slot's next box once the store has read it
+      tma_store_4d(&y_map, st, 0, w0, h0, b);
+      bulk_commit();
+      bulk_wait_read<0>();
+      load(i + kWGs * kSlotsWG);
     }
   }
+  if (ctid == 0) bulk_wait<0>();  // the last stores are complete before the block ends
 }
 }  // namespace tc
 
@@ -423,7 +493,7 @@ conv3x3_stats_f32(const float* __restrict__ x, const float* __restrict__ w,
     float v = 0.0f;
 #pragma unroll
     for (int k = 0; k < kWarps; ++k) v += ss[(k * 2 + threadIdx.x / kC) * kC + threadIdx.x % kC];
-    part[((size_t)b * per_image + ti) * 2 * kC + threadIdx.x] = v;
+    part[((size_t)b * 2 * kC + threadIdx.x) * per_image + ti] = v;
   }
 }
 }  // namespace simt
@@ -432,21 +502,19 @@ conv3x3_stats_f32(const float* __restrict__ x, const float* __restrict__ w,
 
 extern "C" {
 
-// Tiles per image T of the partial statistics (B, T, 2, 64) for this dtype.
-int pips_conv3x3_stats_tiles(int H, int W, int dtype_code) {
-  return dtype_code == 1 ? tc::tiles(H, W) : simt::tiles(H, W);
-}
-
 // Shapes the kernel takes: x and y (B, 64, H, W), both contiguous NHWC in
 // memory, i.e. torch.channels_last; w (64, 64, 3, 3) contiguous in x's dtype;
 // bias (64,) and aff (B, 2, 64) [scale; shift] float32 (aff read only with
-// prologue != 0); part (B, T, 2, 64) float32 with T from
-// pips_conv3x3_stats_tiles; pointers 16-byte aligned.
+// prologue != 0); part (B, 2, 64, T) float32, T the rows of partial
+// statistics per image, one per output tile: for bf16 ceil(H / 4) *
+// ceil(W / 30), for float32 ceil(H / 8) * ceil(W / 32); a T that differs is
+// refused. Pointers 16-byte aligned.
 // dtype_code 0 = float32, 1 = bfloat16 (x, w, y).
 int pips_conv3x3_stats(const void* x, const void* w, const void* bias, const void* aff, void* y,
-                       void* part, int B, int H, int W, int prologue, int dtype_code, int device,
-                       void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || (dtype_code != 0 && dtype_code != 1))
+                       void* part, int B, int H, int W, int T, int prologue, int dtype_code,
+                       int device, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || (dtype_code != 0 && dtype_code != 1) ||
+      T != (dtype_code == 1 ? tc::tiles(H, W) : simt::tiles(H, W)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -455,6 +523,16 @@ int pips_conv3x3_stats(const void* x, const void* w, const void* bias, const voi
   const float* af = static_cast<const float*>(aff);
   float* pt = static_cast<float*>(part);
   if (dtype_code == 1) {
+    // x and y as (64, W, H, B): 128-byte pixels, rows of W pixels, images
+    const uint64_t dims[4] = {(uint64_t)kC, (uint64_t)W, (uint64_t)H, (uint64_t)B};
+    const uint64_t strides[3] = {kC * 2, (uint64_t)W * kC * 2, (uint64_t)H * W * kC * 2};
+    const uint32_t in_box[4] = {kC, tc::HC, tc::HR, 1};
+    const uint32_t out_box[4] = {kC, tc::TW, tc::TH, 1};
+    CUtensorMap x_map, y_map;
+    err = make_map_bf16(&x_map, x, 4, dims, strides, in_box);
+    if (err != cudaSuccess) return (int)err;
+    err = make_map_bf16(&y_map, y, 4, dims, strides, out_box);
+    if (err != cudaSuccess) return (int)err;
     err = set_smem(tc::conv3x3_stats_bf16, tc::kSmem);
     if (err != cudaSuccess) return (int)err;
     int sms = 0, per_sm = 0;
@@ -467,8 +545,7 @@ int pips_conv3x3_stats(const void* x, const void* w, const void* bias, const voi
     const long resident = (long)(per_sm > 0 ? per_sm : 1) * sms;
     const dim3 grid((unsigned)(ntiles < resident ? ntiles : resident));
     tc::conv3x3_stats_bf16<<<grid, tc::kThreads, tc::kSmem, s>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(w), bb, af, static_cast<bf16*>(y),
-        pt, B, H, W, prologue);
+        x_map, y_map, static_cast<const bf16*>(w), bb, af, pt, B, H, W, prologue);
   } else {
     err = set_smem(simt::conv3x3_stats_f32, simt::kSmem);
     if (err != cudaSuccess) return (int)err;

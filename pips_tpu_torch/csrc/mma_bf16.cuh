@@ -1,9 +1,11 @@
 // bf16 tensor-core helpers shared by the conv kernels (conv3x3_fwd.cu,
-// conv3x3_stats.cu), stem_wgrad.cu and mixer_probes.cu: ldmatrix fragments
-// from shared memory (the .trans form reads a B operand stored k-major, n
-// contiguous) and the mma.sync m16n8k16 product with f32 accumulators (sm_80
-// and later); and wgmma, the warpgroup's asynchronous product, its operands
-// from shared-memory descriptors or A from registers (sm_90a).
+// conv3x3_stats.cu), stem_wgrad.cu, mixer_probes.cu and row_contract.cu:
+// ldmatrix fragments from shared memory (the .trans form reads an operand
+// stored with the other dimension contiguous), stmatrix of accumulator
+// fragments back (transposed) and the mma.sync m16n8k16
+// product with f32 accumulators (sm_80 and later); and wgmma, the
+// warpgroup's asynchronous product, its operands from shared-memory
+// descriptors or A from registers (sm_90a).
 
 #pragma once
 
@@ -33,6 +35,18 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1, ui
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
                : "r"(a));
+}
+
+// four 8x8 b16 matrices from the registers (r_k: this lane's two values of
+// row lane / 4 of matrix k, as an mma accumulator fragment holds them) into
+// shared memory transposed: lane 8 k + i gives the address of row i of
+// matrix k, which receives column i of the fragment's matrix
+__device__ __forceinline__ void stmatrix_x4_trans(void* p, uint32_t r0, uint32_t r1, uint32_t r2,
+                                                  uint32_t r3) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(a),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
 }
 
 // d += a (16x16, row-major) * b (16x8, column-major), bf16 in, f32 accumulate
@@ -98,6 +112,39 @@ __device__ __forceinline__ void wgmma_m64n64k16(float* d, uint64_t desc_a, uint6
         "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TA), "n"(TB)
+      : "memory");
+}
+
+// d (64 x 128 f32: 64 values a thread, laid out as above, n8 tile after n8
+// tile) += A (64 x 16) B (16 x 128), both from shared memory; TA, TB as for
+// wgmma_m64n64k16
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "%64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TA), "n"(TB)
       : "memory");
 }

@@ -45,9 +45,20 @@ KERNEL_C = 64  # the kernel takes exactly 64 input and 64 output channels
 EPS = 1e-5
 
 launches = 0  # conv_pass kernel launches so far; read (and reset) by chip_smoke.py
-_fns = None
+_fn = None
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels' output tiles (rows, columns), each writing one row of partial
+# statistics: bf16 4 x 30, f32 8 x 32; the CUDA entry refuses any other count
+_TILES = {torch.bfloat16: (4, 30), torch.float32: (8, 32)}
+
+
+def stats_tiles(H: int, W: int, dtype: torch.dtype) -> int:
+    """T, the rows of partial statistics per image that the CUDA kernel writes
+    for an H x W input of ``dtype`` (its output (B, 2, 64, T) is summed over
+    T by the wrapper)."""
+    th, tw = _TILES[dtype]
+    return -(-H // th) * -(-W // tw)
 
 
 def conv_pass_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, aff: torch.Tensor,
@@ -70,17 +81,13 @@ def conv_pass_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, aff: 
 
 
 def _kernel():
-    global _fns
-    if _fns is None:
-        lib = _build.load("conv3x3_stats")
-        fn = lib.pips_conv3x3_stats
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    global _fn
+    if _fn is None:
+        fn = _build.load("conv3x3_stats").pips_conv3x3_stats
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        tiles = lib.pips_conv3x3_stats_tiles
-        tiles.argtypes = [ctypes.c_int] * 3
-        tiles.restype = ctypes.c_int
-        _fns = fn, tiles
-    return _fns
+        _fn = fn
+    return _fn
 
 
 def conv_pass(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, aff: torch.Tensor,
@@ -110,23 +117,21 @@ def conv_pass(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, aff: torch.Tens
                          f"got strides {x.stride()} for shape {tuple(x.shape)}")
     if B * H * W == 0:
         raise ValueError(f"empty input {tuple(x.shape)}")
-    fn, tiles = _kernel()
-    dtype = _DTYPE_CODE[x.dtype]
-    T = tiles(H, W, dtype)
+    T = stats_tiles(H, W, x.dtype)
     w = w.to(x.dtype).contiguous()
     b = b.float().contiguous()
     aff = aff.float().contiguous()
     y = torch.empty(B, C, H, W, dtype=x.dtype, device=x.device, memory_format=torch.channels_last)
-    part = torch.empty(B, T, 2, C, dtype=torch.float32, device=x.device)
+    part = torch.empty(B, 2, C, T, dtype=torch.float32, device=x.device)
     if any(t.data_ptr() % 16 for t in (x, w, b, aff, y, part)):
         raise ValueError("conv_pass's CUDA kernel needs 16-byte aligned tensors")
-    err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), aff.data_ptr(), y.data_ptr(),
-             part.data_ptr(), B, H, W, int(prologue), dtype, x.device.index,
-             torch.cuda.current_stream(x.device).cuda_stream)
+    err = _kernel()(x.data_ptr(), w.data_ptr(), b.data_ptr(), aff.data_ptr(), y.data_ptr(),
+                    part.data_ptr(), B, H, W, T, int(prologue), _DTYPE_CODE[x.dtype],
+                    x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"conv3x3_stats kernel launch failed: CUDA error {err}")
     launches += 1
-    return y, part.sum(dim=1)  # the tiles' partials summed outside the kernel, as JAX does
+    return y, part.sum(dim=-1)  # the tiles' partials summed outside the kernel, as JAX does
 
 
 def _mean_rsig(st: torch.Tensor, n: int, eps: float = EPS):

@@ -11,24 +11,70 @@ concatenated along lanes against b[:, 0] -> (168, 64) (C, :110).
 (G, R, CB) bf16 views of any strides whose lanes are contiguous (a batch
 stride of 0 repeats b), so the four probes are one kernel,
 ``pips_tpu_torch/csrc/row_contract.cu`` (whose header says what bounds it):
-A, A2 and B are one memory layout on the card, C a strided batch.
-``row_contract_reference`` is its plain version, in f32. A CPU tensor runs
-the plain version; a CUDA tensor launches the kernel or raises.
+A, A2 and B are one memory layout on the card, C a strided batch. Each call
+is one launch; ``launch_plan`` chooses its path, its blocks and its scratch
+on the host. ``row_contract_reference`` is its plain version, in f32. A CPU
+tensor runs the plain version; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
+from typing import Optional
 
 import torch
 
 from pips_tpu_torch.kernels import _build
 
-ROWS_PER_SPLIT = 64  # rows one block sums before the partials are added in order
+MAX_SPLITS = 8  # blocks a batch's rows are cut over: one portable thread-block cluster
+MIN_ROWS = 64  # rows a block takes at least before the rows are cut over another
+FAST_ROWS = 1024  # rows a fast-path block stages in shared memory at most
+BOX_ROWS = 256  # rows of b in one TMA box at most
+FAST_CB = 64  # b's lanes on the fast path: 128-byte rows, one swizzled TMA box wide
+FAST_CA = 8  # a's lanes at most on the fast path: one n8 tile
+GRID_Y = 65535  # batches along the grid's y; the rest along z
 
 launches: collections.Counter = collections.Counter()  # per probe name; read by chip_smoke.py
 _fn = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch: the path (``fast``: rows staged by TMA and asynchronous
+    copies, products on mma.sync; else the SIMT walk), ``splits`` blocks of
+    ``rows_per_block`` rows per batch (a thread-block cluster), the grid, and
+    the general path's f32 scratch for the cluster's partial sums (None when
+    it needs none)."""
+    fast: bool
+    splits: int
+    rows_per_block: int
+    grid: tuple[int, int, int]
+    scratch: Optional[tuple[int, int, int, int]]
+
+
+def launch_plan(G: int, R: int, CA: int, CB: int, a_strides: tuple[int, int],
+                b_strides: tuple[int, int], a_align: int = 16, b_align: int = 16) -> Plan:
+    """The kernel's launch for a (G, R, CA) and b (G, R, CB) with batch and
+    row strides ``a_strides`` and ``b_strides`` (elements) and data pointers
+    aligned to ``a_align`` and ``b_align`` bytes. The fast path takes even CA
+    up to 8, CB of 64, a's rows in 4-byte pieces, b's rows as one TMA map (a
+    row stride of whole 16 bytes, a batch stride of whole rows) and at most
+    ``MAX_SPLITS * FAST_ROWS`` rows; any other shape goes to the general
+    path, on the card all the same."""
+    (a_bs, a_rs), (b_bs, b_rs) = a_strides, b_strides
+    fast = (CA <= FAST_CA and CA % 2 == 0 and CB == FAST_CB and a_align % 4 == 0
+            and a_bs % 2 == 0 and a_rs % 2 == 0 and b_align % 16 == 0 and b_rs > 0
+            and b_rs % 8 == 0 and b_bs % b_rs == 0 and R <= MAX_SPLITS * FAST_ROWS)
+    splits = min(MAX_SPLITS, -(-R // MIN_ROWS))
+    rows = -(-R // splits)
+    if fast:  # whole k-steps of the product, whole TMA boxes
+        step = 16 if rows <= BOX_ROWS else BOX_ROWS
+        rows = -(-rows // step) * step
+    splits = -(-R // rows)  # every block holds at least one row
+    scratch = (splits, G, CA, CB) if splits > 1 and not fast else None
+    return Plan(fast, splits, rows, (splits, min(G, GRID_Y), -(-G // GRID_Y)), scratch)
 
 
 def row_contract_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -41,10 +87,16 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load("row_contract").pips_row_contract
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def _alignment(t: torch.Tensor) -> int:
+    """The largest power of two, up to 16, that divides t's data address."""
+    addr = t.data_ptr()
+    return 16 if addr % 16 == 0 else addr & -addr
 
 
 def row_contract(a: torch.Tensor, b: torch.Tensor, probe: str = "") -> torch.Tensor:
@@ -72,14 +124,15 @@ def row_contract(a: torch.Tensor, b: torch.Tensor, probe: str = "") -> torch.Ten
     out = torch.empty(G, CA, CB, dtype=torch.float32, device=a.device)
     if out.numel() == 0 or R == 0:
         return out.zero_()
-    splits = -(-R // ROWS_PER_SPLIT)
-    part = torch.empty(splits, G, CA, CB, dtype=torch.float32, device=a.device) if splits > 1 \
-        else None
+    plan = launch_plan(G, R, CA, CB, (a.stride(0), a.stride(1)), (b.stride(0), b.stride(1)),
+                       _alignment(a), _alignment(b))
+    part = None if plan.scratch is None else torch.empty(plan.scratch, dtype=torch.float32,
+                                                         device=a.device)
     dev = a.device
     err = _kernel()(a.data_ptr(), b.data_ptr(), out.data_ptr(),
                     None if part is None else part.data_ptr(), G, R, CA, CB, a.stride(0),
-                    a.stride(1), b.stride(0), b.stride(1), splits, dev.index,
-                    torch.cuda.current_stream(dev).cuda_stream)
+                    a.stride(1), b.stride(0), b.stride(1), int(plan.fast), plan.splits,
+                    plan.rows_per_block, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"row_contract kernel launch failed: CUDA error {err}")
     launches[probe] += 1

@@ -1,12 +1,13 @@
-"""Where the time of the two pipelined tensor-core kernels goes, on the card.
+"""Where the time of the pipelined kernels goes, on the card.
 
-The bf16 ``stem_wgrad`` kernel (``csrc/stem_wgrad.cu``) and ``stream_accum``
-(``csrc/mixer_probes.cu``) each overlap a ring of asynchronous copies with
-wgmma products. No kernel profiler runs on the machine with the card, so this
-tool builds variants of each source with one phase taken out and times them
-beside the kernel, at the smoke's shapes: what a phase costs is the time it
-adds. A variant's output is wrong by construction; only the kernel's is held
-to its plain version.
+The bf16 ``stem_wgrad`` kernel (``csrc/stem_wgrad.cu``), ``stream_accum``
+(``csrc/mixer_probes.cu``), the bf16 ``conv_pass`` (``csrc/conv3x3_stats.cu``)
+and ``row_contract`` (``csrc/row_contract.cu``) each overlap asynchronous
+copies with tensor-core products. No kernel profiler runs on the machine with
+the card, so this tool builds variants of each source with one phase taken
+out and times them beside the kernel, at the smoke's shapes: what a phase
+costs is the time it adds. A variant's output is wrong by construction; only
+the kernel's is held to its plain version.
 
     python3 -m pips_tpu_torch.tools.profile_pipelines
 
@@ -16,25 +17,33 @@ products" (the warpgroup skips its wgmma); "dy only" (both); "no segments"
 (no block gets a segment: the launch, the partial sums and the second
 launch). Of ``stream_accum`` (``tools/debug_mixer_kernel.py``'s x (128, 4096)
 and w1 (12, 512, 2048)): "kernel"; "no products"; "no copies" (the producer
-only arrives, so the products read stale tiles). Times: CUDA events around
-``reps`` calls queued behind a sleep kernel (so the host's cost per call
-hides), the median of ``rounds``. Prints one JSON line with the card's name
-and power limit; needs CUDA.
+only arrives, so the products read stale tiles). Of ``conv_pass`` (8x64x192x256
+bf16, the prologue on; the kernel also with it off): "kernel"; "no input
+copies" (the loads only arrive); "no products" (no wgmma); "no epilogue"
+(no statistics, staging or stores). Of ``row_contract`` (probes A and C
+of ``tools/probe_mosaic_ops.py``): "kernel"; "no copies" (no row is staged);
+"no products" (no mma); "no cross-block sum" (each block writes its own
+partial sums over the output); and "general path", the unmodified source's
+SIMT branch on the same shapes (its products are FMAs walking the rows).
+Times: CUDA events around ``reps`` calls queued behind a sleep kernel (so the
+host's cost per call hides), the median of ``rounds``. Prints one JSON line
+with the card's name and power limit; needs CUDA.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import subprocess
 
 import numpy as np
 import torch
 
-from pips_tpu_torch.kernels import _build
+from pips_tpu_torch.kernels import _build, block_cuda, row_contract_cuda
 from pips_tpu_torch.kernels.mixer_probes_cuda import stream_accum_reference
 from pips_tpu_torch.kernels.stem_wgrad_cuda import stem_wgrad_reference
-from pips_tpu_torch.tools import debug_mixer_kernel
+from pips_tpu_torch.tools import debug_mixer_kernel, probe_mosaic_ops
 
 ROUNDS, REPS = 7, 20
 STEM_X = ("for (int r = 0; r < KY; ++r) {\n        const uint32_t* src",
@@ -49,10 +58,28 @@ SA_COPY = [("        mbar_arrive_expect_tx(&full[s], kWTile + (i == 0 ? kXBytes 
             "        for (int h = 0; i < 0 && h < kBK / 64; ++h)"),
            ("        tma_load_2d(ws + s * kWTile,",
             "        if (i < 0) tma_load_2d(ws + s * kWTile,")]
+CONV_COPY = [("    mbar_arrive_expect_tx(&full[s], kBoxBytes);", "    mbar_arrive(&full[s]);"),
+             ("    tma_load_4d(xs + s * kStageBytes,", "    if (i < 0) tma_load_4d(xs + s * kStageBytes,")]
+CONV_MMA = ("        wgmma_m64n128k16<0, 0>(acc,", "        if (tap < 0) wgmma_m64n128k16<0, 0>(acc,")
+# (the accumulators stay live: ptxas drops products whose results go unread)
+CONV_EPI = ("    wgmma_wait<0>();\n",
+            "    wgmma_wait<0>();\n    named_sync(2 + wg, 128);\n"
+            "    if (ctid == 0) load(i + kWGs * kSlotsWG);\n"
+            "    if (h0 < 0) part[tid] = acc[0] + acc[17] + acc[38] + acc[63];\n    continue;\n")
+RC_COPY = ("  stage_rows(bs, as, &b_map, g * b_gstep + i0, rows_per, ag, n, CA, a_rs, bar);",
+           "  if (tid == 0) mbar_arrive(bar);")
+RC_MMA = ("  for (int ks = kg; kg < KG && ks < kp / 16; ks += 2 * KG) {",
+          "  for (int ks = kg; kg < KG && ks < 0; ks += 2 * KG) {")
+RC_SUM = ("  const int splits = gridDim.x, split = blockIdx.x;\n  const int tid",
+          "  const int splits = 1, split = blockIdx.x;\n  const int tid")
 VARIANTS = {
     "stem_wgrad": {"kernel": [], "no x copies": [STEM_X], "no products": [STEM_MMA],
                    "dy only": [STEM_X, STEM_MMA], "no segments": [STEM_NONE]},
     "mixer_probes": {"kernel": [], "no products": [SA_MMA], "no copies": SA_COPY},
+    "conv3x3_stats": {"kernel": [], "no input copies": CONV_COPY, "no products": [CONV_MMA],
+                      "no epilogue": [CONV_EPI]},
+    "row_contract": {"kernel": [], "no copies": [RC_COPY], "no products": [RC_MMA],
+                     "no cross-block sum": [RC_SUM]},
 }
 
 
@@ -159,6 +186,78 @@ def stream_variants(libs: dict) -> dict:
     return out
 
 
+def conv_variants(libs: dict, B: int = 8, H: int = 192, W: int = 256) -> dict:
+    rng = np.random.RandomState(B + H)
+    x = torch.from_numpy(rng.randn(B, H, W, 64).astype(np.float32)).cuda().bfloat16()
+    x = x.permute(0, 3, 1, 2)
+    w = torch.from_numpy((rng.randn(64, 64, 3, 3) * 0.06).astype(np.float32)).cuda()
+    b = torch.from_numpy((0.1 * rng.randn(64)).astype(np.float32)).cuda()
+    aff = torch.from_numpy(np.stack([0.5 + rng.rand(B, 64), 0.3 * rng.randn(B, 64)],
+                                    axis=1).astype(np.float32)).cuda()
+    wk = w.bfloat16().contiguous()
+    T = block_cuda.stats_tiles(H, W, torch.bfloat16)
+    y = torch.empty_like(x)
+    part = torch.empty(B, 2, 64, T, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for name in VARIANTS["conv3x3_stats"]:
+        fn = libs[("conv3x3_stats", name)].pips_conv3x3_stats
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        for prologue in ((1, 0) if name == "kernel" else (1,)):
+            def call(fn=fn, prologue=prologue):
+                checked(fn(x.data_ptr(), wk.data_ptr(), b.data_ptr(), aff.data_ptr(),
+                           y.data_ptr(), part.data_ptr(), B, H, W, T, prologue, 1,
+                           x.device.index, stream), f"conv_pass {name}")
+
+            out[name if prologue else "kernel, prologue off"] = device_ms(call)
+            if name == "kernel" and prologue:
+                y_ref, st_ref = block_cuda.conv_pass_reference(x, w, b, aff, True)
+                out["kernel max_abs_err"] = (y.float() - y_ref.float()).abs().max().item()
+                out["kernel stats max_rel_err"] = ((part.sum(-1) - st_ref).abs()
+                                                   / st_ref.abs().clamp_min(1e-30)).max().item()
+    return out
+
+
+def contract_variants(libs: dict) -> dict:
+    a0, b0 = probe_mosaic_ops.inputs("cuda")
+    TH, Wo, C, O, T = (probe_mosaic_ops.TH, probe_mosaic_ops.Wo, probe_mosaic_ops.C,
+                       probe_mosaic_ops.O, probe_mosaic_ops.TILES)
+    shapes = {"A": (a0.reshape(1, TH * Wo, C), b0.reshape(1, TH * Wo, O)),
+              "C": (a0[:, :T].transpose(0, 1), b0[:, 0][None].expand(T, TH, O))}
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for probe, (a, b) in shapes.items():
+        G, R, CA = a.shape
+        CB = b.shape[2]
+        strides = (a.stride(0), a.stride(1)), (b.stride(0), b.stride(1))
+        o = torch.empty(G, CA, CB, device="cuda")
+        plans = {name: row_contract_cuda.launch_plan(G, R, CA, CB, *strides)
+                 for name in VARIANTS["row_contract"]}
+        plans["general path"] = row_contract_cuda.launch_plan(G, R, CA, CB, *strides, a_align=2)
+        res = {}
+        for name, plan in plans.items():
+            fn = libs[("row_contract", "kernel" if name == "general path" else name)]
+            fn = fn.pips_row_contract
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+            part = (None if plan.scratch is None
+                    else torch.empty(plan.scratch, device="cuda"))
+
+            def call(fn=fn, plan=plan, part=part):
+                checked(fn(a.data_ptr(), b.data_ptr(), o.data_ptr(),
+                           None if part is None else part.data_ptr(), G, R, CA, CB,
+                           *strides[0], *strides[1], int(plan.fast), plan.splits,
+                           plan.rows_per_block, a.device.index, stream),
+                        f"row_contract {probe} {name}")
+
+            res[name] = device_ms(call)
+            if name in ("kernel", "general path"):
+                res[f"{name} max_abs_err"] = (
+                    o - row_contract_cuda.row_contract_reference(a, b)).abs().max().item()
+        res["plan"] = dataclasses.asdict(plans["kernel"])
+        out[probe] = res
+    return out
+
+
 def main() -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: profile_pipelines times kernels on the card")
@@ -168,7 +267,8 @@ def main() -> dict:
                          capture_output=True, text=True).stdout.strip().splitlines()
     res = {"device": torch.cuda.get_device_name(0), "nvidia-smi": smi[0] if smi else None,
            "stem_wgrad B=8": stem_variants(libs, 8), "stem_wgrad B=1": stem_variants(libs, 1),
-           "stream_accum": stream_variants(libs)}
+           "stream_accum": stream_variants(libs), "conv_pass": conv_variants(libs),
+           "row_contract": contract_variants(libs)}
     print(json.dumps(res), flush=True)
     return res
 

@@ -195,6 +195,50 @@ def test_conv_pass_reference_matches_jax(prologue):
         assert np.abs(leaky.permute(0, 2, 3, 1).numpy()[:, border] - want_y[:, border]).max() > 1e-2
 
 
+@pytest.mark.parametrize("H, W, dtype, T", [
+    (192, 256, torch.bfloat16, 48 * 9), (31, 70, torch.bfloat16, 8 * 3),
+    (13, 64, torch.bfloat16, 4 * 3), (1, 1, torch.bfloat16, 1),
+    (31, 70, torch.float32, 4 * 3), (192, 256, torch.float32, 24 * 8)])
+def test_stats_tiles(H, W, dtype, T):
+    """Rows of partial statistics per image, one per output tile: bf16 4 x 30,
+    f32 8 x 32, the last tiles of ragged H and W counted whole."""
+    assert block_cuda.stats_tiles(H, W, dtype) == T
+
+
+@pytest.mark.parametrize("prologue", [False, True])
+def test_conv_pass_reference_matches_jax_ragged(prologue):
+    """``conv_pass_reference`` against JAX's ``_conv_pass`` at H and W that
+    are no multiples of the kernels' tiles (13 x 70: 4 x 30 bf16, 8 x 32
+    f32), the prologue's positive shift on, border pixels included."""
+    rng = np.random.RandomState(9)
+    B, H, W, C = 2, 13, 70, 64
+    x = rng.randn(B, H, W, C).astype(np.float32)
+    w1 = (rng.randn(3, 3, C, C) * 0.1).astype(np.float32)
+    b1 = (rng.randn(C) * 0.1).astype(np.float32)
+    aff = np.stack([0.5 + rng.rand(B, C), 0.2 + 0.3 * rng.rand(B, C)], axis=1).astype(np.float32)
+    W2, C2 = W // 2, 2 * C
+    W2p = -(-(W2 + 2) // 8) * 8
+    x2 = jnp.asarray(x).reshape(B, H, W2, C2)
+    wf = conv_pallas._pack_weights(jnp.asarray(w1), C)
+    br = jnp.concatenate([jnp.asarray(b1)] * 2).reshape(1, C2)
+    with interpret_mode():
+        want_y, want_st = block_pallas._conv_pass(
+            block_pallas._pad_s2d(x2, W2p), wf, br, jnp.asarray(_s2d_aff(aff)), B=B, H=H,
+            W2=W2, C2=C2, O2=C2, prologue=prologue, out_dtype=jnp.float32)
+    want_y = np.asarray(want_y).reshape(B, H, W, C)
+    want_st = np.asarray(want_st)
+    want_st = want_st[..., :C] + want_st[..., C:]
+    y, st = conv_pass_reference(_nchw(x), _oihw(w1), torch.from_numpy(b1),
+                                torch.from_numpy(aff), prologue)
+    y = y.permute(0, 2, 3, 1).numpy()
+    np.testing.assert_allclose(y, want_y, atol=1e-4)
+    np.testing.assert_allclose(st.numpy(), want_st, rtol=1e-5, atol=1e-5 * np.abs(want_st).max())
+    for edge in (y[:, [0, -1]], y[:, :, [0, -1]]):
+        assert np.isfinite(edge).all()
+    np.testing.assert_allclose(y[:, -1], want_y[:, -1], atol=1e-4)
+    np.testing.assert_allclose(y[:, :, -1], want_y[:, :, -1], atol=1e-4)
+
+
 def test_reference_matches_modular_residual_block():
     """``res_block64_reference`` (statistics from the conv pass, the
     hand-written backward) against ``ResidualBlock(64, 64, 1)`` with autograd."""

@@ -284,6 +284,64 @@ def test_probe_wrappers_on_cpu_are_the_plain_versions(monkeypatch):
                       corr_rows_cuda.launches)
 
 
+# row_contract's layouts: the probes (A, A2 and B are one layout) and the
+# smoke's edges, as (G, R, CA, CB, a's batch and row strides, b's) -> the
+# launch plan (fast path, splits, rows a block, scratch)
+CONTRACT_PLANS = {
+    "probe A": ((1, 6144, 6, 64, (0, 6), (0, 64)), (True, 8, 768, None)),
+    "probe C": ((28, 24, 6, 64, (6, 1536), (0, 16384)), (True, 1, 32, None)),
+    "R=1000": ((1, 1000, 6, 64, (6000, 6), (64000, 64)), (True, 8, 128, None)),
+    "G=3 R=100 b_bs=0": ((3, 100, 6, 64, (600, 6), (0, 64)), (True, 2, 64, None)),
+    "CA=20 CB=24": ((1, 1000, 20, 24, (20000, 20), (24000, 24)),
+                    (False, 8, 125, (8, 1, 20, 24))),
+    "odd CA": ((2, 50, 5, 64, (250, 5), (3200, 64)), (False, 1, 50, None)),
+    "CB=32": ((1, 1000, 6, 32, (6000, 6), (32000, 32)), (False, 8, 125, (8, 1, 6, 32))),
+    "R=2100": ((1, 2100, 6, 64, (0, 6), (0, 64)), (True, 5, 512, None)),
+    "R=9000": ((1, 9000, 6, 64, (0, 6), (0, 64)), (False, 8, 1125, (8, 1, 6, 64))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CONTRACT_PLANS))
+def test_row_contract_launch_plan(case):
+    """One launch whose blocks cover the rows: every block holds at least one
+    row, the fast path's rows are whole k-steps of 16 and whole TMA boxes that
+    fit its shared memory, and only the general path with more than one split
+    has a scratch."""
+    (G, R, CA, CB, a_st, b_st), (fast, splits, rows, scratch) = CONTRACT_PLANS[case]
+    plan = row_contract_cuda.launch_plan(G, R, CA, CB, a_st, b_st)
+    assert (plan.fast, plan.splits, plan.rows_per_block, plan.scratch) == (
+        fast, splits, rows, scratch)
+    assert plan.grid == (splits, G, 1)
+    assert (splits - 1) * rows < R <= splits * rows and splits <= row_contract_cuda.MAX_SPLITS
+    if fast:
+        assert rows % 16 == 0 and rows % min(rows, row_contract_cuda.BOX_ROWS) == 0
+        assert rows <= row_contract_cuda.FAST_ROWS
+    # a pointer the fast path's copies cannot take sends the same shape to the general path
+    assert not row_contract_cuda.launch_plan(G, R, CA, CB, a_st, b_st, b_align=8).fast
+
+
+def test_row_contract_launch_plan_grid_beyond_y():
+    plan = row_contract_cuda.launch_plan(70000, 24, 6, 64, (6, 1536), (0, 16384))
+    assert plan.grid == (1, 65535, 2)
+
+
+@pytest.mark.parametrize("case", ["R=1000", "G=3 R=100 b_bs=0", "CA=20 CB=24", "odd CA"])
+def test_row_contract_edges_on_cpu_match_numpy(case):
+    """The CPU path at the smoke's edge shapes against np.einsum in f64 on
+    the same numpy inputs (bf16 values), within the probes' f32 bound."""
+    (G, R, CA, CB, _, b_st), _ = CONTRACT_PLANS[case]
+    rng = np.random.RandomState(len(case))
+    a = torch.from_numpy(rng.rand(G, R, CA) - 0.5).to(torch.bfloat16)
+    b = torch.from_numpy(rng.rand(1 if b_st[0] == 0 else G, R, CB) - 0.5).to(torch.bfloat16)
+    b = b.expand(G, R, CB)
+    got = row_contract(a, b, probe="edge")
+    an, bn = a.double().numpy(), b.double().numpy()
+    want = np.einsum("grc,gro->gco", an, bn)
+    terms = torch.from_numpy(np.einsum("grc,gro->gco", np.abs(an), np.abs(bn)))
+    _assert_f32_close(got, want, terms, case)
+    assert got.shape == (G, CA, CB)
+
+
 @pytest.mark.parametrize("case", ["stream_accum", "corr_rows", "row_contract", "ln_slice"])
 def test_probe_wrappers_reject_bad_shapes(case):
     z = torch.zeros
