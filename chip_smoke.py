@@ -13,8 +13,10 @@ Phases, each printing a progress line with the elapsed seconds:
      R=2048 and 2000, f32 also at the f32 train path's R=1024 and 24,576) and
      ``corr_sample`` (fused corr sampler, three point counts by three dtype
      pairs); and ``chan_ff_bwd``
-     (the channel block's backward, bf16, at the train shapes R=1024, 24,576
-     and 800), all seven grads;
+     (the channel block's backward, bf16, at the train shapes R=1024, 24,576,
+     800 and 100, which fills no whole row tile), all seven grads, two calls
+     bit-identical, and one call, captured in a CUDA graph, the kernels of
+     its launch plan, whose replay gives the same bits;
   4. slice, onehot windows: the full-width bf16 PIPs model (S=8, mixer
      512x12, fused channel blocks, 6 iterations) serves three windows through
      ``WindowTracker(corr_mode="onehot")``; each must be finite, keep frame 0
@@ -81,8 +83,9 @@ timed in turns with ``F.conv2d`` and the modular ``ResidualBlock``. 3f holds
 (the same bits), at B=1 and B=8, 384x512 bf16, at B=2, 192x328 bf16 (each
 row's last segment of columns partial) and a small f32 shape, timed in turns
 with the library's weight grad of the s2d conv and of the x7 conv. 3g holds
-``chan_ff_bwd`` in f32 (the f32 kernel) at R=1024, 800 and 24,576 against
-its plain version, all seven grads, with matmuls in full f32 (TF32 off). 3h holds the F-chunked channel block
+``chan_ff_bwd`` in f32 (the f32 kernels) at R=1024, 800, 100 and 24,576
+against its plain version, all seven grads, with matmuls in full f32 (TF32
+off), repeats and kernel counts as in 3c. 3h holds the F-chunked channel block
 (``chan_ff_block_chunked`` and ``chan_ff_chunked_bwd``) at R=1024 and 800,
 bf16, against its plain versions at every chunk width the kernels take (128,
 256, 512, 1024); at the tool's 512 and 1024 also timed in turns with the
@@ -98,8 +101,8 @@ bf16), ``corr_rows`` (``tools/debug_pallas7.py``, 8 points on a 16x128 map
 of 128 f32 channels) and ``row_contract`` in the four layouts of
 ``tools/probe_mosaic_ops.py`` ((24, 256, 6) x (24, 256, 64) bf16); then
 ``stream_accum`` at 100 rows and five weight blocks, and ``row_contract`` at
-three edge shapes (``CONTRACT_EDGES``), with one kernel a call counted under
-the profiler. Phase 2 prints ptxas's registers and spills for the
+three edge shapes (``CONTRACT_EDGES``), with one kernel a call counted in a
+CUDA graph that captured the call. Phase 2 prints ptxas's registers and spills for the
 tensor-core kernels with asynchronous copy rings (``PTXAS_REPORT``). Phase 9
 then runs the ports of those three tools, the probe kernels' paths, each
 probe's kernel launched 2 + 5 * 10 times.
@@ -125,6 +128,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 T0 = time.perf_counter()
@@ -192,6 +196,7 @@ CONTRACT_EDGES = [("R=1000", 1, 1000, 6, 64, False), ("G=3 R=100 b_bs=0", 3, 100
 STEM_CASES = [("B=1", 1, 384, 512, "bfloat16"), ("B=8", 8, 384, 512, "bfloat16"),
               ("ragged", 2, 192, 328, "bfloat16"), ("small f32", 2, 64, 96, "float32")]
 U32 = 2.0 ** -24  # unit roundoff of f32
+EDGE_R = 100  # phases 3c and 3g: rows that fill no whole 128-row tile of the backward
 CHUNK_FCS = (512, 1024)  # phase 3h times these: tools/profile_chanff_chunk.py's chunk widths
 # phase 7d, f32 with fused channel blocks against the plain block: both keep
 # f32 products and differ only in summation order. One refinement iteration
@@ -232,16 +237,19 @@ PROBE_KERNELS = [("gelu", "mixer_probes", "tools/debug_mixer_kernel.py:63"),
 
 # kernels whose registers and spills the build report prints (ptxas -v)
 PTXAS_REPORT = [("stem_wgrad", "stem_wgrad_tc"), ("mixer_probes", "probe_stream_accum"),
-                ("conv3x3_stats", "conv3x3_stats_bf16"), ("row_contract", "row_contract_tc")]
+                ("conv3x3_stats", "conv3x3_stats_bf16"), ("row_contract", "row_contract_tc"),
+                ("chanff_bwd", "chanff_bwd_act"), ("chanff_bwd", "chanff_bwd_dxa"),
+                ("chanff_bwd", "chanff_bwd_wgrad")]
 
 
 def ptxas_report(log_path: Path, kernel: str) -> str:
     """The registers, stack and spill lines that ptxas -v printed for the
-    entry function whose (mangled) name holds ``kernel``."""
+    entry function named ``kernel`` (its mangled name holds the name after
+    its length, so ``chanff_bwd_act`` is not ``chanff_bwd_act_f32``)."""
     found, lines = False, []
     for line in log_path.read_text(errors="replace").splitlines():
         if "Compiling entry function" in line:
-            found = kernel in line
+            found = f"{len(kernel)}{kernel}" in line
         elif found and ("registers" in line or "spill" in line):
             lines.append(line.split(":", 1)[-1].strip())
     if not lines:
@@ -775,22 +783,110 @@ def require_full_f32(torch) -> None:
         fail("the f32 comparisons need full-f32 matmuls and convs (TF32 is on)")
 
 
+def captured_kernels(torch, fn) -> tuple:
+    """The device kernels one call of ``fn`` enqueues, in launch order, and
+    the call's output: the call is captured into a CUDA graph, whose kernel
+    nodes the driver lists (``cudaGraphDebugDotPrint``), and the graph is
+    replayed once so that the output is what those kernels computed. Each
+    name is its node's label: the kernel's name with its launch shape."""
+    try:  # keep the captured graph past its instantiation, where the build offers that
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:
+        g = torch.cuda.CUDAGraph()
+    g.enable_debug_mode()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(g):
+        out = fn()
+    if hasattr(g, "instantiate"):
+        g.instantiate()
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_graph_", dir=build) as tmp:
+        dot = Path(tmp) / "graph.dot"
+        with warnings.catch_warnings():  # the dump announces itself as a debugging aid
+            warnings.simplefilter("ignore", UserWarning)
+            g.debug_dump(str(dot))
+        if not dot.exists():
+            fail(f"torch {torch.__version__} wrote no dump of the captured graph")
+        text = dot.read_text()
+    g.replay()
+    torch.cuda.synchronize()
+    del g
+    starts = list(re.finditer(r'"graph_\d+_node_(\d+)"\s*\[', text))
+    nodes = sorted((int(m.group(1)), text[m.end():(starts[i + 1].start() if i + 1 < len(starts)
+                                                    else len(text))])
+                   for i, m in enumerate(starts))
+    kernels = [label for _, label in nodes if "KERNEL" in label]
+    if not kernels:
+        fail(f"the captured graph lists no kernel node: {text[:2000]!r}")
+    return kernels, out
+
+
+def names_kernel(label: str, name: str) -> bool:
+    """Whether a graph node's ``label`` is the kernel ``name``, mangled (the
+    name behind its length) or demangled (followed by its arguments or
+    template arguments)."""
+    return f"{len(name)}{name}" in label or re.search(re.escape(name) + r"(?=\(|\\?<)",
+                                                      label) is not None
+
+
+def bwd_repeat(torch, mixer_cuda, args, out, label: str) -> None:
+    """``chan_ff_bwd`` called again on the same inputs gives the same bits in
+    all seven grads; fails otherwise."""
+    again = mixer_cuda.chan_ff_bwd(*args)
+    torch.cuda.synchronize()
+    differ = [n for n, a, b in zip(GRAD_NAMES, out, again) if not torch.equal(a, b)]
+    if differ:
+        fail(f"{label}: two calls on the same inputs differ in {differ}")
+
+
+def bwd_launches_match_plans(torch, mixer_cuda, cases: dict, label: str) -> None:
+    """Each call ``chan_ff_bwd(*args)`` of ``cases`` (R -> args) enqueues the
+    kernels of its plan (``mixer_cuda.bwd_plan``) in its order, no more, as a
+    CUDA graph that captured the call lists them, and the graph's replay gives
+    the bits of an eager call in all seven grads; fails otherwise."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for R, args in cases.items():
+        x, w1 = args[0], args[4]
+        plan = mixer_cuda.bwd_plan(R, w1.shape[1], x.dtype, sms)
+        suffix = "_f32" if x.dtype == torch.float32 else ""
+        want = [f"chanff_bwd_{k}{suffix if k in ('act', 'dxa', 'wgrad') else ''}"
+                for k in plan.grids]
+        eager = mixer_cuda.chan_ff_bwd(*args)
+        labels, replayed = captured_kernels(torch, lambda: mixer_cuda.chan_ff_bwd(*args))
+        if len(labels) != len(want) or not all(map(names_kernel, labels, want)):
+            fail(f"{label} R={R}: one call enqueued {len(labels)} kernels, its plan {want}: "
+                 f"{labels}")
+        differ = [n for n, a, b in zip(GRAD_NAMES, eager, replayed) if not torch.equal(a, b)]
+        if differ:
+            fail(f"{label} R={R}: the captured call's replay differs from an eager call in "
+                 f"{differ}")
+        log("kernels", f"{label} R={R} captured: {len(labels)} kernels a call "
+                       f"({', '.join(want)}), split {plan.split}; its replay bit-identical")
+        del eager, replayed
+    torch.cuda.empty_cache()
+
+
 def phase_chanff_f32(torch, np, mixer_cuda) -> dict:
-    """3g: ``chan_ff_bwd`` in f32 (the f32 kernel of ``csrc/chanff_bwd.cu``)
-    against its plain version at the bench train shape, a ragged R and the
-    training default, all seven grads, with its time and bound."""
+    """3g: ``chan_ff_bwd`` in f32 (the f32 kernels of ``csrc/chanff_bwd.cu``)
+    against its plain version at the bench train shape, a ragged R, an edge R
+    that fills no whole row tile and the training default, all seven grads,
+    with its time and bound; a repeat must give the same bits, and one call
+    launch its plan's kernels."""
     require_full_f32(torch)
-    out = {}
-    for R in (TRAIN_R, 800, TRAIN_R_DEFAULT):
+    out, cases = {}, {}
+    for R in (TRAIN_R, 800, EDGE_R, TRAIN_R_DEFAULT):
         args = chanff_bwd_args(torch, np, R, seed=R + 3, dtype=torch.float32)
         before = mixer_cuda.bwd_f32_launches, mixer_cuda.bwd_launches
         got = mixer_cuda.chan_ff_bwd(*args)
         torch.cuda.synchronize()
         if (mixer_cuda.bwd_f32_launches, mixer_cuda.bwd_launches) != (before[0] + 1, before[1]):
-            fail(f"chan_ff_bwd f32 R={R} did not launch the f32 kernel once")
+            fail(f"chan_ff_bwd f32 R={R} did not launch the f32 kernels once")
         ref = mixer_cuda.chan_ff_bwd_reference(*args)
         tols = chanff_bwd_tols(torch, mixer_cuda, args)
         worst, parts, max_err = grad_errors(torch, f"chan_ff_bwd f32 R={R}", got, ref, tols)
+        bwd_repeat(torch, mixer_cuda, args, got, f"chan_ff_bwd f32 R={R}")
+        parts.append("repeat bit-identical")
         n = 20 if R < TRAIN_R_DEFAULT else 5
         ms = median_ms(torch, mixer_cuda.chan_ff_bwd, args, launches=n)
         plain_ms = median_ms(torch, mixer_cuda.chan_ff_bwd_reference, args, launches=n)
@@ -803,7 +899,10 @@ def phase_chanff_f32(torch, np, mixer_cuda) -> dict:
                  f"{worst:.3g})")
         out[R] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                       bound_by=bound_by)
-        del args, got, ref, tols
+        cases[R] = args
+        del got, ref, tols
+    bwd_launches_match_plans(torch, mixer_cuda, cases, "chan_ff_bwd f32")
+    del cases
     torch.cuda.empty_cache()
     return out
 
@@ -1030,8 +1129,8 @@ def phase_probes(torch, F) -> dict:
 def phase_contract_edges(torch) -> None:
     """3i, ``row_contract`` off the probes' shapes (``CONTRACT_EDGES``):
     against its plain version with the probes' tolerance, against itself (the
-    same bits), and under the profiler: one kernel launch a call, as at each
-    probe's shape."""
+    same bits), and captured in a CUDA graph: one kernel a call, as at each
+    probe's shape, whose replay gives the same bits."""
     from pips_tpu_torch.kernels import row_contract_cuda
     from pips_tpu_torch.tools import _probes, probe_mosaic_ops
 
@@ -1059,21 +1158,23 @@ def phase_contract_edges(torch) -> None:
                        f"{tuple(b.shape)} {b.stride()}: {plan}; max_abs_err {err:.3g} "
                        f"(worst err/tol {worst:.3g}); "
                        f"{median_ms(torch, row_contract_cuda.row_contract, (a, b)):.4f} ms")
-    # the kernels each call launches, as the profiler sees them
+    # the kernels each call enqueues, as a CUDA graph that captured it lists them
     a0, b0 = probe_mosaic_ops.inputs("cuda")
     calls = [lambda a=a, b=b: row_contract_cuda.row_contract(a, b, probe="edge")
              for a, b in edges.values()]
     calls += [lambda f=f: f(a0, b0) for f in (probe_mosaic_ops.probe_a, probe_mosaic_ops.probe_c)]
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for call in calls:
-            call()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    launched = sum("row_contract" in n for n in names)
-    log("kernels", f"row_contract under the profiler: {launched} kernels for {len(calls)} calls "
-                   f"(the edges, probes A and C); device events {names}")
-    if launched != len(calls):
-        fail(f"3i: {launched} row_contract kernels for {len(calls)} calls: {names}")
+    counts = []
+    for call in calls:
+        eager = call()
+        labels, replayed = captured_kernels(torch, call)
+        counts.append(len(labels))
+        if len(labels) != 1 or not any(names_kernel(labels[0], k)
+                                       for k in ("row_contract_tc", "row_contract_simt")):
+            fail(f"3i: one row_contract call enqueued {len(labels)} kernels: {labels}")
+        if not torch.equal(eager, replayed):
+            fail("3i: a captured row_contract call's replay differs from an eager call")
+    log("kernels", f"row_contract captured: {sum(counts)} kernels for {len(calls)} calls (the "
+                   f"edges, probes A and C), one a call; each replay bit-identical")
 
 
 def phase_probe_tools(torch) -> dict:
@@ -1565,16 +1666,20 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 3c. chan_ff_bwd against its plain version: the bench train shape
-    # (B*N*S = 1*128*8), the training default (4*768*8 after both flips) and
-    # a ragged R that is no multiple of the kernel's 16-row blocks' tiles
-    chanff_bwd = {}
-    for R in (TRAIN_R, TRAIN_R_DEFAULT, 800):
+    # (B*N*S = 1*128*8), the training default (4*768*8 after both flips), a
+    # ragged R that is no multiple of the kernels' 128-row tiles and an edge
+    # R that fills none; a repeat gives the same bits, and one call launches
+    # its plan's kernels, captured in a CUDA graph
+    chanff_bwd, bwd_cases = {}, {}
+    for R in (TRAIN_R, TRAIN_R_DEFAULT, 800, EDGE_R):
         args = chanff_bwd_args(torch, np, R, seed=R)
         out = mixer_cuda.chan_ff_bwd(*args)
         torch.cuda.synchronize()
         ref = mixer_cuda.chan_ff_bwd_reference(*args)
         tols = chanff_bwd_tols(torch, mixer_cuda, args)
         worst, parts, max_err = grad_errors(torch, f"chan_ff_bwd R={R}", out, ref, tols)
+        bwd_repeat(torch, mixer_cuda, args, out, f"chan_ff_bwd R={R}")
+        parts.append("repeat bit-identical")
         ms = median_ms(torch, mixer_cuda.chan_ff_bwd, args)
         plain_ms = median_ms(torch, mixer_cuda.chan_ff_bwd_reference, args)
         bound_ms, bound_by = chanff_bwd_bound(R)
@@ -1585,7 +1690,10 @@ def main() -> int:
             fail(f"chan_ff_bwd R={R} disagrees with its plain version (worst err/tol {worst:.3g})")
         chanff_bwd[R] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by)
-        del args, out, ref, tols
+        bwd_cases[R] = args
+        del out, ref, tols
+    bwd_launches_match_plans(torch, mixer_cuda, bwd_cases, "chan_ff_bwd bf16")
+    del bwd_cases
     torch.cuda.empty_cache()
 
     # 3d. conv3x3_same against its plain version, forward and dx (the same

@@ -1,6 +1,6 @@
 // Asynchronous copies between global and shared memory and the mbarriers
 // that track them (sm_90), shared by the pipelined kernels (stem_wgrad.cu,
-// mixer_probes.cu, conv3x3_stats.cu, row_contract.cu):
+// mixer_probes.cu, conv3x3_stats.cu, row_contract.cu, chanff_bwd.cu):
 //   TMA: one thread copies a 2D or 4D box of a bf16 tensor (a tensor map
 //   made on the host by make_map_bf16) into shared memory, swizzled (with
 //   128-byte rows the 16-byte chunk j of the box's row r lands at chunk
@@ -13,7 +13,8 @@
 //   cp.async.bulk of a contiguous byte range, on an mbarrier the same way;
 //   cp.async of 4 bytes a thread, for rows whose stride fits no TMA box
 //   (cp_async_arrive_noinc completes them on an mbarrier, cp_async_wait_all
-//   waits for them in the issuing thread);
+//   waits for them in the issuing thread); of 4 or 16 bytes zero-filled
+//   where out of range, in commit groups for a thread's double buffering;
 //   mbarrier init, arrive and parity wait for full/empty rings; named
 //   barriers for a subset of the block's warps.
 // A ring slot used for the u-th time is waited on with parity u & 1: the wait
@@ -36,6 +37,31 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
                : "memory");
+}
+
+// 4 bytes (through L1), or 4 zero bytes where !valid (src is then not read)
+__device__ __forceinline__ void cp_async_4z(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// 16 bytes (through L2 only), or 16 zero bytes where !valid
+__device__ __forceinline__ void cp_async_16z(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// this thread's cp.async since the last commit form a group
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// this thread's groups but the newest N have landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // this thread's cp.async so far have landed

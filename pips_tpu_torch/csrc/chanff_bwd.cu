@@ -9,37 +9,59 @@
 //
 // What bounds it on an H100: five products of 2*R*D*F operations each (a1
 // recomputed, dg1, dxa, dw1, dw2), 10*R*D*F in all, against x, dy and dx once,
-// both weights once and the f32 weight grads once. In bf16 at R=1024 that is
-// 10.7 GFLOP (10.9 us at 989 TFLOP/s) against ~15 MB (4.5 us at 3.35 TB/s), so
-// it is bound by the tensor cores from a few hundred rows up; in f32 the same
-// work takes 160 us at the 67 TFLOP/s of the FMA units.
+// both weights once and the f32 weight grads once. In bf16 at R=24,576 that
+// is 258 GFLOP (0.26 ms at 989 TFLOP/s) against ~100 MB: the tensor cores,
+// from a few hundred rows up. In f32 the same work takes 3.85 ms at the 67
+// TFLOP/s of the FMA units. A product fed from L2 must reuse each staged
+// operand tile across many rows, and keep its copies in flight while it
+// computes; R*F exact-erf GELUs and their derivatives (50M at R=24,576) add
+// an epilogue of ALU work that no product hides within its own tile.
 //
-// Design. The TPU kernel keeps w1 and w2 resident in VMEM and sums dW into one
-// output block that every row tile revisits in order. Hopper blocks run in no
-// order, cannot hold the 2 MB weights, nor 4 MB of f32 dW each. So:
-//   phase A (chanff_bwd_rows), one block per 16 rows, walking F in chunks of
-//     64 as the forward does: LN in f32; per chunk, stage the w1 and w2 chunks
-//     in shared memory, recompute a1 = xa_c @ w1 + b1 and g1 = gelu(a1), form
-//     dg1 = dy_c @ w2^T and da1 = dg1 * gelu'(a1), and add da1_c @ w1^T into a
-//     (16, D) f32 dxa held in WMMA registers. xa_c, g1_c and da1_c go to
-//     scratch in the compute dtype for phase B; per-block column sums of da1,
-//     dy, dxa and dxa*xn go to partials. Then the LN backward gives dx.
-//   phase B (chanff_bwd_wgrad): dw1 = xa_c^T @ da1_c and dw2 = g1_c^T @ dy_c
-//     as one tiled WMMA GEMM launch over R, f32 accumulation, 64x64 tiles.
-//   phase C (chanff_bwd_colsum): the partials summed over blocks in block
-//     order, so every grad is deterministic (no atomics).
-// 16-row blocks give R/16 blocks in phase A (64 at R=1024) on 132 SMs.
-// Rows past R are zero in shared memory, never stored and never read by
-// phase B, so they add nothing. wgmma/TMA pipelining and a split of F for
-// small R are later work.
-//
-// f32 (namespaces rows32, wgrad32) keeps the three phases on SIMT FMAs:
-// mma.sync with f32 operands is TF32, which would drop the f32 products the
-// reference keeps (chanff_fwd.cu makes the same choice). Phase A holds 16 rows
-// of xa and dy in f32 (64 KB) and takes F in chunks of 32 so that the f32 w1
-// and w2 chunks (136 KB) fit beside them; each thread keeps 16 rows x 2
-// columns of dxa in registers. Phase B is a 64x64-tile SGEMM over R, 4x4
-// outputs a thread. Scratch (xa, g1, da1) is f32: ~450 MB at R=24,576.
+// Design. The TPU kernel keeps w1 and w2 resident in VMEM and walks the rows
+// once. Hopper blocks hold 227 KB, not the 2 MB weights, so the backward is
+// recast as four tiled products on 128 x 128 output tiles, each staged weight
+// tile serving 128 rows, in five launches (the host's plan,
+// mixer_cuda.bwd_plan, has their grids):
+//   1 chanff_bwd_ln: xa_c = LN(x) * scale + bias in the compute dtype and the
+//     f32 row statistics (mu, rsig), a warp a row; bound by its bytes;
+//   2 chanff_bwd_act: for 128 rows x 128 columns of F, a1 = xa_c @ w1 and
+//     dg1 = dy @ w2^T (K = 512); the epilogue forms g1 = gelu(a1 + b1) and
+//     da1 = dg1 * gelu'(a1 + b1) in f32, writes g1_c and da1_c (the compute
+//     dtype) and the tile's column sums of da1 (the db1 partials). Bound by
+//     the epilogue's ALU work more than by the products;
+//   3 chanff_bwd_dxa: dxa = da1_c @ w1^T (K = F), 128 rows x 128 of the 512
+//     columns a block, the four blocks of a row tile one thread-block
+//     cluster; the epilogue is the LN backward, whose row means over all 512
+//     columns the four sum in rank order through distributed shared memory
+//     (a whole row never has to fit one block, nor dxa go to memory); it
+//     reads the tile's x and dy from shared memory, all copied by one round
+//     of cp.async as the products end (loads row by row left it waiting on
+//     memory), and writes dx and the tile's column sums of dxa * xn, dxa, dy;
+//   4 chanff_bwd_wgrad: dw1 = xa_c^T @ da1_c and dw2 = g1_c^T @ dy, K = R,
+//     both products' 128 tiles (F = 2048) in one grid; K is split only where
+//     those tiles leave blocks the card holds at once idle (f32, two blocks
+//     an SM), the splits written to scratch;
+//   5 chanff_bwd_colsum: the partials summed over the row tiles in order, and
+//     the K splits in order: every grad is deterministic, no atomics.
+// bf16 (namespace tc): every product is wgmma m64n128k16 from shared memory
+// with f32 accumulators, its operands brought by TMA (128-byte swizzled
+// boxes, rows past R read as zero) through an mbarrier ring: one producer
+// warp keeps the ring full while two consumer warpgroups each take 64 rows
+// of the tile. Operands whose rows run along K (xa_c, dy, da1_c, w2 in
+// dg1, w1 in dxa) are K-major tiles; those whose rows run along M or N (w1
+// in a1, and all four weight-grad operands) are read MN-major through
+// wgmma's transposed-operand modes, so no transposed copy is ever written.
+// Before an epilogue the accumulators go to the freed ring as an f32 tile,
+// which frees the registers (a1 and dg1 hold 128 of a thread's 168) for
+// many GELUs in flight at once.
+// f32 (namespace simt) stays on the FMA units (mma.sync with f32 operands is
+// TF32, which would drop the f32 products the reference keeps, as in
+// chanff_fwd.cu): one register-tiled SGEMM mainloop for all products, 128 x
+// 128 block tiles of 256 threads, 8 x 8 outputs a thread, K in steps of 16
+// through three cp.async stages. A is staged as it lies, [m][k] or [k][m],
+// by 16-byte copies; B as [k][n], by 16-byte copies where its rows run along
+// N and by 4-byte transposing ones where they run along K (w2 in dg1, w1 in
+// dxa). Both dtypes share the two epilogues (act_epilogue, dxa_epilogue).
 //
 // Numerics follow chan_ff_bwd_reference (the JAX kernel's math): LN in f32
 // with var = E[x^2] - mu^2 clamped at 0, eps 1e-5; the five products take the
@@ -48,575 +70,1018 @@
 // XLA's rational erf (a few f32 ulps apart).
 //
 // Plain C ABI (loaded with ctypes): pips_chanff_bwd returns cudaGetLastError()
-// after the last launch; 0 means launched. pips_chanff_bwd_finish runs phases
-// B and C alone on bf16 scratch that another phase A wrote (the F-chunked
-// kernel of chanff_chunk.cu).
+// after the last launch; 0 means launched. pips_chanff_bwd_finish runs the
+// weight-grad products and the column sums alone on bf16 scratch that another
+// kernel wrote (chanff_chunk.cu's, whose partials come in 16-row tiles).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+#include <string.h>
 
+#include "async_copy.cuh"
 #include "chanff_rows.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
+namespace cg = cooperative_groups;
 
-// ------------------------------------------------------------------ phase A
-namespace rows {
-constexpr int kThreads = 256;           // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int TR = kBwdRows;            // rows per block
-constexpr int FC = 64;                  // F chunk
-constexpr int LDA = kD + 8;             // bf16 row stride of xa, dy and the w2 chunk
-constexpr int LDW1 = FC + 8;            // bf16 row stride of the w1 chunk and da1
-constexpr int LDH = FC + 4;             // f32 row stride of the a1 / dg1 tiles
-constexpr int LDC = kD + 4;             // f32 row stride of dxa (epilogue)
-constexpr size_t kXa = align128((size_t)TR * LDA * 2);
-constexpr size_t kDy = kXa;
-constexpr size_t kW1 = align128((size_t)kD * LDW1 * 2);
-constexpr size_t kW2 = align128((size_t)FC * LDA * 2);
-constexpr size_t kH = align128((size_t)TR * LDH * 4);
-constexpr size_t kDa = align128((size_t)TR * LDW1 * 2);
-constexpr size_t kStats = align128(2 * TR * 4);
-constexpr size_t kSmem = kXa + kDy + kW1 + kW2 + 2 * kH + kDa + kStats;
-static_assert((size_t)TR * LDC * 4 <= kW1 + kW2, "dxa tile must fit the weight buffers");
-static_assert(2 * (FC / 16) == kWarps, "one a1 or dg1 tile per warp");
-constexpr int kAccCols = kD / (16 * kWarps);  // dxa 16x16 tiles per warp
+constexpr int kTileRows = 128;            // rows of a row tile: the partials' blocks
+constexpr int kTileCols = 128;            // columns of every output tile
+constexpr int kCluster = kD / kTileCols;  // the dxa blocks of one row tile
+constexpr int kMaxSplit = 16;             // K splits of the weight-grad products at most
+constexpr int kLnRows = 8;                // rows of an LN block, a warp each
+constexpr int kEpi = 256;                 // the threads of a tile's epilogue
+constexpr int kLdt = kTileCols + 4;       // f32 row stride of a tile staged in shared memory
+constexpr int kLdx = kTileCols + 8;       // row stride (elements) of a staged x or dy tile
 
-__global__ void __launch_bounds__(kThreads)
-chanff_bwd_rows(const bf16* __restrict__ x, const bf16* __restrict__ dy,
-                const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
-                const bf16* __restrict__ w1, const float* __restrict__ b1,
-                const bf16* __restrict__ w2, bf16* __restrict__ dx,
-                bf16* __restrict__ xa_out, bf16* __restrict__ g1_out, bf16* __restrict__ da1_out,
-                float* __restrict__ part_d, float* __restrict__ part_f, int R, int F) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xa = reinterpret_cast<bf16*>(smem);
-  bf16* dys = reinterpret_cast<bf16*>(smem + kXa);
-  bf16* w1c = reinterpret_cast<bf16*>(smem + kXa + kDy);
-  bf16* w2c = reinterpret_cast<bf16*>(smem + kXa + kDy + kW1);
-  float* a1s = reinterpret_cast<float*>(smem + kXa + kDy + kW1 + kW2);
-  float* dg1s = reinterpret_cast<float*>(smem + kXa + kDy + kW1 + kW2 + kH);
-  bf16* da1s = reinterpret_cast<bf16*>(smem + kXa + kDy + kW1 + kW2 + 2 * kH);
-  float* mu_s = reinterpret_cast<float*>(smem + kXa + kDy + kW1 + kW2 + 2 * kH + kDa);
-  float* rsig_s = mu_s + TR;
-  float* dxa_s = reinterpret_cast<float*>(smem + kXa + kDy);  // reuses w1c/w2c after the loop
-
-  const int row0 = blockIdx.x * TR;
-  const int warp = threadIdx.x / 32;
-
-  // LN of the block's rows (f32 statistics), xa and dy into shared memory in bf16
-  ln_rows<TR>(x, ln_scale, ln_bias, xa, LDA, row0, R, mu_s, rsig_s, xa_out, dy, dys);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kAccCols];
-#pragma unroll
-  for (int j = 0; j < kAccCols; ++j) wmma::fill_fragment(acc[j], 0.0f);
-  const int col0 = warp * kAccCols * 16;  // this warp's dxa columns
-
-  for (int f0 = 0; f0 < F; f0 += FC) {
-    __syncthreads();  // LN rows written / previous chunk fully consumed
-    for (int i = threadIdx.x; i < kD * FC / 8; i += kThreads) {
-      const int r = i / (FC / 8), c = (i % (FC / 8)) * 8;
-      *reinterpret_cast<uint4*>(w1c + r * LDW1 + c) =
-          *reinterpret_cast<const uint4*>(w1 + (size_t)r * F + f0 + c);
-    }
-    for (int i = threadIdx.x; i < FC * kD / 8; i += kThreads) {
-      const int r = i / (kD / 8), c = (i % (kD / 8)) * 8;
-      *reinterpret_cast<uint4*>(w2c + r * LDA + c) =
-          *reinterpret_cast<const uint4*>(w2 + (size_t)(f0 + r) * kD + c);
-    }
-    __syncthreads();
-
-    {  // warps 0-3: a1 = xa @ w1 chunk; warps 4-7: dg1 = dy @ w2 chunk^T. One 16x16 tile each.
-      const bool is_a1 = warp < FC / 16;
-      const int c = (warp % (FC / 16)) * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> h;
-      wmma::fill_fragment(h, 0.0f);
-      if (is_a1) {
-#pragma unroll 4
-        for (int k = 0; k < kD; k += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(a, xa + k, LDA);
-          wmma::load_matrix_sync(b, w1c + k * LDW1 + c, LDW1);
-          wmma::mma_sync(h, a, b, h);
-        }
-        wmma::store_matrix_sync(a1s + c, h, LDH, wmma::mem_row_major);
-      } else {
-#pragma unroll 4
-        for (int k = 0; k < kD; k += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;  // w2c^T
-          wmma::load_matrix_sync(a, dys + k, LDA);
-          wmma::load_matrix_sync(b, w2c + c * LDA + k, LDA);
-          wmma::mma_sync(h, a, b, h);
-        }
-        wmma::store_matrix_sync(dg1s + c, h, LDH, wmma::mem_row_major);
-      }
-    }
-    __syncthreads();
-    // elementwise: g1, da1 = dg1 * gelu'(a1); scratch out in bf16; da1 (f32) kept in dg1s
-    for (int i = threadIdx.x; i < TR * FC; i += kThreads) {
-      const int r = i / FC, c = i % FC;
-      const int row = row0 + r;
-      const float a = a1s[r * LDH + c] + b1[f0 + c];
-      const float cdf = gelu_cdf(a);
-      const float da = dg1s[r * LDH + c] * (cdf + a * gelu_pdf(a));
-      const bf16 da_c = __float2bfloat16(da);
-      dg1s[r * LDH + c] = da;
-      da1s[r * LDW1 + c] = da_c;
-      if (row < R) {
-        const size_t o = (size_t)row * F + f0 + c;
-        g1_out[o] = __float2bfloat16(a * cdf);
-        da1_out[o] = da_c;
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x < FC) {  // db1 partial: column sums of da1 over the block's rows
-      float s = 0.0f;
-#pragma unroll
-      for (int r = 0; r < TR; ++r) s += dg1s[r * LDH + threadIdx.x];
-      part_f[(size_t)blockIdx.x * F + f0 + threadIdx.x] = s;
-    }
-    // dxa += da1_c (TR, FC) @ w1 chunk^T (FC, kD)
-#pragma unroll
-    for (int k = 0; k < FC; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, da1s + k, LDW1);
-#pragma unroll
-      for (int j = 0; j < kAccCols; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;  // w1c^T
-        wmma::load_matrix_sync(b, w1c + (col0 + j * 16) * LDW1 + k, LDW1);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-  }
-
-  __syncthreads();  // every warp is done with w1c/w2c before dxa_s overwrites them
-#pragma unroll
-  for (int j = 0; j < kAccCols; ++j)
-    wmma::store_matrix_sync(dxa_s + col0 + j * 16, acc[j], LDC, wmma::mem_row_major);
-  __syncthreads();
-
-  ln_bwd_rows(x, ln_scale, dxa_s, LDC, dys, LDA, mu_s, rsig_s, dx, part_d, row0, R);
+template <typename Kernel>
+cudaError_t set_smem(Kernel k, size_t bytes) {
+  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
-}  // namespace rows
 
-// ------------------------------------------------------------------ phase B
-namespace wgrad {
-constexpr int kThreads = 128;  // 4 warps, 2x2 over the tile
-constexpr int BM = 64, BN = 64, BK = 32;
-constexpr int LDS = 64 + 8;    // bf16 row stride of the staged A and B tiles
-constexpr int WM = BM / 2, WN = BN / 2;
-
-// C (M, N) f32 = A^T B, A (K, M) and B (K, N) row-major bf16; M, N multiples of 64.
-// Blocks [0, tiles0) compute the first product, the rest the second.
-struct Gemm {
-  const bf16* A;
-  const bf16* B;
-  float* C;
-  int M, N;
-};
-
-__global__ void __launch_bounds__(kThreads)
-chanff_bwd_wgrad(Gemm g0, Gemm g1, int tiles0, int K) {
-  __shared__ __align__(128) bf16 As[BK * LDS];
-  __shared__ __align__(128) bf16 Bs[BK * LDS];
-  const bool first = (int)blockIdx.x < tiles0;
-  const Gemm g = first ? g0 : g1;
-  const int t = first ? blockIdx.x : blockIdx.x - tiles0;
-  const int tiles_n = g.N / BN;
-  const int m0 = (t / tiles_n) * BM, n0 = (t % tiles_n) * BN;
-  const int warp = threadIdx.x / 32;
-  const int wm = (warp / 2) * WM, wn = (warp % 2) * WN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[WM / 16][WN / 16];
+// ------------------------------------------------------------ 1: LN rows
+// xa[row] = LN(x[row]) * scale + bias in T; stats[row] = mu, stats[R + row] = rsig
+template <typename T>
+__global__ void __launch_bounds__(32 * kLnRows)
+chanff_bwd_ln(const T* __restrict__ x, const float* __restrict__ scale,
+              const float* __restrict__ bias, T* __restrict__ xa, float* __restrict__ stats,
+              int R) {
+  const int row = blockIdx.x * kLnRows + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= R) return;
+  const T* src = x + (size_t)row * kD;
+  float v[kD / 32];
+  float s = 0.0f, s2 = 0.0f;
 #pragma unroll
-  for (int i = 0; i < WM / 16; ++i)
-#pragma unroll
-    for (int j = 0; j < WN / 16; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // stage A[k0:k0+BK, m0:m0+BM] and B[k0:k0+BK, n0:n0+BN]; rows past K are zero
-    for (int i = threadIdx.x; i < BK * (BM / 8); i += kThreads) {
-      const int r = i / (BM / 8), c = (i % (BM / 8)) * 8;
-      const int k = k0 + r;
-      *reinterpret_cast<uint4*>(As + r * LDS + c) =
-          k < K ? *reinterpret_cast<const uint4*>(g.A + (size_t)k * g.M + m0 + c) : zero;
-      *reinterpret_cast<uint4*>(Bs + r * LDS + c) =
-          k < K ? *reinterpret_cast<const uint4*>(g.B + (size_t)k * g.N + n0 + c) : zero;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a[WM / 16];  // A^T
-#pragma unroll
-      for (int i = 0; i < WM / 16; ++i)
-        wmma::load_matrix_sync(a[i], As + k * LDS + wm + i * 16, LDS);
-#pragma unroll
-      for (int j = 0; j < WN / 16; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, Bs + k * LDS + wn + j * 16, LDS);
-#pragma unroll
-        for (int i = 0; i < WM / 16; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
-      }
-    }
-    __syncthreads();
+  for (int i = 0; i < kD / 32; ++i) {
+    v[i] = to_f32(src[lane + 32 * i]);
+    s += v[i];
+    s2 += v[i] * v[i];
   }
 #pragma unroll
-  for (int i = 0; i < WM / 16; ++i)
+  for (int o = 16; o > 0; o >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+  }
+  const float mu = s / kD;
+  const float rsig = rsqrtf(fmaxf(s2 / kD - mu * mu, 0.0f) + kEps);
+  if (lane == 0) {
+    stats[row] = mu;
+    stats[R + row] = rsig;
+  }
 #pragma unroll
-    for (int j = 0; j < WN / 16; ++j)
-      wmma::store_matrix_sync(g.C + (size_t)(m0 + wm + i * 16) * g.N + n0 + wn + j * 16,
-                              acc[i][j], g.N, wmma::mem_row_major);
+  for (int i = 0; i < kD / 32; ++i) {
+    const int c = lane + 32 * i;
+    xa[(size_t)row * kD + c] = from_f32<T>((v[i] - mu) * rsig * scale[c] + bias[c]);
+  }
 }
-}  // namespace wgrad
 
-// ------------------------------------------------------------ phase A, f32
-namespace rows32 {
-constexpr int kThreads = 256;           // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int TR = kBwdRows;            // rows per block
-constexpr int FC = 32;                  // F chunk
-constexpr int LDX = kD + 4;             // f32 row stride of xa, dy, the w2 chunk and dxa
-constexpr int LDW1 = FC + 4;            // f32 row stride of the w1 chunk and the a1 / da1 tiles
-constexpr size_t kXa = align128((size_t)TR * LDX * 4);
-constexpr size_t kW1 = align128((size_t)kD * LDW1 * 4);
-constexpr size_t kW2 = align128((size_t)FC * LDX * 4);
-constexpr size_t kH = align128((size_t)TR * LDW1 * 4);
-constexpr size_t kStats = align128(2 * TR * 4);
-constexpr size_t kSmem = 2 * kXa + kW1 + kW2 + 2 * kH + kStats;
-static_assert(kSmem <= 232448, "phase A must fit a block's shared memory");
-static_assert(kXa <= kW1, "dxa must fit the w1 chunk's buffer");
-// a1 and dg1: warps 0-3 and 4-7, four rows each, one chunk column per lane
-static_assert(FC == 32 && 4 * (kWarps / 2) == TR, "a1/dg1 thread map");
-// dxa: thread t owns all TR rows of columns t and t + kThreads
-static_assert(2 * kThreads == kD, "dxa thread map");
-
-__global__ void __launch_bounds__(kThreads)
-chanff_bwd_rows_f32(const float* __restrict__ x, const float* __restrict__ dy,
-                    const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
-                    const float* __restrict__ w1, const float* __restrict__ b1,
-                    const float* __restrict__ w2, float* __restrict__ dx,
-                    float* __restrict__ xa_out, float* __restrict__ g1_out,
-                    float* __restrict__ da1_out, float* __restrict__ part_d,
-                    float* __restrict__ part_f, int R, int F) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* xa = reinterpret_cast<float*>(smem);
-  float* dys = reinterpret_cast<float*>(smem + kXa);
-  float* w1c = reinterpret_cast<float*>(smem + 2 * kXa);
-  float* w2c = reinterpret_cast<float*>(smem + 2 * kXa + kW1);
-  float* a1s = reinterpret_cast<float*>(smem + 2 * kXa + kW1 + kW2);
-  float* da1s = reinterpret_cast<float*>(smem + 2 * kXa + kW1 + kW2 + kH);
-  float* mu_s = reinterpret_cast<float*>(smem + 2 * kXa + kW1 + kW2 + 2 * kH);
-  float* rsig_s = mu_s + TR;
-  float* dxa_s = w1c;  // reuses the w1 chunk after the loop
-
-  const int row0 = blockIdx.x * TR;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  // LN of the block's rows (f32 statistics), xa and dy into shared memory
-  ln_rows<TR>(x, ln_scale, ln_bias, xa, LDX, row0, R, mu_s, rsig_s, xa_out, dy, dys);
-
-  float acc[TR][2];  // dxa, rows 0..TR-1 of columns threadIdx.x and threadIdx.x + kThreads
-#pragma unroll
-  for (int r = 0; r < TR; ++r) acc[r][0] = acc[r][1] = 0.0f;
-  const bool is_a1 = warp < kWarps / 2;
-  const int hr = (warp % (kWarps / 2)) * 4;  // this warp's a1 or dg1 rows
-
-  for (int f0 = 0; f0 < F; f0 += FC) {
-    __syncthreads();  // LN rows written / previous chunk fully consumed
-    for (int i = threadIdx.x; i < kD * FC / 4; i += kThreads) {
-      const int r = i / (FC / 4), c = (i % (FC / 4)) * 4;
-      *reinterpret_cast<float4*>(w1c + r * LDW1 + c) =
-          *reinterpret_cast<const float4*>(w1 + (size_t)r * F + f0 + c);
-    }
-    for (int i = threadIdx.x; i < FC * kD / 4; i += kThreads) {
-      const int r = i / (kD / 4), c = (i % (kD / 4)) * 4;
-      *reinterpret_cast<float4*>(w2c + r * LDX + c) =
-          *reinterpret_cast<const float4*>(w2 + (size_t)(f0 + r) * kD + c);
-    }
-    __syncthreads();
-
-    {  // warps 0-3: a1 = xa @ w1 chunk + b1; warps 4-7: dg1 = dy @ w2 chunk^T
-      float h[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      const float* arow = (is_a1 ? xa : dys) + hr * LDX;
-      if (is_a1) {
-#pragma unroll 2
-        for (int k = 0; k < kD; k += 4) {
-          const float w[4] = {w1c[k * LDW1 + lane], w1c[(k + 1) * LDW1 + lane],
-                              w1c[(k + 2) * LDW1 + lane], w1c[(k + 3) * LDW1 + lane]};
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float4 a = *reinterpret_cast<const float4*>(arow + i * LDX + k);
-            h[i] = fmaf(a.x, w[0], h[i]);
-            h[i] = fmaf(a.y, w[1], h[i]);
-            h[i] = fmaf(a.z, w[2], h[i]);
-            h[i] = fmaf(a.w, w[3], h[i]);
-          }
-        }
-      } else {
-#pragma unroll 2
-        for (int k = 0; k < kD; k += 4) {
-          const float4 w = *reinterpret_cast<const float4*>(w2c + lane * LDX + k);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float4 a = *reinterpret_cast<const float4*>(arow + i * LDX + k);
-            h[i] = fmaf(a.x, w.x, h[i]);
-            h[i] = fmaf(a.y, w.y, h[i]);
-            h[i] = fmaf(a.z, w.z, h[i]);
-            h[i] = fmaf(a.w, w.w, h[i]);
-          }
-        }
-      }
-      const float bias = is_a1 ? b1[f0 + lane] : 0.0f;
-      float* dst = is_a1 ? a1s : da1s;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dst[(hr + i) * LDW1 + lane] = h[i] + bias;
-    }
-    __syncthreads();
-    // elementwise: g1 = gelu(a1), da1 = dg1 * gelu'(a1) (kept in da1s); scratch out
-    for (int i = threadIdx.x; i < TR * FC; i += kThreads) {
-      const int r = i / FC, c = i % FC;
-      const int row = row0 + r;
-      const float a = a1s[r * LDW1 + c];
-      const float cdf = gelu_cdf(a);
-      const float da = da1s[r * LDW1 + c] * (cdf + a * gelu_pdf(a));
-      da1s[r * LDW1 + c] = da;
-      if (row < R) {
-        const size_t o = (size_t)row * F + f0 + c;
-        g1_out[o] = a * cdf;
-        da1_out[o] = da;
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x < FC) {  // db1 partial: column sums of da1 over the block's rows
-      float s = 0.0f;
-#pragma unroll
-      for (int r = 0; r < TR; ++r) s += da1s[r * LDW1 + threadIdx.x];
-      part_f[(size_t)blockIdx.x * F + f0 + threadIdx.x] = s;
-    }
-    // dxa += da1 (TR, FC) @ w1 chunk^T (FC, kD)
-#pragma unroll 2
-    for (int f = 0; f < FC; f += 4) {
-      const float4 wa = *reinterpret_cast<const float4*>(w1c + threadIdx.x * LDW1 + f);
-      const float4 wb = *reinterpret_cast<const float4*>(w1c + (threadIdx.x + kThreads) * LDW1 + f);
-#pragma unroll
-      for (int r = 0; r < TR; ++r) {
-        const float4 d = *reinterpret_cast<const float4*>(da1s + r * LDW1 + f);
-        acc[r][0] = fmaf(d.x, wa.x, acc[r][0]);
-        acc[r][0] = fmaf(d.y, wa.y, acc[r][0]);
-        acc[r][0] = fmaf(d.z, wa.z, acc[r][0]);
-        acc[r][0] = fmaf(d.w, wa.w, acc[r][0]);
-        acc[r][1] = fmaf(d.x, wb.x, acc[r][1]);
-        acc[r][1] = fmaf(d.y, wb.y, acc[r][1]);
-        acc[r][1] = fmaf(d.z, wb.z, acc[r][1]);
-        acc[r][1] = fmaf(d.w, wb.w, acc[r][1]);
-      }
-    }
-  }
-
-  __syncthreads();  // every thread is done with w1c before dxa_s overwrites it
-#pragma unroll
-  for (int r = 0; r < TR; ++r) {
-    dxa_s[r * LDX + threadIdx.x] = acc[r][0];
-    dxa_s[r * LDX + threadIdx.x + kThreads] = acc[r][1];
-  }
-  __syncthreads();
-
-  ln_bwd_rows(x, ln_scale, dxa_s, LDX, dys, LDX, mu_s, rsig_s, dx, part_d, row0, R);
-}
-}  // namespace rows32
-
-// ------------------------------------------------------------ phase B, f32
-namespace wgrad32 {
-constexpr int kThreads = 256;  // 16x16 threads, 4x4 outputs each
-constexpr int BM = 64, BN = 64, BK = 16;
-static_assert(BK * BM == 4 * kThreads && BK * BN == 4 * kThreads, "one float4 per thread per tile");
-
-// C (M, N) f32 = A^T B, A (K, M) and B (K, N) row-major f32; M, N multiples of 64.
-// Blocks [0, tiles0) compute the first product, the rest the second.
-struct Gemm {
-  const float* A;
-  const float* B;
-  float* C;
-  int M, N;
-};
-
-__global__ void __launch_bounds__(kThreads)
-chanff_bwd_wgrad_f32(Gemm g0, Gemm g1, int tiles0, int K) {
-  __shared__ __align__(16) float As[BK][BM];
-  __shared__ __align__(16) float Bs[BK][BN];
-  const bool first = (int)blockIdx.x < tiles0;
-  const Gemm g = first ? g0 : g1;
-  const int t = first ? blockIdx.x : blockIdx.x - tiles0;
-  const int tiles_n = g.N / BN;
-  const int m0 = (t / tiles_n) * BM, n0 = (t % tiles_n) * BN;
-  const int tm = (threadIdx.x / 16) * 4, tn = (threadIdx.x % 16) * 4;  // this thread's outputs
-  const int lr = threadIdx.x / 16, lc = (threadIdx.x % 16) * 4;        // its staged float4
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    const int k = k0 + lr;  // rows past K are zero
-    *reinterpret_cast<float4*>(&As[lr][lc]) =
-        k < K ? *reinterpret_cast<const float4*>(g.A + (size_t)k * g.M + m0 + lc) : zero;
-    *reinterpret_cast<float4*>(&Bs[lr][lc]) =
-        k < K ? *reinterpret_cast<const float4*>(g.B + (size_t)k * g.N + n0 + lc) : zero;
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&As[kk][tm]);
-      const float4 b4 = *reinterpret_cast<const float4*>(&Bs[kk][tn]);
-      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float b[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    *reinterpret_cast<float4*>(g.C + (size_t)(m0 + tm + i) * g.N + n0 + tn) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-}
-}  // namespace wgrad32
-
-// ------------------------------------------------------------------ phase C
-// out[c] = sum over blocks b (in order) of part[b * stride + c], c < n.
-__global__ void chanff_bwd_colsum(const float* __restrict__ part_d,
-                                  const float* __restrict__ part_f, float* __restrict__ dg,
-                                  float* __restrict__ db, float* __restrict__ db2,
-                                  float* __restrict__ db1, int nblk, int F) {
+// ------------------------------------------------------------ 5: column sums
+// Blocks first: out[c] = sum over row tiles b (in order) of the partials'
+// column c (3D columns of part_d: LN scale, LN bias, b2; F of part_f: b1).
+// Then, with split > 1, dw1 and dw2 = the sum over splits s (in order) of
+// wsplit[s][0] and wsplit[s][1], a float4 a thread.
+__global__ void chanff_bwd_colsum(const float* __restrict__ part_d, const float* __restrict__ part_f,
+                                  float* __restrict__ dg, float* __restrict__ db,
+                                  float* __restrict__ db2, float* __restrict__ db1,
+                                  const float4* __restrict__ wsplit, float4* __restrict__ dw1,
+                                  float4* __restrict__ dw2, int nblk, int F, int split) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const int ncol = 3 * kD + F;
   if (c < 3 * kD) {
     float s = 0.0f;
     for (int b = 0; b < nblk; ++b) s += part_d[(size_t)b * 3 * kD + c];
     float* out = c < kD ? dg : (c < 2 * kD ? db : db2);
     out[c % kD] = s;
-  } else if (c < 3 * kD + F) {
+  } else if (c < ncol) {
     const int f = c - 3 * kD;
     float s = 0.0f;
     for (int b = 0; b < nblk; ++b) s += part_f[(size_t)b * F + f];
     db1[f] = s;
+  } else if (split > 1) {
+    const size_t per = (size_t)kD * F / 4, q = (size_t)(c - ncol);
+    if (q >= 2 * per) return;
+    const size_t which = q / per, i = q % per;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int s = 0; s < split; ++s) {
+      const float4 p = wsplit[((size_t)s * 2 + which) * per + i];
+      v = make_float4(v.x + p.x, v.y + p.y, v.z + p.z, v.w + p.w);
+    }
+    (which ? dw2 : dw1)[i] = v;
   }
 }
 
-// Phases B and C on bf16 scratch: dw1 (D, F) = xa^T da1, dw2 (F, D) = g1^T dy,
-// then the partials' ordered column sums.
-cudaError_t finish_bf16(const bf16* xa, const bf16* g1, const bf16* da1, const bf16* dy,
-                        float* dg, float* db, float* dw1, float* db1, float* dw2, float* db2,
-                        const float* part_d, const float* part_f, int R, int F, int nblk,
-                        cudaStream_t s) {
-  const wgrad::Gemm g0{xa, da1, dw1, kD, F};
-  const wgrad::Gemm gb{g1, dy, dw2, F, kD};
-  const int tiles = (kD / wgrad::BM) * (F / wgrad::BN);
-  wgrad::chanff_bwd_wgrad<<<2 * tiles, wgrad::kThreads, 0, s>>>(g0, gb, tiles, R);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int ncol = 3 * kD + F;
-  chanff_bwd_colsum<<<(ncol + 255) / 256, 256, 0, s>>>(part_d, part_f, dg, db, db2, db1, nblk, F);
+cudaError_t launch_colsum(const float* part_d, const float* part_f, float* dg, float* db,
+                          float* db2, float* db1, const float* wsplit, float* dw1, float* dw2,
+                          int nblk, int F, int split, cudaStream_t s) {
+  const long n = 3L * kD + F + (split > 1 ? 2L * kD * F / 4 : 0);
+  chanff_bwd_colsum<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+      part_d, part_f, dg, db, db2, db1, reinterpret_cast<const float4*>(wsplit),
+      reinterpret_cast<float4*>(dw1), reinterpret_cast<float4*>(dw2), nblk, F, split);
   return cudaGetLastError();
 }
+
+// the k-steps [i0, i1) of split s of n steps cut into `split` runs
+__device__ __forceinline__ void split_range(int n, int split, int s, int& i0, int& i1) {
+  const int per = (n + split - 1) / split;
+  i0 = min(n, s * per);
+  i1 = min(n, i0 + per);
+}
+
+// the weight-grad products' tiles: dw1 (D, F) first, then dw2 (F, D)
+__host__ __device__ inline int wgrad_tiles(int F) {
+  return 2 * (kD / kTileCols) * ((F + kTileCols - 1) / kTileCols);
+}
+
+// ================================ the epilogues, shared by both dtypes
+// Epilogue thread t < 256, (ty, tx) = (t / 16, t % 16), owns rows 4 ty + i
+// and 64 + 4 ty + i, and columns 4 tx + j and 64 + 4 tx + j (i, j < 4) of a
+// 128 x 128 output tile: index i of its 8 is local row own(ty, i). acc4(i, h)
+// gives its four values at row own(ty, i), columns own(tx, 4 h ..): from
+// registers (the f32 SGEMM's own layout) or from the tile staged in shared
+// memory (bf16, from wgmma's fragments). Rows never share a writer: every
+// sum is taken in a fixed order.
+__device__ __forceinline__ int own(int t16, int i) { return (i < 4 ? 0 : 60) + 4 * t16 + i; }
+
+__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  __nv_bfloat162 lo, hi;
+  memcpy(&lo, &u.x, 4);
+  memcpy(&hi, &u.y, 4);
+  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(bits(__floats2bfloat162_rn(v.x, v.y)),
+                                            bits(__floats2bfloat162_rn(v.z, v.w)));
+}
+
+// rows row0 .. of columns n0 .. n0 + 127 of a (R, 512) tensor into dst
+// [128][kLdx] by 16-byte cp.async, zeros past R: thread tid of n's copies
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src, int row0, int n0,
+                                           int R, int tid, int n) {
+  constexpr int kPer = 16 / sizeof(T);  // elements a copy
+  for (int q = tid; q < kTileRows * kTileCols / kPer; q += n) {
+    const int r = q / (kTileCols / kPer), c = (q % (kTileCols / kPer)) * kPer;
+    const bool ok = row0 + r < R;
+    cp_async_16z(dst + r * kLdx + c, ok ? src + (size_t)(row0 + r) * kD + n0 + c : src, ok);
+  }
+}
+
+// the activation products' epilogue on a tile of rows row0 .., columns f0 ..
+// of F: g1 = gelu(a), da1 = dg1 * gelu'(a) with a = a1 + b1 in f32, stored in
+// T; the tile's column sums of da1 into part_f (red: 8 x 128 floats of
+// shared memory)
+template <typename T, class A1, class DG>
+__device__ __forceinline__ void act_epilogue(A1 a1, DG dg, const float* __restrict__ b1,
+                                             T* __restrict__ g1, T* __restrict__ da1,
+                                             float* __restrict__ part_f, float* red, int f0,
+                                             int row0, int R, int F) {
+  const int t = threadIdx.x, ty = t / 16, tx = t % 16, warp = t / 32;
+  float bb[8], cs[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = f0 + own(tx, j);
+    bb[j] = c < F ? b1[c] : 0.0f;
+    cs[j] = 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = row0 + own(ty, i);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 av = a1(i, h), dv = dg(i, h);
+      const float as[4] = {av.x, av.y, av.z, av.w}, ds[4] = {dv.x, dv.y, dv.z, dv.w};
+      float g[4], d[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float a = as[jj] + bb[4 * h + jj];
+        const float cdf = gelu_cdf(a);
+        g[jj] = a * cdf;
+        d[jj] = ds[jj] * (cdf + a * gelu_pdf(a));
+        if (row < R) cs[4 * h + jj] += d[jj];
+      }
+      const int c = f0 + 64 * h + 4 * tx;
+      if (row < R && c < F) {
+        const size_t o = (size_t)row * F + c;
+        store4(g1 + o, make_float4(g[0], g[1], g[2], g[3]));
+        store4(da1 + o, make_float4(d[0], d[1], d[2], d[3]));
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    cs[j] += __shfl_xor_sync(0xffffffffu, cs[j], 16);
+    if (t % 32 < 16) red[warp * kTileCols + own(tx, j)] = cs[j];
+  }
+  named_sync(1, kEpi);
+  if (t < kTileCols && f0 + t < F) {
+    float s = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kEpi / 32; ++w) s += red[w * kTileCols + t];
+    part_f[(size_t)blockIdx.y * F + f0 + t] = s;
+  }
+}
+
+// the dxa product's epilogue, the LN backward, on a tile of rows row0 ..,
+// columns n0 .. of 512, one block of a cluster of four that share the rows:
+// dxn = dxa * scale, xn = (x - mu) * rsig; the row sums of dxn and dxn * xn
+// over the tile's columns (a half-warp's shuffles), then over the cluster in
+// rank order through distributed shared memory; dx = dy + rsig (dxn - m1 -
+// xn m2) in T; the tile's column sums of dxa * xn, dxa and dy into part_d
+// (red: 8 x 3 x 128 floats). xs and dys: the tile's x and dy as stage_rows
+// left them in shared memory. Every thread of the block calls it (the
+// cluster barriers); only those with `epi` work.
+template <typename T, class Acc>
+__device__ __forceinline__ void dxa_epilogue(Acc acc, bool epi, const T* xs, const T* dys,
+                                             const float* __restrict__ scale,
+                                             const float* __restrict__ stats, T* __restrict__ dx,
+                                             float* __restrict__ part_d, float* red, int n0,
+                                             int row0, int R) {
+  __shared__ float rowpart[kTileRows][2];  // this block's row sums of dxn and dxn * xn
+  __shared__ float4 rowstat[kTileRows];     // mu, rsig and the row means m1, m2
+  cg::cluster_group cluster = cg::this_cluster();
+  const int t = threadIdx.x, ty = t / 16, tx = t % 16, warp = t / 32;
+  float sc[8];
+  if (epi) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sc[j] = scale[n0 + own(tx, j)];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = row0 + own(ty, i);
+      const float mu = row < R ? stats[row] : 0.0f, rs = row < R ? stats[R + row] : 0.0f;
+      float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 xv = load4(xs + own(ty, i) * kLdx + 64 * h + 4 * tx);
+        const float4 dv = acc(i, h);
+        const float xs[4] = {xv.x, xv.y, xv.z, xv.w}, ds[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const float d = ds[jj] * sc[4 * h + jj];
+          s1 += d;
+          s2 += d * ((xs[jj] - mu) * rs);
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off *= 2) {
+        s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+        s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+      }
+      if (tx == 0) {
+        rowpart[own(ty, i)][0] = s1;
+        rowpart[own(ty, i)][1] = s2;
+        rowstat[own(ty, i)] = make_float4(mu, rs, 0.0f, 0.0f);
+      }
+    }
+  }
+  cluster.sync();
+  if (t < kTileRows) {  // the row means over the cluster's 512 columns, in rank order
+    float t1 = 0.0f, t2 = 0.0f;
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r) {
+      const float* p = cluster.map_shared_rank(&rowpart[0][0], r) + 2 * t;
+      t1 += p[0];
+      t2 += p[1];
+    }
+    rowstat[t].z = t1 / kD;
+    rowstat[t].w = t2 / kD;
+  }
+  cluster.sync();  // no row partials are read past here; rowstat is complete
+  if (!epi) return;
+
+  float cp[3][8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) cp[0][j] = cp[1][j] = cp[2][j] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = row0 + own(ty, i);
+    const float4 st = rowstat[own(ty, i)];  // mu, rsig, m1, m2
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = own(ty, i) * kLdx + 64 * h + 4 * tx;  // rows past R hold zeros
+      const float4 xv = load4(xs + c), yv = load4(dys + c), dv = acc(i, h);
+      const float xs[4] = {xv.x, xv.y, xv.z, xv.w}, ys[4] = {yv.x, yv.y, yv.z, yv.w};
+      const float ds[4] = {dv.x, dv.y, dv.z, dv.w};
+      float out[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = 4 * h + jj;
+        const float xn = (xs[jj] - st.x) * st.y;
+        out[jj] = ys[jj] + st.y * (ds[jj] * sc[j] - st.z - xn * st.w);
+        cp[0][j] += ds[jj] * xn;
+        cp[1][j] += ds[jj];
+        cp[2][j] += ys[jj];
+      }
+      if (row < R)
+        store4(dx + (size_t)row * kD + n0 + 64 * h + 4 * tx,
+               make_float4(out[0], out[1], out[2], out[3]));
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      cp[k][j] += __shfl_xor_sync(0xffffffffu, cp[k][j], 16);
+      if (t % 32 < 16) red[(warp * 3 + k) * kTileCols + own(tx, j)] = cp[k][j];
+    }
+  named_sync(1, kEpi);
+  for (int j = t; j < 3 * kTileCols; j += kEpi) {
+    const int k = j / kTileCols, c = j % kTileCols;
+    float s = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kEpi / 32; ++w) s += red[(w * 3 + k) * kTileCols + c];
+    part_d[((size_t)blockIdx.y * 3 + k) * kD + n0 + c] = s;
+  }
+}
+
+// ======================================================= bf16: wgmma, TMA ring
+namespace tc {
+constexpr int BK = 64;                              // K of a stage: one 128-byte swizzled row
+constexpr int kStageA = kTileRows * BK * 2;         // 16,384
+constexpr int kStageB = kTileCols * BK * 2;         // 16,384
+constexpr int kStageBytes = kStageA + kStageB;      // 32,768
+constexpr int kConsumers = kEpi;                    // two warpgroups, 64 rows of a tile each
+constexpr int kThreads = kConsumers + 32;           // and one producer warp
+constexpr int kProducerWarp = kConsumers / 32;
+constexpr int kBox = 64 * 64 * 2;                   // 8,192: a 64 x 64 box, 128-byte swizzled
+constexpr int kTileF32 = kTileRows * kLdt * 4;      // 67,584: a staged f32 tile
+static_assert(kStageA == 2 * kBox && kStageB == 2 * kBox, "a tile is two 64-row boxes");
+
+// A ring of kStages stages of one A and one B tile, full and empty mbarriers
+// each; step i of a block's k-loop goes through stage i % kStages
+template <int kStages>
+struct Ring {
+  static constexpr size_t kSmem = 1024 + (size_t)kStages * kStageBytes + 2 * kStages * 8;
+  unsigned char* tiles;
+  uint64_t* full;
+  uint64_t* empty;
+
+  __device__ explicit Ring(unsigned char* raw) {
+    tiles = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
+                                             ~uintptr_t(1023));
+    full = reinterpret_cast<uint64_t*>(tiles + kStages * kStageBytes);
+    empty = full + kStages;
+  }
+  // one thread, then a block barrier
+  __device__ void init() {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);
+    }
+    mbar_fence_init();
+  }
+  // producer: step i's stage once its last products are done, armed for its bytes
+  __device__ unsigned char* acquire(int i) {
+    const int s = i % kStages;
+    if (i >= kStages) mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
+    mbar_arrive_expect_tx(&full[s], kStageBytes);
+    return tiles + s * kStageBytes;
+  }
+  __device__ uint64_t* bar(int i) { return &full[i % kStages]; }
+  // consumer: step i's stage once its tiles have landed
+  __device__ const unsigned char* wait(int i) {
+    mbar_wait(&full[i % kStages], (i / kStages) & 1);
+    return tiles + (i % kStages) * kStageBytes;
+  }
+  __device__ void release(int i) {
+    if (threadIdx.x % 32 == 0) mbar_arrive(&empty[i % kStages]);
+  }
+};
+
+// a K-major tile: 128 rows from r0, K from k0 (64), one box of a map in boxes of 128 rows
+__device__ __forceinline__ void load_k(unsigned char* dst, const CUtensorMap* map, int k0, int r0,
+                                       uint64_t* bar) {
+  tma_load_2d(dst, map, k0, r0, bar);
+}
+// an MN-major tile: K rows from k0 (64), 128 columns from n0, two boxes of 64 x 64
+__device__ __forceinline__ void load_mn(unsigned char* dst, const CUtensorMap* map, int n0, int k0,
+                                        uint64_t* bar) {
+  tma_load_2d(dst, map, n0, k0, bar);
+  tma_load_2d(dst + kBox, map, n0 + 64, k0, bar);
+}
+
+// acc (warpgroup wg's 64 rows x 128) += one stage's A (128 x 64) B (64 x 128).
+// TA, TB: 0 K-major, 1 MN-major. A K-major tile's rows 64 wg .. are 8192
+// bytes in, as is an MN-major tile's second box; a k16 step is 32 bytes
+// along a K-major row, 16 rows (2048 bytes) down an MN-major box; 8-row
+// groups are 1024 bytes apart, an MN-major operand's 64-column groups 8192
+template <int TA, int TB>
+__device__ __forceinline__ void stage_mma(float* acc, const unsigned char* st, int wg) {
+  const unsigned char* a = st + wg * kBox;
+  const unsigned char* b = st + kStageA;
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_m64n128k16<TA, TB>(
+        acc, TA ? gmma_desc(a + kk * 2048, kBox, 1024, 128) : gmma_desc(a + kk * 32, 16, 1024, 128),
+        TB ? gmma_desc(b + kk * 2048, kBox, 1024, 128) : gmma_desc(b + kk * 32, 16, 1024, 128));
+}
+
+// a consumer warpgroup: acc += the products of steps [i0, i1); each stage is
+// released once the next one's products are issued and its own are done
+template <int TA, int TB, int kStages>
+__device__ __forceinline__ void consume(Ring<kStages>& ring, float* acc, int i0, int i1, int wg) {
+  for (int i = i0; i < i1; ++i) {
+    const unsigned char* st = ring.wait(i);
+    wgmma_fence();
+    stage_mma<TA, TB>(acc, st, wg);
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (i > i0) ring.release(i - 1);
+  }
+  wgmma_wait<0>();
+  if (i1 > i0) ring.release(i1 - 1);
+}
+
+// a warpgroup's accumulator (64 x 128 in wgmma's fragments: value 4 n + 2 hi
+// + e at row 16 warp + lane / 4 + 8 hi, column 8 n + 2 (lane % 4) + e) into
+// rows 64 wg .. of an f32 [128][kLdt] tile, which frees the registers for a
+// long epilogue
+__device__ __forceinline__ void stage_acc(float* tile, const float* acc, int wg) {
+  const int wl = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  float* r = tile + (64 * wg + 16 * wl + lane / 4) * kLdt + 2 * (lane % 4);
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi)
+      *reinterpret_cast<float2*>(r + 8 * hi * kLdt + 8 * n) =
+          make_float2(acc[4 * n + 2 * hi], acc[4 * n + 2 * hi + 1]);
+}
+
+// an epilogue thread's four values (row own(ty, i), columns own(tx, 4 h ..)) of a staged tile
+struct Staged {
+  const float* tile;
+  __device__ float4 operator()(int i, int h) const {
+    const int t = threadIdx.x;
+    return *reinterpret_cast<const float4*>(tile + own(t / 16, i) * kLdt + 64 * h + 4 * (t % 16));
+  }
+};
+
+// ---- 2: the activation products
+constexpr int kActStages = 6;
+using ActRing = Ring<kActStages>;
+static_assert(2 * kTileF32 + kEpi / 32 * kTileCols * 4 <= kActStages * kStageBytes,
+              "a1, dg1 and the column sums staged over the ring");
+
+// grid (ceil(F / 128), ceil(R / 128)). xa_map, dy_map: (R, 512) in boxes of
+// 128 rows; w1_map: (512, F) in boxes of 64; w2_map: (F, 512) in boxes of 128.
+__global__ void __launch_bounds__(kThreads, 1)
+chanff_bwd_act(const __grid_constant__ CUtensorMap xa_map, const __grid_constant__ CUtensorMap dy_map,
+               const __grid_constant__ CUtensorMap w1_map, const __grid_constant__ CUtensorMap w2_map,
+               const float* __restrict__ b1, bf16* __restrict__ g1, bf16* __restrict__ da1,
+               float* __restrict__ part_f, int R, int F) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  ActRing ring(smem_raw);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int f0 = blockIdx.x * kTileCols, row0 = blockIdx.y * kTileRows;
+  constexpr int kSteps = kD / BK;  // of each product; a1's first, then dg1's
+  if (tid == 0) ring.init();
+  __syncthreads();
+
+  if (warp == kProducerWarp) {
+    if (lane == 0) {
+      tma_prefetch_map(&xa_map);
+      tma_prefetch_map(&dy_map);
+      tma_prefetch_map(&w1_map);
+      tma_prefetch_map(&w2_map);
+      for (int i = 0; i < 2 * kSteps; ++i) {
+        unsigned char* st = ring.acquire(i);
+        const int k0 = (i % kSteps) * BK;
+        if (i < kSteps) {
+          load_k(st, &xa_map, k0, row0, ring.bar(i));
+          load_mn(st + kStageA, &w1_map, f0, k0, ring.bar(i));
+        } else {
+          load_k(st, &dy_map, k0, row0, ring.bar(i));
+          load_k(st + kStageA, &w2_map, k0, f0, ring.bar(i));
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4;
+  float* a1s = reinterpret_cast<float*>(ring.tiles);
+  float* dgs = reinterpret_cast<float*>(ring.tiles + kTileF32);
+  {
+    float a1[64], dg[64];
+#pragma unroll
+    for (int j = 0; j < 64; ++j) a1[j] = dg[j] = 0.0f;
+    consume<0, 1>(ring, a1, 0, kSteps, wg);
+    consume<0, 0>(ring, dg, kSteps, 2 * kSteps, wg);
+    named_sync(1, kConsumers);  // every warpgroup's products are done: the ring is free
+    stage_acc(a1s, a1, wg);
+    stage_acc(dgs, dg, wg);
+  }
+  named_sync(1, kConsumers);
+  act_epilogue<bf16>(Staged{a1s}, Staged{dgs}, b1, g1, da1, part_f,
+                     reinterpret_cast<float*>(ring.tiles + 2 * kTileF32), f0, row0, R, F);
+}
+
+// ---- 3: dxa and the LN backward
+constexpr int kDxaStages = 5;
+using DxaRing = Ring<kDxaStages>;
+constexpr int kRowsBf16 = kTileRows * kLdx * 2;  // 34,816: a staged x or dy tile
+static_assert(kTileF32 + 2 * kRowsBf16 + kEpi / 32 * 3 * kTileCols * 4 <=
+                  kDxaStages * kStageBytes,
+              "dxa, x, dy and the column sums staged over the ring");
+
+// grid (4, ceil(R / 128)), clusters of the 4 along x. da1_map: (R, F), w1k_map:
+// (512, F), both in boxes of 128 rows.
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
+chanff_bwd_dxa(const __grid_constant__ CUtensorMap da1_map,
+               const __grid_constant__ CUtensorMap w1k_map, const bf16* __restrict__ x,
+               const bf16* __restrict__ dy, const float* __restrict__ scale,
+               const float* __restrict__ stats, bf16* __restrict__ dx, float* __restrict__ part_d,
+               int R, int F) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  DxaRing ring(smem_raw);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n0 = blockIdx.x * kTileCols, row0 = blockIdx.y * kTileRows;
+  const int steps = F / BK;
+  const bool consumer = warp < kProducerWarp;
+  if (tid == 0) ring.init();
+  __syncthreads();
+
+  float* dxas = reinterpret_cast<float*>(ring.tiles);
+  bf16* xs = reinterpret_cast<bf16*>(ring.tiles + kTileF32);
+  bf16* dys = xs + kTileRows * kLdx;
+  if (!consumer) {
+    if (lane == 0) {
+      tma_prefetch_map(&da1_map);
+      tma_prefetch_map(&w1k_map);
+      for (int i = 0; i < steps; ++i) {
+        unsigned char* st = ring.acquire(i);
+        load_k(st, &da1_map, i * BK, row0, ring.bar(i));
+        load_k(st + kStageA, &w1k_map, i * BK, n0, ring.bar(i));
+      }
+    }
+  } else {
+    const int wg = warp / 4;
+    float acc[64];
+#pragma unroll
+    for (int j = 0; j < 64; ++j) acc[j] = 0.0f;
+    consume<0, 0>(ring, acc, 0, steps, wg);
+    named_sync(1, kConsumers);  // every warpgroup's products are done: the ring is free
+    stage_rows(xs, x, row0, n0, R, tid, kConsumers);
+    stage_rows(dys, dy, row0, n0, R, tid, kConsumers);
+    stage_acc(dxas, acc, wg);
+    cp_async_wait_all();
+    named_sync(1, kConsumers);
+  }
+  dxa_epilogue<bf16>(Staged{dxas}, consumer, xs, dys, scale, stats, dx, part_d,
+                     reinterpret_cast<float*>(ring.tiles + kTileF32 + 2 * kRowsBf16), n0, row0,
+                     R);
+}
+
+// ---- 4: the weight-grad products
+constexpr int kWgradStages = 6;
+using WgradRing = Ring<kWgradStages>;
+
+// grid (wgrad_tiles(F), split): dw1 (D, F) = xa^T da1, then dw2 (F, D) =
+// g1^T dy, K = R cut into `split` runs; with split > 1 run s writes
+// wsplit[s][0 or 1]. All four maps in boxes of 64 rows (MN-major tiles).
+__global__ void __launch_bounds__(kThreads, 1)
+chanff_bwd_wgrad(const __grid_constant__ CUtensorMap xa_map,
+                 const __grid_constant__ CUtensorMap da1_map,
+                 const __grid_constant__ CUtensorMap g1_map,
+                 const __grid_constant__ CUtensorMap dy_map, float* __restrict__ dw1,
+                 float* __restrict__ dw2, float* __restrict__ wsplit, int R, int F, int split) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  WgradRing ring(smem_raw);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int half = wgrad_tiles(F) / 2;
+  const bool first = (int)blockIdx.x < half;
+  const int t = first ? blockIdx.x : blockIdx.x - half;
+  const int M = first ? kD : F, N = first ? F : kD;
+  const int tiles_n = (N + kTileCols - 1) / kTileCols;
+  const int m0 = (t / tiles_n) * kTileRows, n0 = (t % tiles_n) * kTileCols;
+  int i0, i1;
+  split_range((R + BK - 1) / BK, split, blockIdx.y, i0, i1);
+  if (tid == 0) ring.init();
+  __syncthreads();
+
+  if (warp == kProducerWarp) {
+    if (lane == 0) {
+      const CUtensorMap* am = first ? &xa_map : &g1_map;
+      const CUtensorMap* bm = first ? &da1_map : &dy_map;
+      tma_prefetch_map(am);
+      tma_prefetch_map(bm);
+      for (int i = i0; i < i1; ++i) {
+        unsigned char* st = ring.acquire(i - i0);
+        load_mn(st, am, m0, i * BK, ring.bar(i - i0));
+        load_mn(st + kStageA, bm, n0, i * BK, ring.bar(i - i0));
+      }
+    }
+    return;
+  }
+  const int wg = warp / 4, wl = warp % 4, gq = lane / 4, tq = lane % 4;
+  float acc[64];
+#pragma unroll
+  for (int j = 0; j < 64; ++j) acc[j] = 0.0f;
+  consume<1, 1>(ring, acc, 0, i1 - i0, wg);
+
+  float* out = split == 1 ? (first ? dw1 : dw2)
+                          : wsplit + ((size_t)blockIdx.y * 2 + (first ? 0 : 1)) * kD * F;
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int m = m0 + 64 * wg + 16 * wl + gq + 8 * hi;
+    if (m >= M) continue;
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      const int c = n0 + 8 * n + 2 * tq;
+      if (c < N)
+        *reinterpret_cast<float2*>(out + (size_t)m * N + c) =
+            make_float2(acc[4 * n + 2 * hi], acc[4 * n + 2 * hi + 1]);
+    }
+  }
+}
+
+// the weight-grad products on bf16 scratch: xa (R, 512), g1 and da1 (R, F), dy (R, 512)
+cudaError_t launch_wgrad(const bf16* xa, const bf16* g1, const bf16* da1, const bf16* dy,
+                         float* dw1, float* dw2, float* wsplit, int R, int F, int split,
+                         cudaStream_t s) {
+  CUtensorMap xa_map, da1_map, g1_map, dy_map;
+  cudaError_t err = make_map_2d_bf16(&xa_map, xa, kD, R, kD * 2, 64);
+  if (err == cudaSuccess) err = make_map_2d_bf16(&da1_map, da1, F, R, (uint64_t)F * 2, 64);
+  if (err == cudaSuccess) err = make_map_2d_bf16(&g1_map, g1, F, R, (uint64_t)F * 2, 64);
+  if (err == cudaSuccess) err = make_map_2d_bf16(&dy_map, dy, kD, R, kD * 2, 64);
+  if (err == cudaSuccess) err = set_smem(chanff_bwd_wgrad, WgradRing::kSmem);
+  if (err != cudaSuccess) return err;
+  chanff_bwd_wgrad<<<dim3(wgrad_tiles(F), split), kThreads, WgradRing::kSmem, s>>>(
+      xa_map, da1_map, g1_map, dy_map, dw1, dw2, wsplit, R, F, split);
+  return cudaGetLastError();
+}
+
+cudaError_t launch(const bf16* x, const bf16* dy, const float* scale, const float* bias,
+                   const bf16* w1, const float* b1, const bf16* w2, bf16* dx, float* dg,
+                   float* db, float* dw1, float* db1, float* dw2, float* db2, bf16* xa, bf16* g1,
+                   bf16* da1, float* stats, float* part_d, float* part_f, float* wsplit, int R,
+                   int F, int split, cudaStream_t s) {
+  const int nblk = (R + kTileRows - 1) / kTileRows;
+  chanff_bwd_ln<bf16><<<(R + kLnRows - 1) / kLnRows, 32 * kLnRows, 0, s>>>(x, scale, bias, xa,
+                                                                            stats, R);
+  cudaError_t err = cudaGetLastError();
+  CUtensorMap xa_map, dy_map, w1_map, w2_map, da1_map, w1k_map;
+  if (err == cudaSuccess) err = make_map_2d_bf16(&xa_map, xa, kD, R, kD * 2, kTileRows);
+  if (err == cudaSuccess) err = make_map_2d_bf16(&dy_map, dy, kD, R, kD * 2, kTileRows);
+  if (err == cudaSuccess) err = make_map_2d_bf16(&w1_map, w1, F, kD, (uint64_t)F * 2, 64);
+  if (err == cudaSuccess) err = make_map_2d_bf16(&w2_map, w2, kD, F, kD * 2, kTileCols);
+  if (err == cudaSuccess) err = make_map_2d_bf16(&da1_map, da1, F, R, (uint64_t)F * 2, kTileRows);
+  if (err == cudaSuccess) err = make_map_2d_bf16(&w1k_map, w1, F, kD, (uint64_t)F * 2, kTileCols);
+  if (err == cudaSuccess) err = set_smem(chanff_bwd_act, ActRing::kSmem);
+  if (err == cudaSuccess) err = set_smem(chanff_bwd_dxa, DxaRing::kSmem);
+  if (err != cudaSuccess) return err;
+  chanff_bwd_act<<<dim3((F + kTileCols - 1) / kTileCols, nblk), kThreads, ActRing::kSmem, s>>>(
+      xa_map, dy_map, w1_map, w2_map, b1, g1, da1, part_f, R, F);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  chanff_bwd_dxa<<<dim3(kCluster, nblk), kThreads, DxaRing::kSmem, s>>>(
+      da1_map, w1k_map, x, dy, scale, stats, dx, part_d, R, F);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) err = launch_wgrad(xa, g1, da1, dy, dw1, dw2, wsplit, R, F, split, s);
+  if (err != cudaSuccess) return err;
+  return launch_colsum(part_d, part_f, dg, db, db2, db1, wsplit, dw1, dw2, nblk, F, split, s);
+}
+}  // namespace tc
+
+// ================================================ f32: register-tiled SGEMMs
+namespace simt {
+constexpr int BK = 16;                  // K of a stage
+constexpr int kStages = 3;              // cp.async stages in flight
+constexpr int kThreads = kEpi;          // 16 x 16 threads, 8 x 8 outputs each
+constexpr int LDS = kTileRows + 4;      // f32 row stride of an operand staged [k][m]
+constexpr int LDK = BK + 4;             // f32 row stride of an operand staged [m][k]
+constexpr int kOp = kTileRows * LDK;    // floats of one staged operand tile, either way
+static_assert(kTileRows == kTileCols && kTileRows == 128 && kOp >= BK * LDS, "the thread map");
+
+// An operand of a product, element (k, m) at p[k * ld + m] when its rows run
+// along M or N, at p[m * ld + k] when they run along K; m at or past m_end
+// and k at or past k_end read as zero.
+struct Operand {
+  const float* p;
+  int ld, m_end, k_end;
+};
+
+// A's (BK, 128) tile at (k0, m0) into dst by 16-byte cp.async, as the
+// operand lies: [m][k] when its rows run along K (kK), else [k][m]
+template <bool kK>
+__device__ __forceinline__ void stage_a(float* dst, const Operand& op, int m0, int k0) {
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < BK * kTileRows / 4 / kThreads; ++j) {
+    const int q = t + j * kThreads;
+    const int m = kK ? q / (BK / 4) : (q % (kTileRows / 4)) * 4;
+    const int k = kK ? (q % (BK / 4)) * 4 : q / (kTileRows / 4);
+    const bool ok = m0 + m < op.m_end && k0 + k < op.k_end;
+    const size_t src = kK ? (size_t)(m0 + m) * op.ld + k0 + k : (size_t)(k0 + k) * op.ld + m0 + m;
+    cp_async_16z(dst + (kK ? m * LDK + k : k * LDS + m), ok ? op.p + src : op.p, ok);
+  }
+}
+
+// B's (BK, 128) tile at (k0, n0) into dst as [k][n]: 16 bytes a copy where
+// its rows run along N, 4 bytes (transposing) where they run along K (kK)
+template <bool kK>
+__device__ __forceinline__ void stage_b(float* dst, const Operand& op, int n0, int k0) {
+  const int t = threadIdx.x;
+  if (kK) {
+#pragma unroll
+    for (int j = 0; j < BK * kTileCols / kThreads; ++j) {
+      const int e = t + j * kThreads, k = e % BK, n = e / BK;
+      const bool ok = n0 + n < op.m_end && k0 + k < op.k_end;
+      cp_async_4z(dst + k * LDS + n, ok ? op.p + (size_t)(n0 + n) * op.ld + k0 + k : op.p, ok);
+    }
+  } else {
+    stage_a<false>(dst, op, n0, k0);
+  }
+}
+
+// acc += a staged A tile times a staged B tile. An [m][k] A is read four k at
+// a time (a float4 along each of the thread's rows), a [k][m] one a k at a time
+template <bool kKA>
+__device__ __forceinline__ void fma_tiles(float (&acc)[8][8], const float* a, const float* b) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int k0 = 0; k0 < BK; k0 += 4) {
+    float a4[8][4];
+    if (kKA)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(a + own(ty, i) * LDK + k0);
+        a4[i][0] = v.x, a4[i][1] = v.y, a4[i][2] = v.z, a4[i][3] = v.w;
+      }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float av[8];
+      if (kKA) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) av[i] = a4[i][kk];
+      } else {
+        const float4 a0 = *reinterpret_cast<const float4*>(a + (k0 + kk) * LDS + 4 * ty);
+        const float4 a1 = *reinterpret_cast<const float4*>(a + (k0 + kk) * LDS + 64 + 4 * ty);
+        av[0] = a0.x, av[1] = a0.y, av[2] = a0.z, av[3] = a0.w;
+        av[4] = a1.x, av[5] = a1.y, av[6] = a1.z, av[7] = a1.w;
+      }
+      const float4 b0 = *reinterpret_cast<const float4*>(b + (k0 + kk) * LDS + 4 * tx);
+      const float4 b1 = *reinterpret_cast<const float4*>(b + (k0 + kk) * LDS + 64 + 4 * tx);
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+}
+
+// The mainloop: k-steps [i0, i1) of BK, kStages in flight. stage_fn(slot,
+// k0) issues a step's copies into slot, compute_fn(slot) its products. Ends
+// with every copy landed and every thread past its last products.
+template <class Stage, class Compute>
+__device__ __forceinline__ void pipeline(int i0, int i1, Stage stage_fn, Compute compute_fn) {
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (i0 + s < i1) stage_fn(s, (i0 + s) * BK);
+    cp_async_commit();
+  }
+  for (int i = i0; i < i1; ++i) {
+    cp_async_wait<kStages - 2>();  // step i's copies have landed
+    __syncthreads();               // and every thread is past step i - 1's products
+    const int next = i + kStages - 1;
+    if (next < i1) stage_fn((next - i0) % kStages, next * BK);
+    cp_async_commit();
+    compute_fn((i - i0) % kStages);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+__device__ __forceinline__ void zero(float (&acc)[8][8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+}
+
+// an epilogue thread's four values (row own(ty, i), columns own(tx, 4 h ..)) in registers
+struct Regs {
+  const float (&acc)[8][8];
+  __device__ float4 operator()(int i, int h) const {
+    return make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+  }
+};
+
+// ---- 2: the activation products; grid (ceil(F / 128), ceil(R / 128))
+constexpr size_t kActSmem = (size_t)kStages * 4 * kOp * sizeof(float);
+
+__global__ void __launch_bounds__(kThreads, 1)
+chanff_bwd_act_f32(const float* __restrict__ xa, const float* __restrict__ dy,
+                   const float* __restrict__ w1, const float* __restrict__ b1,
+                   const float* __restrict__ w2, float* __restrict__ g1, float* __restrict__ da1,
+                   float* __restrict__ part_f, int R, int F) {
+  extern __shared__ __align__(16) float sm[];  // [kStages][xa, w1, dy, w2][kOp]
+  const int f0 = blockIdx.x * kTileCols, row0 = blockIdx.y * kTileRows;
+  const Operand xa_op{xa, kD, R, kD}, dy_op{dy, kD, R, kD};
+  const Operand w1_op{w1, F, F, kD}, w2_op{w2, kD, F, kD};
+  float a1[8][8], dg[8][8];
+  zero(a1);
+  zero(dg);
+  pipeline(
+      0, kD / BK,
+      [&](int slot, int k0) {
+        float* s = sm + slot * 4 * kOp;
+        stage_a<true>(s, xa_op, row0, k0);
+        stage_b<false>(s + kOp, w1_op, f0, k0);
+        stage_a<true>(s + 2 * kOp, dy_op, row0, k0);
+        stage_b<true>(s + 3 * kOp, w2_op, f0, k0);
+      },
+      [&](int slot) {
+        const float* s = sm + slot * 4 * kOp;
+        fma_tiles<true>(a1, s, s + kOp);
+        fma_tiles<true>(dg, s + 2 * kOp, s + 3 * kOp);
+      });
+  act_epilogue<float>(Regs{a1}, Regs{dg}, b1, g1, da1, part_f, sm, f0, row0, R, F);
+}
+
+// ---- 3: dxa and the LN backward; grid (4, ceil(R / 128)), clusters of 4
+constexpr size_t kRowsF32 = (size_t)kTileRows * kLdx;  // floats of a staged x or dy tile
+// the stages, then x, dy and the column sums over them
+constexpr size_t kDxaSmem = 2 * kRowsF32 * 4 + kEpi / 32 * 3 * kTileCols * 4;
+static_assert(kDxaSmem >= (size_t)kStages * 2 * kOp * sizeof(float), "the stages fit");
+
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
+chanff_bwd_dxa_f32(const float* __restrict__ da1, const float* __restrict__ w1,
+                   const float* __restrict__ x, const float* __restrict__ dy,
+                   const float* __restrict__ scale, const float* __restrict__ stats,
+                   float* __restrict__ dx, float* __restrict__ part_d, int R, int F) {
+  extern __shared__ __align__(16) float sm[];  // [kStages][da1, w1][kOp]
+  const int n0 = blockIdx.x * kTileCols, row0 = blockIdx.y * kTileRows;
+  const Operand da_op{da1, F, R, F}, w1_op{w1, F, kD, F};
+  float acc[8][8];
+  zero(acc);
+  pipeline(
+      0, F / BK,
+      [&](int slot, int k0) {
+        float* s = sm + slot * 2 * kOp;
+        stage_a<true>(s, da_op, row0, k0);
+        stage_b<true>(s + kOp, w1_op, n0, k0);
+      },
+      [&](int slot) {
+        const float* s = sm + slot * 2 * kOp;
+        fma_tiles<true>(acc, s, s + kOp);
+      });
+  stage_rows(sm, x, row0, n0, R, threadIdx.x, kThreads);
+  stage_rows(sm + kRowsF32, dy, row0, n0, R, threadIdx.x, kThreads);
+  cp_async_wait_all();
+  __syncthreads();
+  dxa_epilogue<float>(Regs{acc}, true, sm, sm + kRowsF32, scale, stats, dx, part_d,
+                      sm + 2 * kRowsF32, n0, row0, R);
+}
+
+// ---- 4: the weight-grad products; grid (wgrad_tiles(F), split), as tc's
+constexpr size_t kWgradSmem = (size_t)kStages * 2 * kOp * sizeof(float);
+
+__global__ void __launch_bounds__(kThreads, 2)
+chanff_bwd_wgrad_f32(const float* __restrict__ xa, const float* __restrict__ da1,
+                     const float* __restrict__ g1, const float* __restrict__ dy,
+                     float* __restrict__ dw1, float* __restrict__ dw2, float* __restrict__ wsplit,
+                     int R, int F, int split) {
+  extern __shared__ __align__(16) float sm[];  // [kStages][A, B][kOp]
+  const int half = wgrad_tiles(F) / 2;
+  const bool first = (int)blockIdx.x < half;
+  const int tile = first ? blockIdx.x : blockIdx.x - half;
+  const int M = first ? kD : F, N = first ? F : kD;
+  const int tiles_n = (N + kTileCols - 1) / kTileCols;
+  const int m0 = (tile / tiles_n) * kTileRows, n0 = (tile % tiles_n) * kTileCols;
+  const Operand a_op = first ? Operand{xa, kD, kD, R} : Operand{g1, F, F, R};
+  const Operand b_op = first ? Operand{da1, F, F, R} : Operand{dy, kD, kD, R};
+  int i0, i1;
+  split_range((R + BK - 1) / BK, split, blockIdx.y, i0, i1);
+  float acc[8][8];
+  zero(acc);
+  pipeline(
+      i0, i1,
+      [&](int slot, int k0) {
+        float* s = sm + slot * 2 * kOp;
+        stage_a<false>(s, a_op, m0, k0);
+        stage_b<false>(s + kOp, b_op, n0, k0);
+      },
+      [&](int slot) {
+        const float* s = sm + slot * 2 * kOp;
+        fma_tiles<false>(acc, s, s + kOp);
+      });
+
+  float* out = split == 1 ? (first ? dw1 : dw2)
+                          : wsplit + ((size_t)blockIdx.y * 2 + (first ? 0 : 1)) * kD * F;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + own(ty, i);
+    if (m >= M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = n0 + 64 * h + 4 * tx;
+      if (c < N)
+        *reinterpret_cast<float4*>(out + (size_t)m * N + c) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+    }
+  }
+}
+
+cudaError_t launch(const float* x, const float* dy, const float* scale, const float* bias,
+                   const float* w1, const float* b1, const float* w2, float* dx, float* dg,
+                   float* db, float* dw1, float* db1, float* dw2, float* db2, float* xa, float* g1,
+                   float* da1, float* stats, float* part_d, float* part_f, float* wsplit, int R,
+                   int F, int split, cudaStream_t s) {
+  const int nblk = (R + kTileRows - 1) / kTileRows;
+  cudaError_t err = set_smem(chanff_bwd_act_f32, kActSmem);
+  if (err == cudaSuccess) err = set_smem(chanff_bwd_dxa_f32, kDxaSmem);
+  if (err == cudaSuccess) err = set_smem(chanff_bwd_wgrad_f32, kWgradSmem);
+  if (err != cudaSuccess) return err;
+  chanff_bwd_ln<float><<<(R + kLnRows - 1) / kLnRows, 32 * kLnRows, 0, s>>>(x, scale, bias, xa,
+                                                                             stats, R);
+  chanff_bwd_act_f32<<<dim3((F + kTileCols - 1) / kTileCols, nblk), kThreads, kActSmem, s>>>(
+      xa, dy, w1, b1, w2, g1, da1, part_f, R, F);
+  chanff_bwd_dxa_f32<<<dim3(kCluster, nblk), kThreads, kDxaSmem, s>>>(da1, w1, x, dy, scale, stats,
+                                                                      dx, part_d, R, F);
+  chanff_bwd_wgrad_f32<<<dim3(wgrad_tiles(F), split), kThreads, kWgradSmem, s>>>(
+      xa, da1, g1, dy, dw1, dw2, wsplit, R, F, split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_colsum(part_d, part_f, dg, db, db2, db1, wsplit, dw1, dw2, nblk, F, split, s);
+}
+}  // namespace simt
 
 }  // namespace
 
 extern "C" {
 
-// Scratch the caller allocates, in the compute dtype: xa (R*D), g1 and da1
-// (R*F each); and f32 part_d (ceil(R/16)*3*D), part_f (ceil(R/16)*F), see
-// pips_chanff_bwd_blocks. Shapes the kernel takes: D == 512, F a multiple of
-// 64, R >= 1. dtype_code 0 = float32, 1 = bfloat16 (x, dy, w1, w2, dx and the
-// scratch); all pointers 16-byte aligned and contiguous.
-int pips_chanff_bwd_blocks(int R) { return (R + kBwdRows - 1) / kBwdRows; }
-
+// Shapes the kernel takes: D == 512, F a positive multiple of 64, R >= 1;
+// part_rows == 128, the rows of the row tiles the partials are summed over;
+// 1 <= split <= 16, the weight-grad products' K splits. dtype_code 0 =
+// float32, 1 = bfloat16 (x, dy, w1, w2, dx and xa, g1, da1). Scratch the
+// caller allocates: xa (R, D), g1 and da1 (R, F) in the compute dtype; f32
+// stats (2, R), part_d (ceil(R / 128), 3, D), part_f (ceil(R / 128), F), and
+// with split > 1 wsplit (split, 2, D * F) (else it may be null). All pointers
+// 16-byte aligned and contiguous.
 int pips_chanff_bwd(const void* x, const void* dy, const void* ln_scale, const void* ln_bias,
-                    const void* w1, const void* b1, const void* w2, void* dx, void* dg,
-                    void* db, void* dw1, void* db1, void* dw2, void* db2, void* xa_scratch,
-                    void* g1_scratch, void* da1_scratch, void* part_d, void* part_f, int R,
-                    int D, int F, int dtype_code, int device, void* stream) {
-  if (D != kD || F <= 0 || F % rows::FC != 0 || R <= 0 || (dtype_code != 0 && dtype_code != 1))
+                    const void* w1, const void* b1, const void* w2, void* dx, void* dg, void* db,
+                    void* dw1, void* db1, void* dw2, void* db2, void* xa, void* g1, void* da1,
+                    void* stats, void* part_d, void* part_f, void* wsplit, int R, int D, int F,
+                    int part_rows, int split, int dtype_code, int device, void* stream) {
+  if (D != kD || F <= 0 || F % 64 != 0 || R <= 0 || part_rows != kTileRows || split < 1 ||
+      split > kMaxSplit || (split > 1 && wsplit == nullptr) || (dtype_code != 0 && dtype_code != 1))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nblk = pips_chanff_bwd_blocks(R);
-  const float* g = static_cast<const float*>(ln_scale);
-  const float* b = static_cast<const float*>(ln_bias);
+  const float* sc = static_cast<const float*>(ln_scale);
+  const float* bi = static_cast<const float*>(ln_bias);
   const float* bb1 = static_cast<const float*>(b1);
-  float* pd = static_cast<float*>(part_d);
-  float* pf = static_cast<float*>(part_f);
-  if (dtype_code == 1) {
-    err = cudaFuncSetAttribute(rows::chanff_bwd_rows, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)rows::kSmem);
-    if (err != cudaSuccess) return (int)err;
-    bf16* xa = static_cast<bf16*>(xa_scratch);
-    bf16* g1 = static_cast<bf16*>(g1_scratch);
-    bf16* da1 = static_cast<bf16*>(da1_scratch);
-    rows::chanff_bwd_rows<<<nblk, rows::kThreads, rows::kSmem, s>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(dy), g, b,
-        static_cast<const bf16*>(w1), bb1, static_cast<const bf16*>(w2), static_cast<bf16*>(dx),
-        xa, g1, da1, pd, pf, R, F);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    return (int)finish_bf16(xa, g1, da1, static_cast<const bf16*>(dy), static_cast<float*>(dg),
-                            static_cast<float*>(db), static_cast<float*>(dw1),
-                            static_cast<float*>(db1), static_cast<float*>(dw2),
-                            static_cast<float*>(db2), pd, pf, R, F, nblk, s);
-  }
-  err = cudaFuncSetAttribute(rows32::chanff_bwd_rows_f32,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rows32::kSmem);
-  if (err != cudaSuccess) return (int)err;
-  float* xa = static_cast<float*>(xa_scratch);
-  float* g1 = static_cast<float*>(g1_scratch);
-  float* da1 = static_cast<float*>(da1_scratch);
-  rows32::chanff_bwd_rows_f32<<<nblk, rows32::kThreads, rows32::kSmem, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(dy), g, b,
-      static_cast<const float*>(w1), bb1, static_cast<const float*>(w2), static_cast<float*>(dx),
-      xa, g1, da1, pd, pf, R, F);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const wgrad32::Gemm g0{xa, da1, static_cast<float*>(dw1), kD, F};
-  const wgrad32::Gemm gb{g1, static_cast<const float*>(dy), static_cast<float*>(dw2), F, kD};
-  const int tiles = (kD / wgrad32::BM) * (F / wgrad32::BN);
-  wgrad32::chanff_bwd_wgrad_f32<<<2 * tiles, wgrad32::kThreads, 0, s>>>(g0, gb, tiles, R);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int ncol = 3 * kD + F;
-  chanff_bwd_colsum<<<(ncol + 255) / 256, 256, 0, s>>>(
-      pd, pf, static_cast<float*>(dg), static_cast<float*>(db), static_cast<float*>(db2),
-      static_cast<float*>(db1), nblk, F);
-  return (int)cudaGetLastError();
+  float* f[] = {static_cast<float*>(dg),   static_cast<float*>(db),    static_cast<float*>(dw1),
+                static_cast<float*>(db1),  static_cast<float*>(dw2),   static_cast<float*>(db2),
+                static_cast<float*>(stats), static_cast<float*>(part_d), static_cast<float*>(part_f),
+                static_cast<float*>(wsplit)};
+  if (dtype_code == 1)
+    return (int)tc::launch(static_cast<const bf16*>(x), static_cast<const bf16*>(dy), sc, bi,
+                           static_cast<const bf16*>(w1), bb1, static_cast<const bf16*>(w2),
+                           static_cast<bf16*>(dx), f[0], f[1], f[2], f[3], f[4], f[5],
+                           static_cast<bf16*>(xa), static_cast<bf16*>(g1), static_cast<bf16*>(da1),
+                           f[6], f[7], f[8], f[9], R, F, split, s);
+  return (int)simt::launch(static_cast<const float*>(x), static_cast<const float*>(dy), sc, bi,
+                           static_cast<const float*>(w1), bb1, static_cast<const float*>(w2),
+                           static_cast<float*>(dx), f[0], f[1], f[2], f[3], f[4], f[5],
+                           static_cast<float*>(xa), static_cast<float*>(g1),
+                           static_cast<float*>(da1), f[6], f[7], f[8], f[9], R, F, split, s);
 }
 
-// Phases B and C alone, bf16, on scratch in pips_chanff_bwd's layout that
-// another phase A wrote in nblk blocks of 16 rows (chanff_chunk.cu's).
+// The weight-grad products and the column sums alone, bf16, on scratch in
+// pips_chanff_bwd's layout that another kernel wrote, its partials in nblk
+// row tiles of part_rows rows (chanff_chunk.cu's 16).
 int pips_chanff_bwd_finish(const void* xa, const void* g1, const void* da1, const void* dy,
                            void* dg, void* db, void* dw1, void* db1, void* dw2, void* db2,
-                           const void* part_d, const void* part_f, int R, int F, int nblk,
-                           int device, void* stream) {
-  if (F <= 0 || F % wgrad::BN != 0 || R <= 0 || nblk != pips_chanff_bwd_blocks(R))
+                           const void* part_d, const void* part_f, void* wsplit, int R, int F,
+                           int nblk, int part_rows, int split, int device, void* stream) {
+  if (F <= 0 || F % 64 != 0 || R <= 0 || part_rows <= 0 ||
+      nblk != (R + part_rows - 1) / part_rows || split < 1 || split > kMaxSplit ||
+      (split > 1 && wsplit == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return (int)finish_bf16(static_cast<const bf16*>(xa), static_cast<const bf16*>(g1),
-                          static_cast<const bf16*>(da1), static_cast<const bf16*>(dy),
-                          static_cast<float*>(dg), static_cast<float*>(db),
-                          static_cast<float*>(dw1), static_cast<float*>(db1),
-                          static_cast<float*>(dw2), static_cast<float*>(db2),
-                          static_cast<const float*>(part_d), static_cast<const float*>(part_f),
-                          R, F, nblk, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* ws = static_cast<float*>(wsplit);
+  err = tc::launch_wgrad(static_cast<const bf16*>(xa), static_cast<const bf16*>(g1),
+                         static_cast<const bf16*>(da1), static_cast<const bf16*>(dy),
+                         static_cast<float*>(dw1), static_cast<float*>(dw2), ws, R, F, split, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_colsum(static_cast<const float*>(part_d), static_cast<const float*>(part_f),
+                            static_cast<float*>(dg), static_cast<float*>(db),
+                            static_cast<float*>(db2), static_cast<float*>(db1), ws,
+                            static_cast<float*>(dw1), static_cast<float*>(dw2), nblk, F, split, s);
 }
 
 }  // extern "C"

@@ -29,10 +29,12 @@
 //     da1 = dg1 * gelu'(a1) needs no block barrier; g1 and da1 go to scratch,
 //     da1 also into a bf16 (16, FC) tile; then dxa += da1 @ w1[:, chunk]^T,
 //     w1 streamed again in slices of 32 columns. The LN backward and the
-//     per-block partials are chanff_rows.cuh's, and chanff_bwd.cu's phases B and C
-//     (pips_chanff_bwd_finish, called by the wrapper) finish the grads.
+//     per-block partials (16-row tiles) are chanff_rows.cuh's, and
+//     chanff_bwd.cu's weight-grad products and column sums
+//     (pips_chanff_bwd_finish, called by the wrapper with the tile count and
+//     its 16 rows) finish the grads.
 // FC is a template parameter: 128, 256, 512 or 1024. Each backward chunk reads
-// w1 twice, where chanff_bwd.cu's 64-wide chunks hold it for both products.
+// w1 twice and every block walks all of both weights.
 // Rows past R are zero in shared memory and never stored. wgmma/TMA
 // pipelining is later work.
 //
@@ -408,7 +410,8 @@ int pips_chanff_chunk_fwd(const void* x, const void* ln_scale, const void* ln_bi
 
 // Phase A of the backward: dx, scratch xa (R*D), g1 and da1 (R*F) in bf16 and
 // the f32 partials part_d (ceil(R/16)*3*D) and part_f (ceil(R/16)*F), in
-// chanff_rows.cuh's layout for pips_chanff_bwd_finish.
+// chanff_rows.cuh's layout, tiles of kBwdRows = 16 rows, for
+// pips_chanff_bwd_finish.
 int pips_chanff_chunk_bwd_rows(const void* x, const void* dy, const void* ln_scale,
                                const void* ln_bias, const void* w1, const void* b1,
                                const void* w2, void* dx, void* xa, void* g1, void* da1,

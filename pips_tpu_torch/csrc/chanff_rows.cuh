@@ -1,16 +1,18 @@
 // Row-wise device code shared by the channel-block kernels (chanff_fwd.cu,
 // chanff_bwd.cu, chanff_chunk.cu), in the compute dtype T (float or bf16):
 // the LayerNorm of a block's rows, GELU and its derivative, the LN backward,
-// and the per-block column partials that chanff_bwd.cu's phase C sums.
+// and the per-block column partials that chanff_bwd.cu's column sums add.
 //
 // Numerics (those of chan_ff_reference and the JAX kernels): LN statistics in
 // f32 with var = E[x^2] - mu^2 clamped at 0, eps 1e-5; exact-erf GELU in f32,
 // CUDA's erff standing in for XLA's rational erf (a few f32 ulps apart).
 //
-// The partials layout, one definition for every backward phase A and for
-// phase C: blocks of kBwdRows rows, block b at part_d + b * 3 * kD holding the
-// column sums over its rows of [0] dxa * xn (LN scale), [1] dxa (LN bias) and
-// [2] dy (b2), and at part_f + b * F those of da1 (b1).
+// The partials layout, one definition for every kernel that writes them and
+// for chanff_bwd.cu's column sums: row tiles of a fixed number of rows (128
+// in chanff_bwd.cu, kBwdRows in chanff_chunk.cu; the column sums are told the
+// tile count and its rows), tile b at part_d + b * 3 * kD holding the column
+// sums over its rows of [0] dxa * xn (LN scale), [1] dxa (LN bias) and [2] dy
+// (b2), and at part_f + b * F those of da1 (b1).
 
 #pragma once
 
@@ -21,7 +23,7 @@ namespace {
 
 constexpr int kD = 512;        // channel width the kernels are built for
 constexpr float kEps = 1e-5f;  // LayerNorm epsilon
-constexpr int kBwdRows = 16;   // rows per block of every backward phase A
+constexpr int kBwdRows = 16;   // rows per block of chanff_chunk.cu's backward, its partials' tiles
 
 constexpr size_t align128(size_t b) { return (b + 127) / 128 * 128; }
 
@@ -86,7 +88,7 @@ __device__ void ln_rows(const T* __restrict__ x, const float* __restrict__ scale
   }
 }
 
-// The end of a backward phase A, after a barrier that follows the store of
+// The end of chanff_chunk.cu's backward, after a barrier that follows the store of
 // dxa: the LN backward of the block's kBwdRows rows into dx, one warp per row
 // (dxn = dxa * scale; dx = dy + rsig * (dxn - mean(dxn) - xn * mean(dxn * xn))),
 // then the block's part_d partials. dxa (f32, row stride ldc), dys (row

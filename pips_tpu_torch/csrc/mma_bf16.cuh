@@ -1,5 +1,6 @@
 // bf16 tensor-core helpers shared by the conv kernels (conv3x3_fwd.cu,
-// conv3x3_stats.cu), stem_wgrad.cu, mixer_probes.cu and row_contract.cu:
+// conv3x3_stats.cu), stem_wgrad.cu, mixer_probes.cu, row_contract.cu and
+// chanff_bwd.cu:
 // ldmatrix fragments from shared memory (the .trans form reads an operand
 // stored with the other dimension contiguous), stmatrix of accumulator
 // fragments back (transposed) and the mma.sync m16n8k16

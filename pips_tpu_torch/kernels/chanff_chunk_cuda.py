@@ -6,7 +6,9 @@ backward, with the JAX custom VJP's contract (``chan_ff_block_chunked``). On
 a bf16 CUDA tensor the forward launches ``csrc/chanff_chunk.cu:chanff_chunk_fwd``
 (which replaces the TPU kernel of ``make_chunked``'s fwd, :121) and the
 backward ``chanff_chunk_bwd_rows`` (its bwd, :149), finished by
-``csrc/chanff_bwd.cu``'s weight-grad GEMMs and ordered column sums.
+``csrc/chanff_bwd.cu``'s weight-grad products and ordered column sums
+(``mixer_cuda.bwd_finish``, told that the partials come in tiles of
+``PART_ROWS`` rows).
 
 ``chan_ff_chunked_reference`` and ``chan_ff_chunked_bwd_reference`` are the
 plain versions, transcriptions of ``_fwd_kernel_chunked`` and
@@ -18,7 +20,7 @@ dtype before the bias, as the flax model does.
 A CPU tensor goes to the plain versions, in f32 or bf16. A CUDA tensor
 launches the kernels or raises. In bf16 those are ``chanff_chunk.cu``'s, at
 the widths in ``FCS``. In f32 they are ``mixer_cuda``'s f32 SIMT kernels
-(``csrc/chanff_fwd.cu``, and ``chanff_bwd.cu``'s ``rows32`` / ``wgrad32``),
+(``csrc/chanff_fwd.cu``, and ``chanff_bwd.cu``'s f32 SGEMM kernels),
 at any fc that divides F: with ``cdtype = f32`` every cast to the compute
 dtype in ``_fwd_kernel_chunked`` and ``_bwd_kernel_chunked`` is the
 identity, so chunking F rounds nothing, and the f32 chunked block is the f32
@@ -36,6 +38,7 @@ import torch
 from pips_tpu_torch.kernels import _build, mixer_cuda
 
 FCS = (128, 256, 512, 1024)  # chunk widths the kernels are compiled for
+PART_ROWS = 16  # rows of the backward's blocks: its partials' tiles (chanff_rows.cuh kBwdRows)
 _SQRT2 = math.sqrt(2.0)
 
 launches = 0      # forward kernel launches so far; read (and reset) by chip_smoke.py
@@ -138,14 +141,16 @@ def chan_ff_chunked_bwd(x, dy, ln_scale, ln_bias, w1, b1, w2, *, fc: int):
     if dy.shape != x.shape or dy.dtype != x.dtype or w1.dtype != x.dtype or w2.dtype != x.dtype:
         raise ValueError("dy, w1 and w2 must be in x's dtype, dy of x's shape")
     mixer_cuda._cuda_ready("chan_ff_chunked_bwd", args, R, D, F)
-    outs, scratch = mixer_cuda.bwd_buffers(x, F)
     dev = x.device
+    plan = mixer_cuda.bwd_plan(R, F, x.dtype, mixer_cuda._device_sms(dev))
+    outs, scratch = mixer_cuda.bwd_buffers(x, plan, part_rows=PART_ROWS)
+    rows_scratch = [scratch[k] for k in ("xa", "g1", "da1", "part_d", "part_f")]
     err = _kernel("pips_chanff_chunk_bwd_rows")(
-        *(t.data_ptr() for t in args + outs[:1] + scratch), R, D, F, fc, dev.index,
+        *(t.data_ptr() for t in args + outs[:1] + tuple(rows_scratch)), R, D, F, fc, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"chanff_chunk_bwd_rows kernel launch failed: CUDA error {err}")
-    mixer_cuda.bwd_finish(dy, outs, scratch)
+    mixer_cuda.bwd_finish(dy, outs, scratch, plan, PART_ROWS)
     bwd_launches += 1
     return outs
 

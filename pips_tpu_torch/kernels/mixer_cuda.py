@@ -18,7 +18,9 @@ was given) and the backward recomputes the activations from x.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
+from typing import Optional
 
 import torch
 
@@ -28,11 +30,23 @@ _SQRT2 = math.sqrt(2.0)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
 KERNEL_D = 512      # channel width the kernels are compiled for
 KERNEL_F_MULT = 64  # F must be a multiple of the kernels' F chunk
+# the backward's launch plan (csrc/chanff_bwd.cu holds the same constants)
+TILE_ROWS = 128   # rows of a row tile: the activation and dxa products', the partials'
+TILE_COLS = 128   # columns of every output tile of the backward's products
+LN_ROWS = 8       # rows of a block of the LN row pass, a warp each
+COLSUM_THREADS = 256
+MAX_SPLIT = 16        # K splits of the weight-grad products at most
+SPLIT_MIN_ROWS = 512  # rows (the weight-grad products' K) a split takes at least
+SMS = 132             # an H100's SMs, for a plan made without a card
+# weight-grad blocks one SM holds at once: the bf16 ring fills an SM's shared
+# memory, two f32 SGEMM blocks fit its registers
+WGRAD_BLOCKS_PER_SM = {torch.bfloat16: 1, torch.float32: 2}
 
 launches = 0          # forward kernel launches so far; read (and reset) by chip_smoke.py
-bwd_launches = 0      # bf16 backward kernel launches so far
-bwd_f32_launches = 0  # f32 backward kernel launches so far
+bwd_launches = 0      # bf16 backward calls so far (each launches the plan's kernels)
+bwd_f32_launches = 0  # f32 backward calls so far
 _fns: dict[str, object] = {}
+_sms: dict[int, int] = {}
 
 
 def chan_ff_reference(x, ln_scale, ln_bias, w1, b1, w2, b2):
@@ -133,8 +147,8 @@ def _check(x, ln_scale, ln_bias, w1, b1, w2, b2):
 
 # C entry -> (library stem, pointer arguments, int arguments); each ends in
 # the device index and a stream pointer
-_ENTRIES = {"pips_chanff_fwd": ("chanff_fwd", 8, 4), "pips_chanff_bwd": ("chanff_bwd", 19, 4),
-            "pips_chanff_bwd_finish": ("chanff_bwd", 12, 3)}
+_ENTRIES = {"pips_chanff_fwd": ("chanff_fwd", 8, 4), "pips_chanff_bwd": ("chanff_bwd", 21, 6),
+            "pips_chanff_bwd_finish": ("chanff_bwd", 13, 5)}
 
 
 def _kernel(name: str):
@@ -179,10 +193,64 @@ def _forward(x, ln_scale, ln_bias, w1, b1, w2, b2):
     return y
 
 
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """One call of ``csrc/chanff_bwd.cu``'s ``pips_chanff_bwd``: the grid of
+    each of its launches, in launch order (the LN row pass, the activation
+    products, the dxa products with the LN backward, in clusters of the
+    grid's x, the weight-grad products, the column sums); the rows of the
+    row tiles the partials are summed over; the weight-grad products' K
+    splits; and the scratch the wrapper allocates, name -> (shape, dtype), in
+    the C entry's order (``wsplit`` None without a split)."""
+    R: int
+    F: int
+    dtype: torch.dtype
+    tile_rows: int
+    split: int
+    grids: dict
+    scratch: dict
+
+    @property
+    def launches(self) -> int:
+        return len(self.grids)
+
+
+def bwd_plan(R: int, F: int, dtype: torch.dtype, sms: int = SMS) -> BwdPlan:
+    """The backward's launches for x (R, 512) in ``dtype`` and F hidden
+    columns on a card of ``sms`` SMs. The weight-grad products have
+    2 * 4 * ceil(F / 128) tiles (128 at F = 2048); K = R is split only where
+    those tiles would leave most of the blocks the card holds at once idle,
+    and never below ``SPLIT_MIN_ROWS`` rows a split."""
+    if R <= 0 or F <= 0 or F % KERNEL_F_MULT or dtype not in WGRAD_BLOCKS_PER_SM:
+        raise ValueError(f"no backward plan for R={R}, F={F}, {dtype}")
+    D, f32 = KERNEL_D, torch.float32
+    row_tiles, col_tiles = -(-R // TILE_ROWS), -(-F // TILE_COLS)
+    wtiles = 2 * (D // TILE_COLS) * col_tiles
+    slots = sms * WGRAD_BLOCKS_PER_SM[dtype]
+    split = max(1, min(MAX_SPLIT, slots // wtiles, -(-R // SPLIT_MIN_ROWS)))
+    colsum = 3 * D + F + (2 * D * F // 4 if split > 1 else 0)
+    grids = {"ln": (-(-R // LN_ROWS), 1), "act": (col_tiles, row_tiles),
+             "dxa": (D // TILE_COLS, row_tiles), "wgrad": (wtiles, split),
+             "colsum": (-(-colsum // COLSUM_THREADS), 1)}
+    scratch = {"xa": ((R, D), dtype), "g1": ((R, F), dtype), "da1": ((R, F), dtype),
+               "stats": ((2, R), f32), "part_d": ((row_tiles, 3, D), f32),
+               "part_f": ((row_tiles, F), f32),
+               "wsplit": ((split, 2, D * F), f32) if split > 1 else None}
+    return BwdPlan(R, F, dtype, TILE_ROWS, split, grids, scratch)
+
+
+def _device_sms(dev: torch.device) -> int:
+    n = _sms.get(dev.index)
+    if n is None:
+        n = _sms[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return n
+
+
 def chan_ff_bwd(x, dy, ln_scale, ln_bias, w1, b1, w2):
     """Gradients of the block: ``chan_ff_bwd_reference``'s contract. On a CUDA
-    tensor it launches ``csrc/chanff_bwd.cu`` (its bf16 kernel for a bf16 x,
-    its f32 kernel for an f32 x), on a CPU tensor it runs the plain version."""
+    tensor it launches ``csrc/chanff_bwd.cu`` (its bf16 kernels for a bf16 x,
+    its f32 kernels for an f32 x) as ``bwd_plan`` lays out, on a CPU tensor it
+    runs the plain version."""
     global bwd_launches, bwd_f32_launches
     if x.device.type == "cpu":
         return chan_ff_bwd_reference(x, dy, ln_scale, ln_bias, w1, b1, w2)
@@ -197,12 +265,14 @@ def chan_ff_bwd(x, dy, ln_scale, ln_bias, w1, b1, w2):
     if dy.shape != x.shape or dy.dtype != x.dtype or w1.dtype != x.dtype or w2.dtype != x.dtype:
         raise ValueError("dy, w1 and w2 must be in x's dtype, dy of x's shape")
     _cuda_ready("chan_ff_bwd", args, R, D, F)
-    outs, scratch = bwd_buffers(x, F)
     dev = x.device
+    plan = bwd_plan(R, F, x.dtype, _device_sms(dev))
+    outs, scratch = bwd_buffers(x, plan)
+    ptrs = [t.data_ptr() for t in args + outs] + [None if t is None else t.data_ptr()
+                                                  for t in scratch.values()]
     bf16 = x.dtype == torch.bfloat16
-    err = _kernel("pips_chanff_bwd")(*(t.data_ptr() for t in args + outs + scratch), R, D, F,
-                                     int(bf16), dev.index,
-                                     torch.cuda.current_stream(dev).cuda_stream)
+    err = _kernel("pips_chanff_bwd")(*ptrs, R, D, F, plan.tile_rows, plan.split, int(bf16),
+                                     dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"chanff_bwd kernel launch failed: CUDA error {err}")
     if bf16:
@@ -212,35 +282,41 @@ def chan_ff_bwd(x, dy, ln_scale, ln_bias, w1, b1, w2):
     return outs
 
 
-def bwd_buffers(x, F: int):
-    """The backward's outputs (dx in x's dtype; f32 d ln_scale, d ln_bias, dw1,
-    db1, dw2, db2) and the kernel's scratch: xa (R, D), g1 and da1 (R, F) in
-    x's dtype, f32 per-block partials (nblk, 3, D) and (nblk, F) over the
-    kernel's 16-row blocks (``pips_chanff_bwd_blocks``)."""
+def bwd_buffers(x, plan: BwdPlan, part_rows: Optional[int] = None):
+    """The backward's outputs (dx in x's dtype; f32 d ln_scale, d ln_bias,
+    dw1, db1, dw2, db2) and its scratch as ``plan`` lays it out, a dict in the
+    C entry's order (``wsplit`` None without a split). ``part_rows``: the
+    partials' row tiles when another kernel writes them (``chanff_chunk.cu``'s
+    16), in place of the plan's."""
     R, D = x.shape
-    nblk = -(-R // 16)
+    F = plan.F
     dev = x.device
+    shapes = dict(plan.scratch)
+    if part_rows is not None:
+        tiles = -(-R // part_rows)
+        shapes["part_d"] = ((tiles, 3, D), torch.float32)
+        shapes["part_f"] = ((tiles, F), torch.float32)
     f32 = dict(dtype=torch.float32, device=dev)
     dg, db, db2 = (torch.empty(D, **f32) for _ in range(3))
     dw1, db1, dw2 = torch.empty(D, F, **f32), torch.empty(F, **f32), torch.empty(F, D, **f32)
-    xa_s = torch.empty(R, D, dtype=x.dtype, device=dev)
-    g1_s, da1_s = (torch.empty(R, F, dtype=x.dtype, device=dev) for _ in range(2))
-    part_d, part_f = torch.empty(nblk, 3, D, **f32), torch.empty(nblk, F, **f32)
-    return ((torch.empty_like(x), dg, db, dw1, db1, dw2, db2),
-            (xa_s, g1_s, da1_s, part_d, part_f))
+    scratch = {name: None if spec is None else torch.empty(spec[0], dtype=spec[1], device=dev)
+               for name, spec in shapes.items()}
+    return (torch.empty_like(x), dg, db, dw1, db1, dw2, db2), scratch
 
 
-def bwd_finish(dy, outs, scratch) -> None:
-    """Phases B and C of ``csrc/chanff_bwd.cu`` (the weight-grad GEMMs over R
-    and the partials' ordered column sums) on bf16 scratch in ``bwd_buffers``'
-    layout that another phase A filled; writes ``outs``' f32 grads."""
+def bwd_finish(dy, outs, scratch: dict, plan: BwdPlan, part_rows: int) -> None:
+    """The weight-grad products and the column sums of ``csrc/chanff_bwd.cu``
+    (``pips_chanff_bwd_finish``) on bf16 scratch in ``bwd_buffers``' layout
+    that another kernel filled, its partials in tiles of ``part_rows`` rows;
+    writes ``outs``' f32 grads."""
     _, dg, db, dw1, db1, dw2, db2 = outs
-    xa_s, g1_s, da1_s, part_d, part_f = scratch
     dev = dy.device
+    wsplit = scratch["wsplit"]
+    ptrs = [t.data_ptr() for t in (scratch["xa"], scratch["g1"], scratch["da1"], dy, dg, db, dw1,
+                                   db1, dw2, db2, scratch["part_d"], scratch["part_f"])]
     err = _kernel("pips_chanff_bwd_finish")(
-        *(t.data_ptr() for t in (xa_s, g1_s, da1_s, dy, dg, db, dw1, db1, dw2, db2, part_d,
-                                 part_f)),
-        dy.shape[0], dw1.shape[1], part_f.shape[0], dev.index,
+        *ptrs, None if wsplit is None else wsplit.data_ptr(), dy.shape[0], plan.F,
+        scratch["part_f"].shape[0], part_rows, plan.split, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"chanff_bwd finishing launches failed: CUDA error {err}")

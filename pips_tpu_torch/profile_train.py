@@ -12,7 +12,7 @@ those steps; from ``torch.profiler``, one step's device time summed over
 kernels and split into forward, backward and optimizer, the device's idle
 share of the step, the kernels that take the most device time, and the time
 of the channel block's forward and backward kernels (the backward by its
-three launches) and of the stage-1 conv kernel. ``--fuse-conv3`` runs the
+five launches) and of the stage-1 conv kernel. ``--fuse-conv3`` runs the
 encoder's four stage-1 3x3 convs (and their dx) through
 ``csrc/conv3x3_fwd.cu``. CUDA only.
 """

@@ -52,13 +52,17 @@ def summarize(prof, device_type, top: int, ranges=("encode", "track")) -> dict:
                 owner = r
         split[owner] += us
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    chanff_bwd: dict[str, float] = {}  # the backward's launches, by kernel name
+    for k, v in by_name.items():
+        if "chanff_bwd" in k:
+            name = re.search(r"chanff_bwd_\w+", k).group(0)
+            chanff_bwd[name] = chanff_bwd.get(name, 0.0) + v[0] / 1e3
     return {
         "device_busy_ms": sum(split.values()) / 1e3,
         "device_ms_by_range": {k: v / 1e3 for k, v in split.items()},
         "kernel_launches": len(kernels),
         "chanff_ms": sum(v[0] for k, v in by_name.items() if "chanff_fwd" in k) / 1e3,
-        "chanff_bwd_ms": {re.search(r"chanff_bwd_\w+", k).group(0): v[0] / 1e3
-                          for k, v in by_name.items() if "chanff_bwd" in k},
+        "chanff_bwd_ms": chanff_bwd,
         "corr_sample_ms": sum(v[0] for k, v in by_name.items() if "corr_sample" in k) / 1e3,
         "conv3x3_ms": sum(v[0] for k, v in by_name.items() if "conv3x3_" in k) / 1e3,
         "conv3x3_launches": sum(v[1] for k, v in by_name.items() if "conv3x3_" in k),

@@ -1,9 +1,10 @@
 """Where the time of the pipelined kernels goes, on the card.
 
 The bf16 ``stem_wgrad`` kernel (``csrc/stem_wgrad.cu``), ``stream_accum``
-(``csrc/mixer_probes.cu``), the bf16 ``conv_pass`` (``csrc/conv3x3_stats.cu``)
-and ``row_contract`` (``csrc/row_contract.cu``) each overlap asynchronous
-copies with tensor-core products. No kernel profiler runs on the machine with
+(``csrc/mixer_probes.cu``), the bf16 ``conv_pass`` (``csrc/conv3x3_stats.cu``),
+``row_contract`` (``csrc/row_contract.cu``) and the channel block's backward
+(``csrc/chanff_bwd.cu``, bf16 and f32) each overlap asynchronous copies with
+products. No kernel profiler runs on the machine with
 the card, so this tool builds variants of each source with one phase taken
 out and times them beside the kernel, at the smoke's shapes: what a phase
 costs is the time it adds. A variant's output is wrong by construction; only
@@ -25,7 +26,12 @@ of ``tools/probe_mosaic_ops.py``): "kernel"; "no copies" (no row is staged);
 "no products" (no mma); "no cross-block sum" (each block writes its own
 partial sums over the output); and "general path", the unmodified source's
 SIMT branch on the same shapes (its products are FMAs walking the rows).
-Times: CUDA events around ``reps`` calls queued behind a sleep kernel (so the
+Of the channel block's backward (R=24,576, the training default, F=2048, in
+bf16 and f32, one ``pips_chanff_bwd`` call): "kernel", with each of its
+launches' device time under the profiler; "no activation products", "no dxa
+products" and "no weight-grad products" (the consumers only wait for each
+stage and release it; the epilogues run on zeros); and in bf16 "no copies"
+(no TMA copy: the products read stale tiles). Times: CUDA events around ``reps`` calls queued behind a sleep kernel (so the
 host's cost per call hides), the median of ``rounds``. Prints one JSON line
 with the card's name and power limit; needs CUDA.
 """
@@ -35,12 +41,13 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import json
+import re
 import subprocess
 
 import numpy as np
 import torch
 
-from pips_tpu_torch.kernels import _build, block_cuda, row_contract_cuda
+from pips_tpu_torch.kernels import _build, block_cuda, mixer_cuda, row_contract_cuda
 from pips_tpu_torch.kernels.mixer_probes_cuda import stream_accum_reference
 from pips_tpu_torch.kernels.stem_wgrad_cuda import stem_wgrad_reference
 from pips_tpu_torch.tools import debug_mixer_kernel, probe_mosaic_ops
@@ -72,6 +79,25 @@ RC_MMA = ("  for (int ks = kg; kg < KG && ks < kp / 16; ks += 2 * KG) {",
           "  for (int ks = kg; kg < KG && ks < 0; ks += 2 * KG) {")
 RC_SUM = ("  const int splits = gridDim.x, split = blockIdx.x;\n  const int tid",
           "  const int splits = 1, split = blockIdx.x;\n  const int tid")
+CFB_ACT = ("    consume<0, 1>(ring, a1, 0, kSteps, wg);\n    consume<0, 0>(ring, dg, kSteps, 2 * kSteps, wg);\n",
+           "    for (int i = 0; i < 2 * kSteps; ++i) {\n      ring.wait(i);\n      ring.release(i);\n    }\n")
+CFB_DXA = ("    consume<0, 0>(ring, acc, 0, steps, wg);\n",
+           "    for (int i = 0; i < steps; ++i) {\n      ring.wait(i);\n      ring.release(i);\n    }\n")
+CFB_WGRAD = ("  consume<1, 1>(ring, acc, 0, i1 - i0, wg);\n",
+             "  for (int i = 0; i < i1 - i0; ++i) {\n    ring.wait(i);\n    ring.release(i);\n  }\n")
+CFB_COPY = [("    mbar_arrive_expect_tx(&full[s], kStageBytes);", "    mbar_arrive(&full[s]);"),
+            ("  tma_load_2d(dst, map, k0, r0, bar);\n", "  if (k0 < 0) tma_load_2d(dst, map, k0, r0, bar);\n"),
+            ("  tma_load_2d(dst, map, n0, k0, bar);\n  tma_load_2d(dst + kBox, map, n0 + 64, k0, bar);\n",
+             "  if (k0 < 0) {\n    tma_load_2d(dst, map, n0, k0, bar);\n"
+             "    tma_load_2d(dst + kBox, map, n0 + 64, k0, bar);\n  }\n")]
+_CFB32_TAIL = "\n      },\n      [&](int slot) {\n        const float* s = sm + slot * 2 * kOp;\n"
+CFB32_ACT = ("        fma_tiles<true>(a1, s, s + kOp);\n        fma_tiles<true>(dg, s + 2 * kOp, s + 3 * kOp);\n",
+             "        (void)s;\n")
+CFB32_DXA = ("stage_b<true>(s + kOp, w1_op, n0, k0);" + _CFB32_TAIL
+             + "        fma_tiles<true>(acc, s, s + kOp);\n",
+             "stage_b<true>(s + kOp, w1_op, n0, k0);" + _CFB32_TAIL + "        (void)s;\n")
+CFB32_WGRAD = ("        fma_tiles<false>(acc, s, s + kOp);\n", "        (void)s;\n")
+CFB_R, CFB_F = 24576, 2048  # the training default's rows: 4 x 768 points x 8 frames
 VARIANTS = {
     "stem_wgrad": {"kernel": [], "no x copies": [STEM_X], "no products": [STEM_MMA],
                    "dy only": [STEM_X, STEM_MMA], "no segments": [STEM_NONE]},
@@ -80,6 +106,9 @@ VARIANTS = {
                       "no epilogue": [CONV_EPI]},
     "row_contract": {"kernel": [], "no copies": [RC_COPY], "no products": [RC_MMA],
                      "no cross-block sum": [RC_SUM]},
+    "chanff_bwd": {"kernel": [], "no activation products": [CFB_ACT, CFB32_ACT],
+                   "no dxa products": [CFB_DXA, CFB32_DXA],
+                   "no weight-grad products": [CFB_WGRAD, CFB32_WGRAD], "no copies": CFB_COPY},
 }
 
 
@@ -258,6 +287,56 @@ def contract_variants(libs: dict) -> dict:
     return out
 
 
+def chanff_bwd_variants(libs: dict, dtype: torch.dtype, R: int = CFB_R, F: int = CFB_F) -> dict:
+    """One ``pips_chanff_bwd`` call of each variant at (R, 512) x F in
+    ``dtype``; for the kernel, the largest error of each grad against the
+    plain version and each launch's device time under the profiler."""
+    rng = np.random.RandomState(R)
+    vals = [rng.randn(R, 512), rng.randn(R, 512), 1.0 + 0.1 * rng.randn(512),
+            0.1 * rng.randn(512), rng.randn(512, F) / np.sqrt(512), 0.1 * rng.randn(F),
+            rng.randn(F, 512) / np.sqrt(F)]
+    dts = [dtype, dtype, torch.float32, torch.float32, dtype, torch.float32, dtype]
+    args = [torch.from_numpy(v.astype(np.float32)).to("cuda", dt) for v, dt in zip(vals, dts)]
+    x = args[0]
+    plan = mixer_cuda.bwd_plan(R, F, dtype, torch.cuda.get_device_properties(0).multi_processor_count)
+    outs, scratch = mixer_cuda.bwd_buffers(x, plan)
+    ptrs = [t.data_ptr() for t in args + list(outs)] + [None if t is None else t.data_ptr()
+                                                        for t in scratch.values()]
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {"split": plan.split}
+    for name in VARIANTS["chanff_bwd"]:
+        if name == "no copies" and dtype == torch.float32:
+            continue  # the f32 kernels copy by cp.async, which this variant leaves
+        fn = libs[("chanff_bwd", name)].pips_chanff_bwd
+        fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+        def call(fn=fn):
+            checked(fn(*ptrs, R, 512, F, plan.tile_rows, plan.split,
+                       int(dtype == torch.bfloat16), 0, stream), f"chanff_bwd {name}")
+
+        out[name] = device_ms(call, reps=5)
+        if name == "kernel":
+            call()
+            ref = mixer_cuda.chan_ff_bwd_reference(*args)
+            out["kernel max_abs_err"] = [(o.float() - r.float()).abs().max().item()
+                                         for o, r in zip(outs, ref)]
+            # the trace may miss the first kernels of a session: one call warms
+            # it, and the last three calls' kernels are the last in the trace
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(4):
+                    call()
+                    torch.cuda.synchronize()
+            events = sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
+                            for e in prof.events()
+                            if e.device_type == torch.autograd.DeviceType.CUDA)
+            launches = {}
+            for _, name, us in events[-3 * plan.launches:]:
+                k = re.search(r"chanff_bwd_\w+", name).group(0)
+                launches[k] = launches.get(k, 0.0) + us / 3e3
+            out["kernel ms by launch"] = launches
+    return out
+
+
 def main() -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: profile_pipelines times kernels on the card")
@@ -268,7 +347,9 @@ def main() -> dict:
     res = {"device": torch.cuda.get_device_name(0), "nvidia-smi": smi[0] if smi else None,
            "stem_wgrad B=8": stem_variants(libs, 8), "stem_wgrad B=1": stem_variants(libs, 1),
            "stream_accum": stream_variants(libs), "conv_pass": conv_variants(libs),
-           "row_contract": contract_variants(libs)}
+           "row_contract": contract_variants(libs),
+           "chanff_bwd bf16": chanff_bwd_variants(libs, torch.bfloat16),
+           "chanff_bwd f32": chanff_bwd_variants(libs, torch.float32)}
     print(json.dumps(res), flush=True)
     return res
 

@@ -16,6 +16,9 @@ measured <= 5.3e-4); a bf16 dx is held to two bf16 ulps at its largest
 magnitude (measured one ulp).
 """
 
+import re
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +29,7 @@ from jax.experimental.pallas import tpu as pltpu
 from pips_tpu.kernels.mixer_pallas import chan_ff_block as jax_chan_ff_block
 from pips_tpu.models import mixer as jmixer
 from pips_tpu_torch.convert import state_dict_from_flax
-from pips_tpu_torch.kernels import mixer_cuda
+from pips_tpu_torch.kernels import chanff_chunk_cuda, mixer_cuda
 from pips_tpu_torch.models import mixer
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -227,3 +230,114 @@ def test_fused_f32_mlp_mixer_grads_match_jax():
         err = np.abs(g.numpy() - w).max()
         scale = top if name.endswith("_token.fc2.bias") else np.abs(w).max()
         assert err <= BWD_TOL["float32"] * scale, (name, err, scale)
+
+
+# ---- the backward's launch plan (``mixer_cuda.bwd_plan``), on the host
+
+_CSRC = mixer_cuda._build.CSRC
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _constexpr(source: str, name: str) -> int:
+    """The value of ``constexpr int <name> = <int>;`` in ``csrc/<source>``."""
+    m = re.search(rf"constexpr int {name} = (\d+);", (_CSRC / source).read_text())
+    assert m, f"{source} defines no constexpr int {name}"
+    return int(m.group(1))
+
+
+def test_bwd_plan_constants_are_the_kernels():
+    """The plan's tiles, splits and LN rows are those ``csrc/chanff_bwd.cu``
+    is compiled with; the chunked path's partial tiles those of its kernel."""
+    src = "chanff_bwd.cu"
+    assert _constexpr(src, "kTileRows") == mixer_cuda.TILE_ROWS
+    assert _constexpr(src, "kTileCols") == mixer_cuda.TILE_COLS
+    assert _constexpr(src, "kMaxSplit") == mixer_cuda.MAX_SPLIT
+    assert _constexpr(src, "kLnRows") == mixer_cuda.LN_ROWS
+    assert _constexpr("chanff_rows.cuh", "kD") == mixer_cuda.KERNEL_D
+    assert _constexpr("chanff_rows.cuh", "kBwdRows") == chanff_chunk_cuda.PART_ROWS
+    assert "constexpr int TR = kBwdRows;" in (_CSRC / "chanff_chunk.cu").read_text()
+    assert f"<<<(unsigned)((n + {mixer_cuda.COLSUM_THREADS - 1}) / {mixer_cuda.COLSUM_THREADS}), " \
+           f"{mixer_cuda.COLSUM_THREADS}" in (_CSRC / src).read_text()
+
+
+@pytest.mark.parametrize("F", [2048, 64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("R", [1, 800, 1024, 24576])
+def test_bwd_plan(R, dtype, F):
+    """Five launches a call whose grids cover R rows and F columns in
+    128 x 128 tiles; K split only where the weight-grad tiles leave blocks
+    the card holds idle, each split at least SPLIT_MIN_ROWS rows; scratch
+    in the compute dtype and f32 partials per 128-row tile."""
+    D = mixer_cuda.KERNEL_D
+    plan = mixer_cuda.bwd_plan(R, F, dtype)
+    rt, ct = _cdiv(R, 128), _cdiv(F, 128)
+    wtiles = 2 * (D // 128) * ct
+    assert plan.launches == 5 and list(plan.grids) == ["ln", "act", "dxa", "wgrad", "colsum"]
+    assert plan.tile_rows == 128
+    assert plan.grids["ln"] == (_cdiv(R, 8), 1)
+    assert plan.grids["act"] == (ct, rt) and plan.grids["dxa"] == (4, rt)
+    assert plan.grids["wgrad"] == (wtiles, plan.split)
+    slots = mixer_cuda.SMS * mixer_cuda.WGRAD_BLOCKS_PER_SM[dtype]
+    assert 1 <= plan.split <= mixer_cuda.MAX_SPLIT
+    if plan.split > 1:
+        assert plan.split * wtiles <= slots and (plan.split - 1) * 512 < R
+    else:
+        assert 2 * wtiles > slots or R <= 512
+    if F == 2048:  # 128 tiles: one an SM in bf16, two an SM fit in f32
+        assert plan.split == (1 if dtype == torch.bfloat16 or R <= 512 else 2)
+    colsum = 3 * D + F + (2 * D * F // 4 if plan.split > 1 else 0)
+    assert plan.grids["colsum"] == (_cdiv(colsum, 256), 1)
+    f32 = torch.float32
+    want = {"xa": ((R, D), dtype), "g1": ((R, F), dtype), "da1": ((R, F), dtype),
+            "stats": ((2, R), f32), "part_d": ((rt, 3, D), f32), "part_f": ((rt, F), f32),
+            "wsplit": ((plan.split, 2, D * F), f32) if plan.split > 1 else None}
+    assert plan.scratch == want and list(plan.scratch) == list(want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bwd_buffers_allocate_the_plan(dtype):
+    x = torch.zeros(800, mixer_cuda.KERNEL_D, dtype=dtype)
+    plan = mixer_cuda.bwd_plan(800, 2048, dtype)
+    outs, scratch = mixer_cuda.bwd_buffers(x, plan)
+    assert [(tuple(t.shape), t.dtype) for t in outs] == [
+        ((800, 512), dtype), ((512,), torch.float32), ((512,), torch.float32),
+        ((512, 2048), torch.float32), ((2048,), torch.float32), ((2048, 512), torch.float32),
+        ((512,), torch.float32)]
+    assert list(scratch) == list(plan.scratch)
+    for name, spec in plan.scratch.items():
+        got = scratch[name]
+        assert (got is None and spec is None) or ((tuple(got.shape), got.dtype) == spec), name
+
+
+@pytest.mark.parametrize("R", [800, 1024, 100])
+def test_chunked_partials_are_what_the_column_sums_are_told(R, monkeypatch):
+    """The F-chunked backward writes its partials in 16-row tiles; the
+    buffers it gets hold ceil(R / 16) of them, and ``bwd_finish`` hands the
+    C entry that count, the 16 rows (which it checks against R) and the
+    plan's split with its scratch."""
+    x = torch.zeros(R, mixer_cuda.KERNEL_D, dtype=torch.bfloat16)
+    plan = mixer_cuda.bwd_plan(R, 2048, torch.bfloat16)
+    rows = chanff_chunk_cuda.PART_ROWS
+    outs, scratch = mixer_cuda.bwd_buffers(x, plan, part_rows=rows)
+    tiles = _cdiv(R, rows)
+    assert tuple(scratch["part_d"].shape) == (tiles, 3, 512)
+    assert tuple(scratch["part_f"].shape) == (tiles, 2048)
+    assert tuple(scratch["g1"].shape) == (R, 2048) and scratch["xa"].dtype == torch.bfloat16
+    calls = []
+
+    def entry(*a):
+        calls.append(a)
+        return 0
+
+    monkeypatch.setattr(mixer_cuda, "_kernel", lambda name: entry)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: types.SimpleNamespace(
+        cuda_stream=7))
+    mixer_cuda.bwd_finish(torch.zeros_like(x), outs, scratch, plan, rows)
+    (a,) = calls
+    assert len(a) == 13 + 5 + 2  # pointers, R, F, nblk, part_rows, split, device, stream
+    assert a[13:18] == (R, 2048, tiles, rows, plan.split)
+    assert a[18:] == (None, 7)  # a CPU tensor's device index, the stream
+    assert a[12] is None and tiles == _cdiv(R, a[16])  # no split at F=2048 in bf16
