@@ -10,7 +10,11 @@ Phases, each printing a progress line with the elapsed seconds:
   3. kernels: each kernel against its plain PyTorch version at the main
      paths' shapes, with its tolerance, median time and bound:
      ``chan_ff_block`` (fused channel block, bf16 and f32 at the windows'
-     R=2048 and 2000, f32 also at the f32 train path's R=1024 and 24,576) and
+     R=2048 and 2000, the training default's R=24,576 and R=100, which fills
+     no whole row tile; bf16 also at the dense window's R=61,440, f32 at the
+     f32 train path's R=1024; two calls bit-identical, and one call per case,
+     captured in a CUDA graph, the kernels of its launch plan, whose replay
+     gives the same bits) and
      ``corr_sample`` (fused corr sampler, three point counts by three dtype
      pairs); and ``chan_ff_bwd``
      (the channel block's backward, bf16, at the train shapes R=1024, 24,576,
@@ -103,7 +107,7 @@ of 128 f32 channels) and ``row_contract`` in the four layouts of
 ``stream_accum`` at 100 rows and five weight blocks, and ``row_contract`` at
 three edge shapes (``CONTRACT_EDGES``), with one kernel a call counted in a
 CUDA graph that captured the call. Phase 2 prints ptxas's registers and spills for the
-tensor-core kernels with asynchronous copy rings (``PTXAS_REPORT``). Phase 9
+kernels with asynchronous copy pipelines (``PTXAS_REPORT``). Phase 9
 then runs the ports of those three tools, the probe kernels' paths, each
 probe's kernel launched 2 + 5 * 10 times.
 Kernel launch counts are zeroed just before each main-path run and read
@@ -157,6 +161,7 @@ TRAIN = dict(B=1, N=128, iters=6, H=384, W=512, flips=(False, False))
 TRAIN_DEFAULT = dict(B=1, N=768, iters=4, H=368, W=496, flips=(True, True))
 TRAIN_R = 1 * 128 * 8
 TRAIN_R_DEFAULT = 4 * 768 * 8
+DENSE_R = 1 * 7680 * 8  # the dense window's rows: N=7680 points x 8 frames
 TRAIN_RUN_STEPS = 20
 # one step with the kernels against one with the plain channel block (forward
 # and backward): the kernels keep the fc1/fc2 products in f32 where the plain
@@ -196,7 +201,7 @@ CONTRACT_EDGES = [("R=1000", 1, 1000, 6, 64, False), ("G=3 R=100 b_bs=0", 3, 100
 STEM_CASES = [("B=1", 1, 384, 512, "bfloat16"), ("B=8", 8, 384, 512, "bfloat16"),
               ("ragged", 2, 192, 328, "bfloat16"), ("small f32", 2, 64, 96, "float32")]
 U32 = 2.0 ** -24  # unit roundoff of f32
-EDGE_R = 100  # phases 3c and 3g: rows that fill no whole 128-row tile of the backward
+EDGE_R = 100  # phases 3a, 3c and 3g: rows that fill no whole 128-row tile of the kernels
 CHUNK_FCS = (512, 1024)  # phase 3h times these: tools/profile_chanff_chunk.py's chunk widths
 # phase 7d, f32 with fused channel blocks against the plain block: both keep
 # f32 products and differ only in summation order. One refinement iteration
@@ -239,7 +244,9 @@ PROBE_KERNELS = [("gelu", "mixer_probes", "tools/debug_mixer_kernel.py:63"),
 PTXAS_REPORT = [("stem_wgrad", "stem_wgrad_tc"), ("mixer_probes", "probe_stream_accum"),
                 ("conv3x3_stats", "conv3x3_stats_bf16"), ("row_contract", "row_contract_tc"),
                 ("chanff_bwd", "chanff_bwd_act"), ("chanff_bwd", "chanff_bwd_dxa"),
-                ("chanff_bwd", "chanff_bwd_wgrad")]
+                ("chanff_bwd", "chanff_bwd_wgrad"), ("chanff_fwd", "chanff_fwd_act"),
+                ("chanff_fwd", "chanff_fwd_out"), ("chanff_fwd", "chanff_fwd_act_f32"),
+                ("chanff_fwd", "chanff_fwd_out_f32")]
 
 
 def ptxas_report(log_path: Path, kernel: str) -> str:
@@ -862,6 +869,30 @@ def bwd_launches_match_plans(torch, mixer_cuda, cases: dict, label: str) -> None
             fail(f"{label} R={R}: the captured call's replay differs from an eager call in "
                  f"{differ}")
         log("kernels", f"{label} R={R} captured: {len(labels)} kernels a call "
+                       f"({', '.join(want)}), split {plan.split}; its replay bit-identical")
+        del eager, replayed
+    torch.cuda.empty_cache()
+
+
+def fwd_launches_match_plans(torch, mixer_cuda, cases: dict, label: str) -> None:
+    """Each call ``chan_ff_block(*args)`` of ``cases`` ((dtype, R) -> args)
+    enqueues the kernels of its plan (``mixer_cuda.fwd_plan``) in its order,
+    no more, as a CUDA graph that captured the call lists them, and the
+    graph's replay gives the bits of an eager call; fails otherwise."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for (dtype, R), args in cases.items():
+        x, w1 = args[0], args[3]
+        plan = mixer_cuda.fwd_plan(R, w1.shape[1], x.dtype, sms)
+        suffix = "_f32" if x.dtype == torch.float32 else ""
+        want = [f"chanff_fwd_{k}{suffix if k in ('act', 'out') else ''}" for k in plan.grids]
+        eager = mixer_cuda.chan_ff_block(*args)
+        labels, replayed = captured_kernels(torch, lambda: mixer_cuda.chan_ff_block(*args))
+        if len(labels) != len(want) or not all(map(names_kernel, labels, want)):
+            fail(f"{label} {dtype} R={R}: one call enqueued {len(labels)} kernels, its plan "
+                 f"{want}: {labels}")
+        if not torch.equal(eager, replayed):
+            fail(f"{label} {dtype} R={R}: the captured call's replay differs from an eager call")
+        log("kernels", f"{label} {dtype} R={R} captured: {len(labels)} kernels a call "
                        f"({', '.join(want)}), split {plan.split}; its replay bit-identical")
         del eager, replayed
     torch.cuda.empty_cache()
@@ -1608,14 +1639,18 @@ def main() -> int:
                      + ptxas_report(Path(info[stem]["path"]).with_suffix(".log"), kernel))
 
     # 3a. chan_ff_block against its plain version, at the main path's shapes:
-    # the served windows' (R_MAIN, and 2000, no multiple of the kernel's row
-    # blocks) in bf16 and f32, and the f32 train path's (the bench train shape
-    # and the training default)
+    # the served windows' (R_MAIN, and 2000, no multiple of the kernels' row
+    # tiles), the dense window's (bf16), the train paths' (the training
+    # default; the bench train shape in f32) and an edge R that fills no row
+    # tile; a repeat gives the same bits, and one call launches its plan's
+    # kernels, captured in a CUDA graph
     require_full_f32(torch)
     R_MAIN = 1 * 256 * 8  # B*N*S of the first request
-    chanff = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chanff, fwd_cases = {}, {}
     for dtype in ("bfloat16", "float32"):
-        for R in (R_MAIN, 2000) + ((TRAIN_R, TRAIN_R_DEFAULT) if dtype == "float32" else ()):
+        rows = (DENSE_R,) if dtype == "bfloat16" else (TRAIN_R,)
+        for R in (R_MAIN, 2000, TRAIN_R_DEFAULT) + rows + (EDGE_R,):
             args = chanff_args(torch, np, R, getattr(torch, dtype), seed=R)
             y = mixer_cuda.chan_ff_block(*args)
             torch.cuda.synchronize()
@@ -1623,18 +1658,25 @@ def main() -> int:
             err = (y.float() - ref.float()).abs().max().item()
             ref_max = ref.float().abs().max().item()
             tol = bf16_tol(ref_max) if dtype == "bfloat16" else TOL_F32
+            if not torch.equal(y, mixer_cuda.chan_ff_block(*args)):
+                fail(f"chan_ff_block {dtype} R={R}: two calls on the same inputs differ")
             n = 20 if R < TRAIN_R_DEFAULT else 5
             ms = median_ms(torch, mixer_cuda.chan_ff_block, args, launches=n)
             plain_ms = median_ms(torch, mixer_cuda.chan_ff_reference, args, launches=n)
             bound_ms, bound_by = chanff_bound(R, dtype)
+            split = mixer_cuda.fwd_plan(R, args[3].shape[1], args[0].dtype, sms).split
             log("kernels", f"chan_ff_block {dtype} R={R}: max_abs_err {err:.3g} (tol {tol:.3g}, "
-                           f"|y| <= {ref_max:.3g}); {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                           f"bound {bound_ms:.4f} ms ({bound_by})")
+                           f"|y| <= {ref_max:.3g}); repeat bit-identical; split {split}; "
+                           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                           f"({bound_by})")
             if not (y.shape == ref.shape and err <= tol):
                 fail(f"chan_ff_block {dtype} R={R} disagrees with its plain version: {err} > {tol}")
             chanff[(dtype, R)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                       bound_ms=bound_ms, bound_by=bound_by)
-            del args, y, ref
+            fwd_cases[(dtype, R)] = args
+            del y, ref
+    fwd_launches_match_plans(torch, mixer_cuda, fwd_cases, "chan_ff_block")
+    del fwd_cases
     torch.cuda.empty_cache()
 
     # 3b. corr_sample against its plain version: the flagship's level 0 at

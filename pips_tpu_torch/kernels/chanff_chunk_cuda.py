@@ -19,13 +19,14 @@ dtype before the bias, as the flax model does.
 
 A CPU tensor goes to the plain versions, in f32 or bf16. A CUDA tensor
 launches the kernels or raises. In bf16 those are ``chanff_chunk.cu``'s, at
-the widths in ``FCS``. In f32 they are ``mixer_cuda``'s f32 SIMT kernels
-(``csrc/chanff_fwd.cu``, and ``chanff_bwd.cu``'s f32 SGEMM kernels),
+the widths in ``FCS``. In f32 they are ``mixer_cuda``'s f32 kernels, the
+register-tiled SGEMMs of ``csrc/chanff_fwd.cu`` and ``chanff_bwd.cu``,
 at any fc that divides F: with ``cdtype = f32`` every cast to the compute
 dtype in ``_fwd_kernel_chunked`` and ``_bwd_kernel_chunked`` is the
 identity, so chunking F rounds nothing, and the f32 chunked block is the f32
-monolithic block with its sums taken in another order. Those launches count
-in ``mixer_cuda.launches`` and ``mixer_cuda.bwd_f32_launches``, not here.
+monolithic block with its sums taken in another order. Those calls count,
+one a call whatever kernels its plan launches, in ``mixer_cuda.launches``
+and ``mixer_cuda.bwd_f32_launches``, not here.
 """
 
 from __future__ import annotations

@@ -2,11 +2,12 @@
 
 Counterpart of ``pips_tpu/kernels/mixer_pallas.py``: ``chan_ff_block`` has the
 JAX signature and its gradient. On a CUDA tensor the forward launches the
-hand-written kernel in ``pips_tpu_torch/csrc/chanff_fwd.cu`` (which replaces
-the TPU kernel ``_chanff_fwd``) and the backward the one in
-``csrc/chanff_bwd.cu`` (which replaces ``_chanff_bwd``), in bf16 on the tensor
-cores and in f32 on SIMT FMAs; each source's header says what bounds it and
-how its design answers that. ``chan_ff_reference``
+hand-written kernels in ``pips_tpu_torch/csrc/chanff_fwd.cu`` (which replace
+the TPU kernel ``_chanff_fwd``) as ``fwd_plan`` lays them out, and the
+backward those in ``csrc/chanff_bwd.cu`` (which replace ``_chanff_bwd``) as
+``bwd_plan`` does: tiled products, in bf16 on the tensor cores and in f32 on
+SIMT FMAs; each source's header says what bounds it and how its design
+answers that. ``chan_ff_reference``
 and ``chan_ff_bwd_reference`` are their plain PyTorch versions, transcriptions
 of the JAX kernels' math.
 
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -30,9 +32,10 @@ _SQRT2 = math.sqrt(2.0)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
 KERNEL_D = 512      # channel width the kernels are compiled for
 KERNEL_F_MULT = 64  # F must be a multiple of the kernels' F chunk
-# the backward's launch plan (csrc/chanff_bwd.cu holds the same constants)
-TILE_ROWS = 128   # rows of a row tile: the activation and dxa products', the partials'
-TILE_COLS = 128   # columns of every output tile of the backward's products
+# the launch plans (csrc/chanff_tiles.cuh, chanff_fwd.cu and chanff_bwd.cu
+# hold the same constants)
+TILE_ROWS = 128   # rows of a row tile of every product; the partials'
+TILE_COLS = 128   # columns of every output tile of the products
 LN_ROWS = 8       # rows of a block of the LN row pass, a warp each
 COLSUM_THREADS = 256
 MAX_SPLIT = 16        # K splits of the weight-grad products at most
@@ -41,8 +44,12 @@ SMS = 132             # an H100's SMs, for a plan made without a card
 # weight-grad blocks one SM holds at once: the bf16 ring fills an SM's shared
 # memory, two f32 SGEMM blocks fit its registers
 WGRAD_BLOCKS_PER_SM = {torch.bfloat16: 1, torch.float32: 2}
+# the forward's out product: K splits at most (the blocks of one cluster) and
+# the columns of F a split takes at least
+FWD_MAX_SPLIT = 4
+FWD_SPLIT_MIN_K = 256
 
-launches = 0          # forward kernel launches so far; read (and reset) by chip_smoke.py
+launches = 0          # forward calls so far (each launches the plan's kernels)
 bwd_launches = 0      # bf16 backward calls so far (each launches the plan's kernels)
 bwd_f32_launches = 0  # f32 backward calls so far
 _fns: dict[str, object] = {}
@@ -147,7 +154,7 @@ def _check(x, ln_scale, ln_bias, w1, b1, w2, b2):
 
 # C entry -> (library stem, pointer arguments, int arguments); each ends in
 # the device index and a stream pointer
-_ENTRIES = {"pips_chanff_fwd": ("chanff_fwd", 8, 4), "pips_chanff_bwd": ("chanff_bwd", 21, 6),
+_ENTRIES = {"pips_chanff_fwd": ("chanff_fwd", 10, 6), "pips_chanff_bwd": ("chanff_bwd", 21, 6),
             "pips_chanff_bwd_finish": ("chanff_bwd", 13, 5)}
 
 
@@ -173,24 +180,71 @@ def _cuda_ready(name: str, tensors, R: int, D: int, F: int) -> None:
 
 
 def _forward(x, ln_scale, ln_bias, w1, b1, w2, b2):
-    """The block's value: the plain version on a CPU tensor, the kernel on CUDA.
-    w1, w2 are in x's dtype here."""
+    """The block's value: the plain version on a CPU tensor, on CUDA the
+    kernels of ``csrc/chanff_fwd.cu`` as ``fwd_plan`` lays them out. w1, w2
+    are in x's dtype here."""
     global launches
     if x.device.type == "cpu":
         return chan_ff_reference(x, ln_scale, ln_bias, w1, b1, w2, b2)
     if x.device.type != "cuda":
         raise ValueError(f"chan_ff_block runs on cpu or cuda, not {x.device}")
     R, D = x.shape
+    F = w1.shape[1]
     args = (x, ln_scale, ln_bias, w1, b1, w2, b2)
-    _cuda_ready("chan_ff_block", args, R, D, w1.shape[1])
+    _cuda_ready("chan_ff_block", args, R, D, F)
+    dev = x.device
+    plan = fwd_plan(R, F, x.dtype, _device_sms(dev))
     y = torch.empty_like(x)
-    err = _kernel("pips_chanff_fwd")(*(t.data_ptr() for t in args), y.data_ptr(), R, D,
-                                     w1.shape[1], int(x.dtype == torch.bfloat16), x.device.index,
-                                     torch.cuda.current_stream(x.device).cuda_stream)
+    # the scratch in one allocation: both parts in x's dtype, g1 R * 512
+    # elements in (16-byte aligned)
+    sizes = [math.prod(shape) for shape, _ in plan.scratch.values()]
+    scratch = torch.empty(sum(sizes), dtype=x.dtype, device=dev).split(sizes)
+    err = _kernel("pips_chanff_fwd")(*(t.data_ptr() for t in args + (y, *scratch)), R, D, F,
+                                     plan.tile_rows, plan.split, int(x.dtype == torch.bfloat16),
+                                     dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"chanff_fwd kernel launch failed: CUDA error {err}")
     launches += 1
     return y
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """One call of ``csrc/chanff_fwd.cu``'s ``pips_chanff_fwd``: the grid of
+    each of its launches, in launch order (the LN row pass, the activation
+    product with the GELU epilogue, the out product with the residual, its
+    ``split`` blocks of a tile a cluster along z); the rows of the products'
+    tiles; the out product's K splits; and the scratch the wrapper
+    allocates, name -> (shape, dtype), in the C entry's order."""
+    R: int
+    F: int
+    dtype: torch.dtype
+    tile_rows: int
+    split: int
+    grids: dict
+    scratch: dict
+
+    @property
+    def launches(self) -> int:
+        return len(self.grids)
+
+
+@functools.lru_cache(maxsize=64)  # one plan a shape: the wrapper asks on every call
+def fwd_plan(R: int, F: int, dtype: torch.dtype, sms: int = SMS) -> FwdPlan:
+    """The forward's launches for x (R, 512) in ``dtype`` and F hidden
+    columns on a card of ``sms`` SMs. The out product has 4 * ceil(R / 128)
+    tiles; K = F is split only where the split tiles still fit one to an SM
+    (more, in two blocks to an SM, measured slower), into at most
+    ``FWD_MAX_SPLIT`` runs of at least ``FWD_SPLIT_MIN_K`` columns."""
+    if R <= 0 or F <= 0 or F % KERNEL_F_MULT or dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"no forward plan for R={R}, F={F}, {dtype}")
+    row_tiles, col_tiles = -(-R // TILE_ROWS), -(-F // TILE_COLS)
+    tiles = (KERNEL_D // TILE_COLS) * row_tiles
+    split = max(1, min(FWD_MAX_SPLIT, sms // tiles, F // FWD_SPLIT_MIN_K))
+    grids = {"ln": (-(-R // LN_ROWS), 1, 1), "act": (col_tiles, row_tiles, 1),
+             "out": (KERNEL_D // TILE_COLS, row_tiles, split)}
+    scratch = {"xa": ((R, KERNEL_D), dtype), "g1": ((R, F), dtype)}
+    return FwdPlan(R, F, dtype, TILE_ROWS, split, grids, scratch)
 
 
 @dataclasses.dataclass(frozen=True)

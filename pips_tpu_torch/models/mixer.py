@@ -89,8 +89,10 @@ class MLPMixer(nn.Module):
     """(B, S, input_dim) -> (B, output_dim), mean-pooled over S before the head.
 
     ``fuse_chanff=True`` runs each channel block (LN -> fc1 -> GELU -> fc2 ->
-    residual) through ``kernels.mixer_cuda.chan_ff_block``: the CUDA kernels
-    (forward and backward) on the card, their plain versions on the CPU.
+    residual) through ``kernels.mixer_cuda.chan_ff_block``: on the card the
+    tiled CUDA kernels of ``csrc/chanff_fwd.cu`` (three launches a forward)
+    and ``csrc/chanff_bwd.cu`` (five a backward), on the CPU their plain
+    versions.
     Parameters are the same either way.
     """
 

@@ -11,10 +11,10 @@ of ``make_train_step`` over 5 steps after 2 of warm-up; the peak memory of
 those steps; from ``torch.profiler``, one step's device time summed over
 kernels and split into forward, backward and optimizer, the device's idle
 share of the step, the kernels that take the most device time, and the time
-of the channel block's forward and backward kernels (the backward by its
-five launches) and of the stage-1 conv kernel. ``--fuse-conv3`` runs the
-encoder's four stage-1 3x3 convs (and their dx) through
-``csrc/conv3x3_fwd.cu``. CUDA only.
+of the channel block's forward and backward kernels (the forward by its
+three launches, the backward by its five) and of the stage-1 conv kernel.
+``--fuse-conv3`` runs the encoder's four stage-1 3x3 convs (and their dx)
+through ``csrc/conv3x3_fwd.cu``. CUDA only.
 """
 
 from __future__ import annotations

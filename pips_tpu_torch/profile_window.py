@@ -9,7 +9,8 @@ probe's N=7680 queries, one every 8 pixels) with the given corr mode
 frames already on the card; from ``torch.profiler``, the device time summed
 over kernels, split into encode and track, and the device's idle share of
 that window; the kernels that take the most device time; and the time of
-the fused channel block, of the corr kernel and of the stage-1 conv kernel.
+the fused channel block (in all and by its three launches), of the corr
+kernel and of the stage-1 conv kernel.
 ``--fuse-conv3`` runs the encoder's four stage-1 3x3 convs through
 ``csrc/conv3x3_fwd.cu``, so the encode range reads with and without it.
 CUDA only.
@@ -52,17 +53,20 @@ def summarize(prof, device_type, top: int, ranges=("encode", "track")) -> dict:
                 owner = r
         split[owner] += us
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    chanff_bwd: dict[str, float] = {}  # the backward's launches, by kernel name
+    # the channel block's launches, by kernel name: the forward's, the backward's
+    chanff: dict[str, dict[str, float]] = {"fwd": {}, "bwd": {}}
     for k, v in by_name.items():
-        if "chanff_bwd" in k:
-            name = re.search(r"chanff_bwd_\w+", k).group(0)
-            chanff_bwd[name] = chanff_bwd.get(name, 0.0) + v[0] / 1e3
+        m = re.search(r"chanff_(fwd|bwd)_\w+", k)
+        if m:
+            part = chanff[m.group(1)]
+            part[m.group(0)] = part.get(m.group(0), 0.0) + v[0] / 1e3
     return {
         "device_busy_ms": sum(split.values()) / 1e3,
         "device_ms_by_range": {k: v / 1e3 for k, v in split.items()},
         "kernel_launches": len(kernels),
         "chanff_ms": sum(v[0] for k, v in by_name.items() if "chanff_fwd" in k) / 1e3,
-        "chanff_bwd_ms": chanff_bwd,
+        "chanff_fwd_ms": chanff["fwd"],
+        "chanff_bwd_ms": chanff["bwd"],
         "corr_sample_ms": sum(v[0] for k, v in by_name.items() if "corr_sample" in k) / 1e3,
         "conv3x3_ms": sum(v[0] for k, v in by_name.items() if "conv3x3_" in k) / 1e3,
         "conv3x3_launches": sum(v[1] for k, v in by_name.items() if "conv3x3_" in k),

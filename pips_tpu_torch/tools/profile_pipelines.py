@@ -2,13 +2,14 @@
 
 The bf16 ``stem_wgrad`` kernel (``csrc/stem_wgrad.cu``), ``stream_accum``
 (``csrc/mixer_probes.cu``), the bf16 ``conv_pass`` (``csrc/conv3x3_stats.cu``),
-``row_contract`` (``csrc/row_contract.cu``) and the channel block's backward
-(``csrc/chanff_bwd.cu``, bf16 and f32) each overlap asynchronous copies with
-products. No kernel profiler runs on the machine with
-the card, so this tool builds variants of each source with one phase taken
-out and times them beside the kernel, at the smoke's shapes: what a phase
-costs is the time it adds. A variant's output is wrong by construction; only
-the kernel's is held to its plain version.
+``row_contract`` (``csrc/row_contract.cu``) and the channel block's forward
+and backward (``csrc/chanff_fwd.cu``, ``csrc/chanff_bwd.cu``, bf16 and f32)
+each overlap asynchronous copies with products. No kernel profiler runs on
+the machine with the card, so this tool builds variants of each source with
+one phase taken out (a change to the source or to a header it includes) and
+times them beside the kernel, at the smoke's shapes: what a phase costs is
+the time it adds. A variant's output is wrong by construction; only the
+kernel's is held to its plain version.
 
     python3 -m pips_tpu_torch.tools.profile_pipelines
 
@@ -31,9 +32,18 @@ bf16 and f32, one ``pips_chanff_bwd`` call): "kernel", with each of its
 launches' device time under the profiler; "no activation products", "no dxa
 products" and "no weight-grad products" (the consumers only wait for each
 stage and release it; the epilogues run on zeros); and in bf16 "no copies"
-(no TMA copy: the products read stale tiles). Times: CUDA events around ``reps`` calls queued behind a sleep kernel (so the
-host's cost per call hides), the median of ``rounds``. Prints one JSON line
-with the card's name and power limit; needs CUDA.
+(no TMA copy: the products read stale tiles). Of the channel block's forward
+(the same R and F, bf16 and f32, one ``pips_chanff_fwd`` call as
+``mixer_cuda.fwd_plan`` lays it out): "kernel", with each launch's device
+time under the profiler; "no activation products" and "no out products" (as
+the backward's); "no GELU" (the activation epilogue stores a1 + b1 as it
+is); and in bf16 "no copies"; then two configurations, "one block an SM"
+(the bf16 products one block an SM with six-stage rings, the first design)
+and "f32 act two blocks an SM"; and the kernel at each split of the out
+product (1, 2, 4) at R=100, 1024 and 2048, both dtypes, beside the plan's
+choice. Times: CUDA events around ``reps`` calls queued behind a sleep
+kernel (so the host's cost per call hides), the median of ``rounds``. Prints
+one JSON line with the card's name and power limit; needs CUDA.
 """
 
 from __future__ import annotations
@@ -98,6 +108,28 @@ CFB32_DXA = ("stage_b<true>(s + kOp, w1_op, n0, k0);" + _CFB32_TAIL
              "stage_b<true>(s + kOp, w1_op, n0, k0);" + _CFB32_TAIL + "        (void)s;\n")
 CFB32_WGRAD = ("        fma_tiles<false>(acc, s, s + kOp);\n", "        (void)s;\n")
 CFB_R, CFB_F = 24576, 2048  # the training default's rows: 4 x 768 points x 8 frames
+CFF_ACT = ("    consume<0, 1>(ring, acc, 0, kSteps, wg);\n",
+           "    for (int i = 0; i < kSteps; ++i) {\n      ring.wait(i);\n      ring.release(i);\n    }\n")
+CFF_OUT = ("    consume<0, 1>(ring, acc, 0, i1 - i0, wg);\n",
+           "    for (int i = 0; i < i1 - i0; ++i) {\n      ring.wait(i);\n      ring.release(i);\n    }\n")
+CFF32_ACT = ("stage_b<false>(s + kOp, w1_op, f0, k0);" + _CFB32_TAIL
+             + "        fma_tiles<true>(acc, s, s + kOp);\n",
+             "stage_b<false>(s + kOp, w1_op, f0, k0);" + _CFB32_TAIL + "        (void)s;\n")
+CFF32_OUT = ("stage_b<false>(s + kOp, w2_op, n0, k0);" + _CFB32_TAIL
+             + "        fma_tiles<true>(acc, s, s + kOp);\n",
+             "stage_b<false>(s + kOp, w2_op, n0, k0);" + _CFB32_TAIL + "        (void)s;\n")
+CFF_GELU = ("        const float cdf = gelu_cdf(a);\n", "        const float cdf = 1.0f;\n")
+# the forward's configurations beside the kernel's: its bf16 products one
+# block an SM with six-stage rings; its f32 activation product two blocks an SM
+CFF_ONE_BLOCK = [("constexpr int kBlocksPerSM = 2;", "constexpr int kBlocksPerSM = 1;"),
+                 ("constexpr int kActStages = 3;", "constexpr int kActStages = 6;"),
+                 ("constexpr int kOutStages = 3;", "constexpr int kOutStages = 6;")]
+CFF32_TWO_BLOCKS = [("__launch_bounds__(kThreads, 1)\nchanff_fwd_act_f32(",
+                     "__launch_bounds__(kThreads, 2)\nchanff_fwd_act_f32(")]
+# the forward's variants that change one dtype's kernels only
+CFF_DTYPE = {"no copies": torch.bfloat16, "one block an SM": torch.bfloat16,
+             "f32 act two blocks an SM": torch.float32}
+CFF_SPLIT_R = (100, 1024, 2048)  # rows whose out product fwd_plan splits
 VARIANTS = {
     "stem_wgrad": {"kernel": [], "no x copies": [STEM_X], "no products": [STEM_MMA],
                    "dy only": [STEM_X, STEM_MMA], "no segments": [STEM_NONE]},
@@ -109,26 +141,55 @@ VARIANTS = {
     "chanff_bwd": {"kernel": [], "no activation products": [CFB_ACT, CFB32_ACT],
                    "no dxa products": [CFB_DXA, CFB32_DXA],
                    "no weight-grad products": [CFB_WGRAD, CFB32_WGRAD], "no copies": CFB_COPY},
+    "chanff_fwd": {"kernel": [], "no activation products": [CFF_ACT, CFF32_ACT],
+                   "no out products": [CFF_OUT, CFF32_OUT], "no GELU": [CFF_GELU],
+                   "no copies": CFB_COPY, "one block an SM": CFF_ONE_BLOCK,
+                   "f32 act two blocks an SM": CFF32_TWO_BLOCKS},
 }
+
+
+def _sources(stem: str) -> dict:
+    """``csrc/<stem>.cu`` and the local headers it includes, at any depth:
+    {file name: text}."""
+    files, todo = {}, [f"{stem}.cu"]
+    while todo:
+        name = todo.pop()
+        if name not in files:
+            files[name] = (_build.CSRC / name).read_text()
+            todo += re.findall(r'#include "([\w.]+)"', files[name])
+    return files
+
+
+def variant_sources(stem: str, subs) -> dict:
+    """The files of ``stem``'s variant with ``subs`` made: each (old, new)
+    replaces the one place ``old`` occurs in the source and its headers.
+    Returns only the files that changed, {name: text}."""
+    files, changed = _sources(stem), {}
+    for old, new in subs:
+        where = [n for n, text in files.items() if text.count(old)]
+        if len(where) != 1 or files[where[0]].count(old) != 1:
+            raise RuntimeError(f"{stem}.cu and its headers no longer hold {old!r} once: update "
+                               "the variant")
+        files[where[0]] = changed[where[0]] = files[where[0]].replace(old, new)
+    return changed
 
 
 def build() -> dict:
     """Every variant's library, all nvcc processes at once, under
-    ``build/pips_tpu_torch/variants``: {(source, variant): ctypes.CDLL}."""
+    ``build/pips_tpu_torch/variants/<source>_<i>/`` (the changed files beside
+    the library; a source's quoted includes find a changed header there
+    first): {(source, variant): ctypes.CDLL}."""
     out = _build.BUILD_DIR / "variants"
-    out.mkdir(parents=True, exist_ok=True)
     nvcc, running = _build._nvcc(), []
     for stem, variants in VARIANTS.items():
-        src = (_build.CSRC / f"{stem}.cu").read_text()
         for i, (name, subs) in enumerate(variants.items()):
-            text = src
-            for old, new in subs:
-                if text.count(old) != 1:
-                    raise RuntimeError(f"{stem}.cu no longer holds {old!r} once: update the "
-                                       "variant")
-                text = text.replace(old, new)
-            cu, so = out / f"{stem}_{i}.cu", out / f"lib{stem}_{i}.so"
-            cu.write_text(text)
+            vdir = out / f"{stem}_{i}"
+            vdir.mkdir(parents=True, exist_ok=True)
+            files = {f"{stem}.cu": (_build.CSRC / f"{stem}.cu").read_text(),
+                     **variant_sources(stem, subs)}
+            for fname, text in files.items():
+                (vdir / fname).write_text(text)
+            cu, so = vdir / f"{stem}.cu", vdir / f"lib{stem}.so"
             proc = subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
                                      str(so), str(cu)],
                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
@@ -320,20 +381,103 @@ def chanff_bwd_variants(libs: dict, dtype: torch.dtype, R: int = CFB_R, F: int =
             ref = mixer_cuda.chan_ff_bwd_reference(*args)
             out["kernel max_abs_err"] = [(o.float() - r.float()).abs().max().item()
                                          for o, r in zip(outs, ref)]
-            # the trace may miss the first kernels of a session: one call warms
-            # it, and the last three calls' kernels are the last in the trace
-            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                for _ in range(4):
-                    call()
-                    torch.cuda.synchronize()
-            events = sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
-                            for e in prof.events()
-                            if e.device_type == torch.autograd.DeviceType.CUDA)
-            launches = {}
-            for _, name, us in events[-3 * plan.launches:]:
-                k = re.search(r"chanff_bwd_\w+", name).group(0)
-                launches[k] = launches.get(k, 0.0) + us / 3e3
-            out["kernel ms by launch"] = launches
+            out["kernel ms by launch"] = launch_ms(call, plan.launches, r"chanff_bwd_\w+")
+    return out
+
+
+def fwd_inputs(R: int, F: int, dtype: torch.dtype) -> tuple:
+    """The block's inputs at (R, 512) x F in ``dtype``, its output buffer,
+    the plan's scratch and the C entry's pointers to them: (args, y,
+    scratch, pointers). The caller holds the scratch while it calls."""
+    rng = np.random.RandomState(R + 1)
+    vals = [rng.randn(R, 512), 1.0 + 0.1 * rng.randn(512), 0.1 * rng.randn(512),
+            rng.randn(512, F) / np.sqrt(512), 0.1 * rng.randn(F), rng.randn(F, 512) / np.sqrt(F),
+            0.1 * rng.randn(512)]
+    dts = [dtype, torch.float32, torch.float32, dtype, torch.float32, dtype, torch.float32]
+    args = [torch.from_numpy(v.astype(np.float32)).to("cuda", dt) for v, dt in zip(vals, dts)]
+    plan = mixer_cuda.fwd_plan(R, F, dtype)
+    y = torch.empty_like(args[0])
+    scratch = [torch.empty(shape, dtype=dt, device="cuda") for shape, dt in plan.scratch.values()]
+    return args, y, scratch, [t.data_ptr() for t in args + [y] + scratch]
+
+
+def fwd_caller(lib, ptrs, R: int, F: int, dtype: torch.dtype, split: int, what: str):
+    """A call of ``lib``'s ``pips_chanff_fwd`` on ``ptrs`` at ``split``."""
+    fn = lib.pips_chanff_fwd
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        checked(fn(*ptrs, R, 512, F, mixer_cuda.TILE_ROWS, split, int(dtype == torch.bfloat16),
+                   0, stream), what)
+
+    return call
+
+
+def chanff_fwd_variants(libs: dict, dtype: torch.dtype, R: int = CFB_R, F: int = CFB_F) -> dict:
+    """One ``pips_chanff_fwd`` call of each variant at (R, 512) x F in
+    ``dtype``; for the kernel, its largest error against the plain version
+    and each launch's device time under the profiler."""
+    args, y, scratch, ptrs = fwd_inputs(R, F, dtype)  # scratch held while the calls run
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = mixer_cuda.fwd_plan(R, F, dtype, sms)
+    out = {"split": plan.split}
+    for name in VARIANTS["chanff_fwd"]:
+        if CFF_DTYPE.get(name, dtype) != dtype:
+            continue  # a variant of the other dtype's kernels (f32 copies by cp.async)
+        call = fwd_caller(libs[("chanff_fwd", name)], ptrs, R, F, dtype, plan.split,
+                          f"chanff_fwd {name}")
+        out[name] = device_ms(call, reps=10)
+        if name == "kernel":
+            call()
+            ref = mixer_cuda.chan_ff_reference(*args)
+            out["kernel max_abs_err"] = (y.float() - ref.float()).abs().max().item()
+            out["kernel ms by launch"] = launch_ms(call, plan.launches, r"chanff_fwd_\w+")
+    return out
+
+
+def chanff_fwd_splits(libs: dict, F: int = CFB_F) -> dict:
+    """The forward at each split its C entry takes (1, 2, 4) where
+    ``fwd_plan`` splits (``CFF_SPLIT_R``), both dtypes, beside the plan's
+    choice: what that choice rests on. Every split is held to the plain
+    version (bf16 within two ulps of the output's magnitude, f32 1e-4)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for R in CFF_SPLIT_R:
+            args, y, scratch, ptrs = fwd_inputs(R, F, dtype)  # scratch held, as above
+            ref = mixer_cuda.chan_ff_reference(*args).float()
+            tol = (2.0 ** (np.ceil(np.log2(ref.abs().max().item())) - 7)
+                   if dtype == torch.bfloat16 else 1e-4)
+            res = {"plan": mixer_cuda.fwd_plan(R, F, dtype, sms).split}
+            for split in (1, 2, 4):
+                call = fwd_caller(libs[("chanff_fwd", "kernel")], ptrs, R, F, dtype, split,
+                                  f"chanff_fwd split {split}")
+                call()
+                err = (y.float() - ref).abs().max().item()
+                if err > tol:
+                    raise RuntimeError(f"chanff_fwd {dtype} R={R} split {split}: max_abs_err "
+                                       f"{err} > {tol}")
+                res[split] = device_ms(call)
+            out[f"{str(dtype).split('.')[-1]} R={R}"] = res
+    return out
+
+
+def launch_ms(call, launches: int, pattern: str) -> dict:
+    """Each launch's device time (ms) of one call, by kernel name, averaged
+    over three calls under the profiler. The trace may miss the first
+    kernels of a session: one call warms it, and the last three calls'
+    kernels are the last in the trace."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            call()
+            torch.cuda.synchronize()
+    events = sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
+                    for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    out = {}
+    for _, name, us in events[-3 * launches:]:
+        k = re.search(pattern, name).group(0)
+        out[k] = out.get(k, 0.0) + us / 3e3
     return out
 
 
@@ -349,7 +493,10 @@ def main() -> dict:
            "stream_accum": stream_variants(libs), "conv_pass": conv_variants(libs),
            "row_contract": contract_variants(libs),
            "chanff_bwd bf16": chanff_bwd_variants(libs, torch.bfloat16),
-           "chanff_bwd f32": chanff_bwd_variants(libs, torch.float32)}
+           "chanff_bwd f32": chanff_bwd_variants(libs, torch.float32),
+           "chanff_fwd bf16": chanff_fwd_variants(libs, torch.bfloat16),
+           "chanff_fwd f32": chanff_fwd_variants(libs, torch.float32),
+           "chanff_fwd splits": chanff_fwd_splits(libs)}
     print(json.dumps(res), flush=True)
     return res
 

@@ -250,12 +250,14 @@ def _constexpr(source: str, name: str) -> int:
 
 def test_bwd_plan_constants_are_the_kernels():
     """The plan's tiles, splits and LN rows are those ``csrc/chanff_bwd.cu``
-    is compiled with; the chunked path's partial tiles those of its kernel."""
+    is compiled with (its tiles and LN rows from ``chanff_tiles.cuh``, which
+    it includes); the chunked path's partial tiles those of its kernel."""
     src = "chanff_bwd.cu"
-    assert _constexpr(src, "kTileRows") == mixer_cuda.TILE_ROWS
-    assert _constexpr(src, "kTileCols") == mixer_cuda.TILE_COLS
+    assert '#include "chanff_tiles.cuh"' in (_CSRC / src).read_text()
+    assert _constexpr("chanff_tiles.cuh", "kTileRows") == mixer_cuda.TILE_ROWS
+    assert _constexpr("chanff_tiles.cuh", "kTileCols") == mixer_cuda.TILE_COLS
     assert _constexpr(src, "kMaxSplit") == mixer_cuda.MAX_SPLIT
-    assert _constexpr(src, "kLnRows") == mixer_cuda.LN_ROWS
+    assert _constexpr("chanff_tiles.cuh", "kLnRows") == mixer_cuda.LN_ROWS
     assert _constexpr("chanff_rows.cuh", "kD") == mixer_cuda.KERNEL_D
     assert _constexpr("chanff_rows.cuh", "kBwdRows") == chanff_chunk_cuda.PART_ROWS
     assert "constexpr int TR = kBwdRows;" in (_CSRC / "chanff_chunk.cu").read_text()
@@ -341,3 +343,68 @@ def test_chunked_partials_are_what_the_column_sums_are_told(R, monkeypatch):
     assert a[13:18] == (R, 2048, tiles, rows, plan.split)
     assert a[18:] == (None, 7)  # a CPU tensor's device index, the stream
     assert a[12] is None and tiles == _cdiv(R, a[16])  # no split at F=2048 in bf16
+
+
+# ---- the forward's launch plan (``mixer_cuda.fwd_plan``), on the host
+
+def test_fwd_plan_constants_are_the_kernels():
+    """The forward's plan is laid out for what ``csrc/chanff_fwd.cu`` is
+    compiled with: the shared header's tiles and LN rows, its largest split
+    (the C entry refuses more, and fewer than 64 columns of F a split), its
+    three launches in the plan's order, the out product's clusters along z."""
+    src = (_CSRC / "chanff_fwd.cu").read_text()
+    assert '#include "chanff_tiles.cuh"' in src
+    assert _constexpr("chanff_tiles.cuh", "kTileRows") == mixer_cuda.TILE_ROWS
+    assert _constexpr("chanff_tiles.cuh", "kTileCols") == mixer_cuda.TILE_COLS
+    assert _constexpr("chanff_tiles.cuh", "kLnRows") == mixer_cuda.LN_ROWS
+    assert _constexpr("chanff_fwd.cu", "kMaxSplit") == mixer_cuda.FWD_MAX_SPLIT
+    assert "split > kMaxSplit || split > F / 64" in src
+    assert mixer_cuda.FWD_SPLIT_MIN_K % 64 == 0
+    for dtype in ("tc", "simt"):
+        body = src.split(f"namespace {dtype} {{")[1].split("cudaError_t launch(")[1]
+        names = re.findall(r"(chanff_fwd_\w+?)(?:<\w+>)?<<<|launch_out\((chanff_fwd_\w+),", body)
+        assert [a or b for a, b in names] == [
+            f"chanff_fwd_{k}{'_f32' if dtype == 'simt' and k != 'ln' else ''}"
+            for k in ("ln", "act", "out")], names
+    assert "attr[0].val.clusterDim.z = split;" in src
+    assert "cfg.gridDim = dim3(kD / kTileCols, nblk, split);" in src
+
+
+@pytest.mark.parametrize("F", [2048, 64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("R", [1, 100, 2000, 2048, 24576, 61440])
+def test_fwd_plan(R, dtype, F):
+    """Three launches a call whose grids cover R rows and F columns in
+    128 x 128 tiles (the LN pass 8 rows a block); the out product's K split
+    only while the split tiles fit one to an SM, at most FWD_MAX_SPLIT runs of
+    at least FWD_SPLIT_MIN_K columns; scratch xa and g1 in the compute
+    dtype."""
+    D = mixer_cuda.KERNEL_D
+    plan = mixer_cuda.fwd_plan(R, F, dtype)
+    rt, ct = _cdiv(R, 128), _cdiv(F, 128)
+    tiles = (D // 128) * rt
+    assert plan.launches == 3 and list(plan.grids) == ["ln", "act", "out"]
+    assert plan.tile_rows == 128 and (plan.R, plan.F, plan.dtype) == (R, F, dtype)
+    assert plan.grids["ln"] == (_cdiv(R, 8), 1, 1)
+    assert plan.grids["act"] == (ct, rt, 1)
+    assert plan.grids["out"] == (D // 128, rt, plan.split)
+    assert 1 <= plan.split <= mixer_cuda.FWD_MAX_SPLIT
+    if plan.split > 1:
+        assert plan.split * tiles <= mixer_cuda.SMS and F // plan.split >= 256
+    else:
+        assert 2 * tiles > mixer_cuda.SMS or F < 512
+    # the choice at these shapes, in both dtypes: one row tile (R = 1 and
+    # 100) splits K in four, a window of 256 points in two, the training
+    # default and larger not at all; F = 64 never
+    want = {1: 4, 100: 4, 2000: 2, 2048: 2, 24576: 1, 61440: 1}[R]
+    assert plan.split == (want if F == 2048 else 1)
+    assert plan.scratch == {"xa": ((R, D), dtype), "g1": ((R, F), dtype)}
+    assert list(plan.scratch) == ["xa", "g1"]
+
+
+def test_fwd_plan_refuses_what_the_kernels_do_not_take():
+    for R, F, dtype in ((0, 2048, torch.bfloat16), (100, 96, torch.float32),
+                        (100, 2048, torch.float16)):
+        with pytest.raises(ValueError):
+            mixer_cuda.fwd_plan(R, F, dtype)
+    assert mixer_cuda.fwd_plan(2048, 2048, torch.bfloat16, sms=64).split == 1

@@ -379,13 +379,30 @@ def test_cuda_stream_accum_rejects_what_its_tiles_cannot_take(case, monkeypatch)
 @pytest.mark.parametrize("source", sorted(profile_pipelines.VARIANTS))
 def test_pipeline_variants_still_match_their_kernels(source):
     """Each variant of ``tools/profile_pipelines.py`` takes a phase out of the
-    kernel's source by replacing a line that must be there exactly once."""
-    text = (Path(mixer_probes_cuda.__file__).resolve().parents[1] / "csrc"
-            / f"{source}.cu").read_text()
+    kernel's source, or of a header the source includes, by replacing a line
+    that must be there exactly once in all of them."""
+    csrc = Path(mixer_probes_cuda.__file__).resolve().parents[1] / "csrc"
+    files = profile_pipelines._sources(source)
+    assert files[f"{source}.cu"] == (csrc / f"{source}.cu").read_text()
     for subs in profile_pipelines.VARIANTS[source].values():
         for old, new in subs:
-            assert text.count(old) == 1, old
+            assert sum(text.count(old) for text in files.values()) == 1, old
             assert new != old
+        changed = profile_pipelines.variant_sources(source, subs)
+        assert all(text != files[name] for name, text in changed.items())
+        assert bool(changed) == bool(subs)
+
+
+def test_pipeline_variant_refuses_a_line_that_is_not_there_once():
+    """A variant whose line is missing, or found in more than one place of the
+    source and its headers, raises instead of building the kernel unchanged."""
+    with pytest.raises(RuntimeError, match="no longer hold"):
+        profile_pipelines.variant_sources("chanff_fwd", [("no such line\n", "x")])
+    with pytest.raises(RuntimeError, match="no longer hold"):  # in both the source and a header
+        profile_pipelines.variant_sources("chanff_fwd", [("namespace {", "namespace x {")])
+    files = profile_pipelines._sources("chanff_fwd")
+    assert {"chanff_fwd.cu", "chanff_tiles.cuh", "async_copy.cuh", "chanff_rows.cuh",
+            "mma_bf16.cuh"} == set(files)
 
 
 def test_profile_pipelines_needs_cuda(monkeypatch):
