@@ -90,10 +90,13 @@ with the library's weight grad of the s2d conv and of the x7 conv. 3g holds
 ``chan_ff_bwd`` in f32 (the f32 kernels) at R=1024, 800, 100 and 24,576
 against its plain version, all seven grads, with matmuls in full f32 (TF32
 off), repeats and kernel counts as in 3c. 3h holds the F-chunked channel block
-(``chan_ff_block_chunked`` and ``chan_ff_chunked_bwd``) at R=1024 and 800,
-bf16, against its plain versions at every chunk width the kernels take (128,
-256, 512, 1024); at the tool's 512 and 1024 also timed in turns with the
-monolithic kernels; and in f32 at every one of those widths (the f32 chunked
+(``chan_ff_block_chunked`` and ``chan_ff_chunked_bwd``) at R=1024, 800 and
+100 (one ragged 64-row tile), bf16, against its plain versions at every chunk
+width the kernels take (128, 256, 512, 1024), two calls bit-identical, and one
+call of each pass, captured in a CUDA graph, the kernels of its
+``chunk_plan`` (the forward one kernel), whose replay gives the same bits;
+at the tool's 512 and 1024 also timed in turns with the monolithic kernels,
+and at 512 at R=24,576; and in f32 at every one of those widths (the f32 chunked
 block is the f32 monolithic block, so it launches ``chanff_fwd.cu``'s and
 ``chanff_bwd.cu``'s f32 kernels), with 3g's f32 bounds and TF32 off. 3i holds
 the Mosaic probe kernels of the three probe tools against their plain
@@ -203,6 +206,10 @@ STEM_CASES = [("B=1", 1, 384, 512, "bfloat16"), ("B=8", 8, 384, 512, "bfloat16")
 U32 = 2.0 ** -24  # unit roundoff of f32
 EDGE_R = 100  # phases 3a, 3c and 3g: rows that fill no whole 128-row tile of the kernels
 CHUNK_FCS = (512, 1024)  # phase 3h times these: tools/profile_chanff_chunk.py's chunk widths
+# phase 3h's rows: the tool's, a ragged R and one ragged 64-row tile; and the
+# chunk width it also times at the training default's R=24,576
+CHUNK_RS = (TRAIN_R, 800, EDGE_R)
+CHUNK_FC_LARGE = 512
 # phase 7d, f32 with fused channel blocks against the plain block: both keep
 # f32 products and differ only in summation order. One refinement iteration
 # is compared tightly: loss within 0.1%, every leaf's grad cosine (zero-
@@ -246,7 +253,8 @@ PTXAS_REPORT = [("stem_wgrad", "stem_wgrad_tc"), ("mixer_probes", "probe_stream_
                 ("chanff_bwd", "chanff_bwd_act"), ("chanff_bwd", "chanff_bwd_dxa"),
                 ("chanff_bwd", "chanff_bwd_wgrad"), ("chanff_fwd", "chanff_fwd_act"),
                 ("chanff_fwd", "chanff_fwd_out"), ("chanff_fwd", "chanff_fwd_act_f32"),
-                ("chanff_fwd", "chanff_fwd_out_f32")]
+                ("chanff_fwd", "chanff_fwd_out_f32"), ("chanff_chunk", "chanff_chunk_fwd"),
+                ("chanff_chunk", "chanff_chunk_bwd_rows")]
 
 
 def ptxas_report(log_path: Path, kernel: str) -> str:
@@ -938,17 +946,60 @@ def phase_chanff_f32(torch, np, mixer_cuda) -> dict:
     return out
 
 
+def chunk_call_checks(torch, chunk_cuda, fargs, bargs, fc: int, label: str) -> str:
+    """One chunked forward and one backward call at (R, fc): each repeated
+    gives the same bits; each, captured in a CUDA graph, enqueues exactly the
+    kernels of its ``chunk_plan`` in its order (the forward one kernel), and
+    the graph's replay gives the bits of an eager call; the plan's clusters
+    fit the card at once (``cudaOccupancyMaxActiveClusters``). Fails
+    otherwise; returns a summary."""
+    R, F = fargs[0].shape[0], fargs[3].shape[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = chunk_cuda.chunk_plan(R, F, fc, sms)
+    fwd = functools.partial(chunk_cuda.chan_ff_block_chunked, *fargs, fc=fc)
+    bwd = functools.partial(chunk_cuda.chan_ff_chunked_bwd, *bargs, fc=fc)
+    y, y2 = fwd(), fwd()
+    g, g2 = bwd(), bwd()
+    torch.cuda.synchronize()
+    differ = [n for n, a, b in zip(GRAD_NAMES, g, g2) if not torch.equal(a, b)]
+    if not torch.equal(y, y2) or differ:
+        fail(f"{label}: two calls on the same inputs differ (forward {not torch.equal(y, y2)}, "
+             f"backward {differ})")
+    for name, call, want, eager in (("forward", fwd, plan.fwd.kernels, y),
+                                    ("backward", bwd, plan.bwd.kernels, g)):
+        labels, replayed = captured_kernels(torch, call)
+        if len(labels) != len(want) or not all(map(names_kernel, labels, want)):
+            fail(f"{label} {name}: one call enqueued {len(labels)} kernels, its plan {list(want)}: "
+                 f"{labels}")
+        same = (torch.equal(eager, replayed) if name == "forward"
+                else all(torch.equal(a, b) for a, b in zip(eager, replayed)))
+        if not same:
+            fail(f"{label} {name}: the captured call's replay differs from an eager call")
+    for backward, p in ((0, plan.fwd), (1, plan.bwd)):
+        fits = chunk_cuda.max_clusters(backward, p.split) if p.split > 1 else None
+        if fits is not None and p.grid[1] > fits:
+            fail(f"{label}: {p.grid[1]} clusters of {p.split} blocks, the card holds {fits} "
+                 "at once")
+    return (f"repeats bit-identical; captured {len(plan.fwd.kernels)} + {len(plan.bwd.kernels)} "
+            f"kernels ({', '.join(plan.fwd.kernels + plan.bwd.kernels)}), replays bit-identical; "
+            f"grid {plan.fwd.grid}, clusters of {plan.fwd.split}")
+
+
 def phase_chunk(torch, np, chunk_cuda, mixer_cuda) -> dict:
     """3h: the F-chunked channel block (``csrc/chanff_chunk.cu``), forward and
-    backward, bf16, at the tool's R=1024 and a ragged R, against its plain
-    versions at every chunk width the kernels take; at the tool's widths also
-    timed in turns with the monolithic kernels on the same inputs."""
+    backward, bf16, at the tool's R=1024, a ragged R and one ragged row tile
+    (R=100), against its plain versions at every chunk width the kernels
+    take, each call repeated for the same bits and counted in a captured CUDA
+    graph against ``chunk_plan``; at the tool's widths (R=1024 and 800) also
+    timed in turns with the monolithic kernels on the same inputs, and at
+    fc=512 at the training default's R=24,576."""
     out = {}
-    for R in (TRAIN_R, 800):
+    for R in CHUNK_RS + (TRAIN_R_DEFAULT,):
         fargs = chanff_args(torch, np, R, torch.bfloat16, seed=R + 5)
         bargs = chanff_bwd_args(torch, np, R, seed=R + 6)
         tols = chanff_bwd_tols(torch, mixer_cuda, bargs)
-        for fc in chunk_cuda.FCS:
+        timed = {TRAIN_R: CHUNK_FCS, 800: CHUNK_FCS, TRAIN_R_DEFAULT: (CHUNK_FC_LARGE,)}.get(R, ())
+        for fc in (chunk_cuda.FCS if R in CHUNK_RS else timed):
             y = chunk_cuda.chan_ff_block_chunked(*fargs, fc=fc)
             grads = chunk_cuda.chan_ff_chunked_bwd(*bargs, fc=fc)
             torch.cuda.synchronize()
@@ -958,26 +1009,31 @@ def phase_chunk(torch, np, chunk_cuda, mixer_cuda) -> dict:
             gref = chunk_cuda.chan_ff_chunked_bwd_reference(*bargs, fc=fc)
             worst, parts, max_err = grad_errors(torch, f"chan_ff_chunked_bwd R={R} fc={fc}",
                                                 grads, gref, tols)
+            like = y.shape == ref.shape and y.dtype == ref.dtype
+            del grads, ref, gref
+            calls = chunk_call_checks(torch, chunk_cuda, fargs, bargs, fc,
+                                      f"chunked block R={R} fc={fc}")
             log("kernels", f"chunked block R={R} fc={fc} bf16: forward max_abs_err {err:.3g} "
-                           f"(tol {tol:.3g}); backward " + "; ".join(parts))
-            if not (y.shape == ref.shape and y.dtype == ref.dtype and err <= tol):
+                           f"(tol {tol:.3g}); backward " + "; ".join(parts) + f"; {calls}")
+            if not (like and err <= tol):
                 fail(f"chan_ff_block_chunked R={R} fc={fc} disagrees with its plain version: "
                      f"{err} > {tol}")
             if worst > 1.0:
                 fail(f"chan_ff_chunked_bwd R={R} fc={fc} disagrees with its plain version (worst "
                      f"err/tol {worst:.3g})")
-            del y, grads, ref, gref
-            if fc not in CHUNK_FCS:
+            del y
+            if fc not in timed:
                 continue
 
             fwd = functools.partial(chunk_cuda.chan_ff_block_chunked, fc=fc)
             bwd = functools.partial(chunk_cuda.chan_ff_chunked_bwd, fc=fc)
+            n = 20 if R < TRAIN_R_DEFAULT else 5
             t = {k: [] for k in ("fwd", "base fwd", "bwd", "base bwd")}
             for _ in range(2):
-                t["fwd"].append(median_ms(torch, fwd, fargs))
-                t["base fwd"].append(median_ms(torch, mixer_cuda.chan_ff_block, fargs))
-                t["bwd"].append(median_ms(torch, bwd, bargs))
-                t["base bwd"].append(median_ms(torch, mixer_cuda.chan_ff_bwd, bargs))
+                t["fwd"].append(median_ms(torch, fwd, fargs, launches=n))
+                t["base fwd"].append(median_ms(torch, mixer_cuda.chan_ff_block, fargs, launches=n))
+                t["bwd"].append(median_ms(torch, bwd, bargs, launches=n))
+                t["base bwd"].append(median_ms(torch, mixer_cuda.chan_ff_bwd, bargs, launches=n))
             ms = {k: sum(v) / 2 for k, v in t.items()}
             plain = {"fwd": median_ms(torch, functools.partial(
                          chunk_cuda.chan_ff_chunked_reference, fc=fc), fargs, launches=5),
@@ -998,7 +1054,7 @@ def phase_chunk(torch, np, chunk_cuda, mixer_cuda) -> dict:
             out[("bwd", R, fc)] = dict(max_abs_err=max_err, ms=ms["bwd"], plain_ms=plain["bwd"],
                                        bound_ms=bb, bound_by=bb_by, base_ms=ms["base bwd"])
         del fargs, bargs, tols
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     return out
 
 

@@ -74,7 +74,7 @@
 // Plain C ABI (loaded with ctypes): pips_chanff_bwd returns cudaGetLastError()
 // after the last launch; 0 means launched. pips_chanff_bwd_finish runs the
 // weight-grad products and the column sums alone on bf16 scratch that another
-// kernel wrote (chanff_chunk.cu's, whose partials come in 16-row tiles).
+// kernel wrote (chanff_chunk.cu's, whose partials come in 64-row tiles).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -693,7 +693,7 @@ int pips_chanff_bwd(const void* x, const void* dy, const void* ln_scale, const v
 
 // The weight-grad products and the column sums alone, bf16, on scratch in
 // pips_chanff_bwd's layout that another kernel wrote, its partials in nblk
-// row tiles of part_rows rows (chanff_chunk.cu's 16).
+// row tiles of part_rows rows (chanff_chunk.cu's 64).
 int pips_chanff_bwd_finish(const void* xa, const void* g1, const void* da1, const void* dy,
                            void* dg, void* db, void* dw1, void* db1, void* dw2, void* db2,
                            const void* part_d, const void* part_f, void* wsplit, int R, int F,

@@ -22,7 +22,6 @@ import ctypes
 import dataclasses
 import functools
 import math
-from typing import Optional
 
 import torch
 
@@ -336,33 +335,31 @@ def chan_ff_bwd(x, dy, ln_scale, ln_bias, w1, b1, w2):
     return outs
 
 
-def bwd_buffers(x, plan: BwdPlan, part_rows: Optional[int] = None):
-    """The backward's outputs (dx in x's dtype; f32 d ln_scale, d ln_bias,
-    dw1, db1, dw2, db2) and its scratch as ``plan`` lays it out, a dict in the
-    C entry's order (``wsplit`` None without a split). ``part_rows``: the
-    partials' row tiles when another kernel writes them (``chanff_chunk.cu``'s
-    16), in place of the plan's."""
-    R, D = x.shape
-    F = plan.F
-    dev = x.device
-    shapes = dict(plan.scratch)
-    if part_rows is not None:
-        tiles = -(-R // part_rows)
-        shapes["part_d"] = ((tiles, 3, D), torch.float32)
-        shapes["part_f"] = ((tiles, F), torch.float32)
-    f32 = dict(dtype=torch.float32, device=dev)
+def bwd_outputs(x, F: int) -> tuple:
+    """The backward's outputs for x (R, D) and F hidden columns: dx in x's
+    dtype; f32 d ln_scale, d ln_bias, dw1, db1, dw2, db2."""
+    D = x.shape[1]
+    f32 = dict(dtype=torch.float32, device=x.device)
     dg, db, db2 = (torch.empty(D, **f32) for _ in range(3))
     dw1, db1, dw2 = torch.empty(D, F, **f32), torch.empty(F, **f32), torch.empty(F, D, **f32)
-    scratch = {name: None if spec is None else torch.empty(spec[0], dtype=spec[1], device=dev)
-               for name, spec in shapes.items()}
-    return (torch.empty_like(x), dg, db, dw1, db1, dw2, db2), scratch
+    return torch.empty_like(x), dg, db, dw1, db1, dw2, db2
+
+
+def bwd_buffers(x, plan: BwdPlan):
+    """The backward's outputs (``bwd_outputs``) and its scratch as ``plan``
+    lays it out, a dict in the C entry's order (``wsplit`` None without a
+    split)."""
+    scratch = {name: None if spec is None else torch.empty(spec[0], dtype=spec[1], device=x.device)
+               for name, spec in plan.scratch.items()}
+    return bwd_outputs(x, plan.F), scratch
 
 
 def bwd_finish(dy, outs, scratch: dict, plan: BwdPlan, part_rows: int) -> None:
     """The weight-grad products and the column sums of ``csrc/chanff_bwd.cu``
-    (``pips_chanff_bwd_finish``) on bf16 scratch in ``bwd_buffers``' layout
-    that another kernel filled, its partials in tiles of ``part_rows`` rows;
-    writes ``outs``' f32 grads."""
+    (``pips_chanff_bwd_finish``) on bf16 scratch that another kernel filled
+    (``chanff_chunk_cuda.bwd_buffers``' layout: xa, g1, da1, part_d, part_f,
+    and ``wsplit`` for ``plan``'s split), its partials in tiles of
+    ``part_rows`` rows; writes ``outs``' f32 grads."""
     _, dg, db, dw1, db1, dw2, db2 = outs
     dev = dy.device
     wsplit = scratch["wsplit"]

@@ -5,10 +5,12 @@ blocks at D=512, F=2048 on bf16 rows (R=1024 by default), with the JAX tool's
 12 f32 weight sets drawn from ``np.random.RandomState(0)`` and the rows after
 them:
   * base: ``kernels.mixer_cuda.chan_ff_block`` (``csrc/chanff_fwd.cu`` and
-    ``chanff_bwd.cu``: F in chunks of 64, both weight chunks staged whole);
+    ``chanff_bwd.cu``: tiled products on 128 x 128 tiles, the activation
+    written to device memory between them);
   * chunk, at each width fc: ``kernels.chanff_chunk_cuda.chan_ff_block_chunked``
-    (``csrc/chanff_chunk.cu``: one (16, fc) tile per chunk, the weights
-    streamed through shared memory in slices).
+    (``csrc/chanff_chunk.cu``: one fused chunk pipeline a call, 64-row tiles
+    whose F runs of whole chunks are a cluster's blocks, the activation kept
+    in shared memory slab by slab between its two products).
 
 First each chunked chain's output against the base chain's (max |diff|), then
 the forward and the forward+backward (the grads of all 72 weight tensors, as

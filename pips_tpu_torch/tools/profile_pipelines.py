@@ -41,9 +41,18 @@ is); and in bf16 "no copies"; then two configurations, "one block an SM"
 (the bf16 products one block an SM with six-stage rings, the first design)
 and "f32 act two blocks an SM"; and the kernel at each split of the out
 product (1, 2, 4) at R=100, 1024 and 2048, both dtypes, beside the plan's
-choice. Times: CUDA events around ``reps`` calls queued behind a sleep
-kernel (so the host's cost per call hides), the median of ``rounds``. Prints
-one JSON line with the card's name and power limit; needs CUDA.
+choice. Of the F-chunked channel block's two kernels (``csrc/chanff_chunk.cu``,
+``chanff_chunk_fwd`` and ``chanff_chunk_bwd_rows`` alone, without the
+backward's finishing launches; at the tool's R=1024 with fc 512 and 1024 and
+at R=24,576 with fc 512, as ``chunk_plan`` splits them): "kernel"; "no GELU"
+(the epilogues take a for gelu(a) and dg1 for da1); "no activation products"
+and "no out/dxa products" (the consumers only wait for each step and release
+it); "no copies" (the producer only arrives: the products read stale tiles);
+"no cluster sum" (each block adds only the first rank's partial tile); and
+the kernel at each split its C entry takes there. Times: CUDA events around
+``reps`` calls queued behind a sleep kernel (so the host's cost per call
+hides), the median of ``rounds``. Prints one JSON line with the card's name
+and power limit; needs CUDA.
 """
 
 from __future__ import annotations
@@ -57,7 +66,8 @@ import subprocess
 import numpy as np
 import torch
 
-from pips_tpu_torch.kernels import _build, block_cuda, mixer_cuda, row_contract_cuda
+from pips_tpu_torch.kernels import (_build, block_cuda, chanff_chunk_cuda, mixer_cuda,
+                                    row_contract_cuda)
 from pips_tpu_torch.kernels.mixer_probes_cuda import stream_accum_reference
 from pips_tpu_torch.kernels.stem_wgrad_cuda import stem_wgrad_reference
 from pips_tpu_torch.tools import debug_mixer_kernel, probe_mosaic_ops
@@ -130,6 +140,24 @@ CFF32_TWO_BLOCKS = [("__launch_bounds__(kThreads, 1)\nchanff_fwd_act_f32(",
 CFF_DTYPE = {"no copies": torch.bfloat16, "one block an SM": torch.bfloat16,
              "f32 act two blocks an SM": torch.float32}
 CFF_SPLIT_R = (100, 1024, 2048)  # rows whose out product fwd_plan splits
+# the chunked kernels: "no GELU" in both epilogues; the products; the copies
+# (tma_box is the file's own TMA helper); the cluster's rank-order sums
+CCH_GELU = [("      const uint32_t g = in ? pack2(v0 * phi(v0), v1 * phi(v1)) : 0u;",
+             "      const uint32_t g = in ? pack2(v0, v1) : 0u;"),
+            ("        const float cdf = phi(a);\n        g[e] = a * cdf;\n"
+             "        d[e] = dg[4 * n + 2 * hi + e] * (cdf + a * gelu_pdf(a));\n",
+             "        g[e] = a;\n        d[e] = dg[4 * n + 2 * hi + e];\n")]
+CCH_ACT = [("        act_step(a1, xa_d, st, s, wg);\n", ""),
+           ("        act_step(a1, dg, xa_d, st, s, wg);\n", "")]
+CCH_OUT = [("        out_step(y0, y1, cur, st, t, wg);\n", ""),
+           ("          dxa_step(d0, d1, cur, st, p / 2);\n", "")]
+CCH_COPY = [("    bar_arrive_tx(full(s), bytes);\n", "    bar_arrive(full(s));\n"),
+            ("int c1,\n" + " " * 40 + "uint32_t bar) {\n  asm volatile(",
+             "int c1,\n" + " " * 40 + "uint32_t bar) {\n  if (c0 < -(1 << 30)) asm volatile(")]
+CCH_SUM = [(f"      if (k >= split) break;\n#pragma unroll\n      for (int u = 0; u < {n}; ++u) {{",
+            f"      if (k >= 1) break;\n#pragma unroll\n      for (int u = 0; u < {n}; ++u) {{")
+           for n in ("kRound", "kU")]
+CCH_CASES = ((1024, 512), (1024, 1024), (CFB_R, 512))  # (R, fc): the tool's rows, the train default
 VARIANTS = {
     "stem_wgrad": {"kernel": [], "no x copies": [STEM_X], "no products": [STEM_MMA],
                    "dy only": [STEM_X, STEM_MMA], "no segments": [STEM_NONE]},
@@ -145,6 +173,9 @@ VARIANTS = {
                    "no out products": [CFF_OUT, CFF32_OUT], "no GELU": [CFF_GELU],
                    "no copies": CFB_COPY, "one block an SM": CFF_ONE_BLOCK,
                    "f32 act two blocks an SM": CFF32_TWO_BLOCKS},
+    "chanff_chunk": {"kernel": [], "no GELU": CCH_GELU, "no activation products": CCH_ACT,
+                     "no out/dxa products": CCH_OUT, "no copies": CCH_COPY,
+                     "no cluster sum": CCH_SUM},
 }
 
 
@@ -463,6 +494,64 @@ def chanff_fwd_splits(libs: dict, F: int = CFB_F) -> dict:
     return out
 
 
+def chunk_variants(libs: dict, R: int, fc: int, F: int = CFB_F) -> dict:
+    """The chunked forward kernel and the backward's row kernel of each
+    variant at (R, 512) x F, chunks of fc, split as ``chunk_plan`` does; for
+    the kernel, the forward's largest error against its plain version, and
+    the kernel at every split its C entry takes there (each forward held to
+    two bf16 ulps of the output's magnitude)."""
+    bf16 = torch.bfloat16
+    rng = np.random.RandomState(R + fc)
+    x, dy = (torch.from_numpy(rng.randn(R, 512).astype(np.float32)).cuda().to(bf16)
+             for _ in range(2))
+    scale, bias = (torch.from_numpy(v.astype(np.float32)).cuda()
+                   for v in (1.0 + 0.1 * rng.randn(512), 0.1 * rng.randn(512)))
+    w1 = torch.from_numpy((rng.randn(512, F) / np.sqrt(512)).astype(np.float32)).cuda().to(bf16)
+    b1 = torch.from_numpy((0.1 * rng.randn(F)).astype(np.float32)).cuda()
+    w2 = torch.from_numpy((rng.randn(F, 512) / np.sqrt(F)).astype(np.float32)).cuda().to(bf16)
+    b2 = torch.from_numpy((0.1 * rng.randn(512)).astype(np.float32)).cuda()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = chanff_chunk_cuda.chunk_plan(R, F, fc, sms)
+    y, dx = torch.empty_like(x), torch.empty_like(x)
+    _, scratch = chanff_chunk_cuda.bwd_buffers(x, plan)
+    fargs = [t.data_ptr() for t in (x, scale, bias, w1, b1, w2, b2, y)]
+    bargs = [t.data_ptr() for t in (x, dy, scale, bias, w1, b1, w2, dx)] + [
+        scratch[k].data_ptr() for k in ("xa", "g1", "da1", "part_d", "part_f")]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def callers(lib, split, name):
+        fwd, bwd = lib.pips_chanff_chunk_fwd, lib.pips_chanff_chunk_bwd_rows
+        fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        bwd.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        ints = (R, 512, F, fc, chanff_chunk_cuda.ROW_TILE, split, 0)
+        return (lambda: checked(fwd(*fargs, *ints, stream), f"chanff_chunk_fwd {name}"),
+                lambda: checked(bwd(*bargs, *ints, stream), f"chanff_chunk_bwd_rows {name}"))
+
+    ref = chanff_chunk_cuda.chan_ff_chunked_reference(x, scale, bias, w1, b1, w2, b2, fc=fc).float()
+    tol = 2.0 ** (np.ceil(np.log2(ref.abs().max().item())) - 7)
+    reps = 20 if R < 4096 else 5
+    out = {"split": plan.fwd.split}
+    for name in VARIANTS["chanff_chunk"]:
+        fwd, bwd = callers(libs[("chanff_chunk", name)], plan.fwd.split, name)
+        out[name] = {"fwd": device_ms(fwd, reps=reps), "bwd rows": device_ms(bwd, reps=reps)}
+        if name == "kernel":
+            fwd()
+            out["kernel max_abs_err"] = (y.float() - ref).abs().max().item()
+    splits = {}
+    for split in (1, 2, 4, 8):
+        if F % (split * fc):
+            continue
+        fwd, bwd = callers(libs[("chanff_chunk", "kernel")], split, f"split {split}")
+        fwd()
+        err = (y.float() - ref).abs().max().item()
+        if err > tol:
+            raise RuntimeError(f"chanff_chunk_fwd R={R} fc={fc} split {split}: max_abs_err {err} "
+                               f"> {tol}")
+        splits[split] = {"fwd": device_ms(fwd, reps=reps), "bwd rows": device_ms(bwd, reps=reps)}
+    out["splits"] = splits
+    return out
+
+
 def launch_ms(call, launches: int, pattern: str) -> dict:
     """Each launch's device time (ms) of one call, by kernel name, averaged
     over three calls under the profiler. The trace may miss the first
@@ -497,6 +586,7 @@ def main() -> dict:
            "chanff_fwd bf16": chanff_fwd_variants(libs, torch.bfloat16),
            "chanff_fwd f32": chanff_fwd_variants(libs, torch.float32),
            "chanff_fwd splits": chanff_fwd_splits(libs)}
+    res.update({f"chanff_chunk R={R} fc={fc}": chunk_variants(libs, R, fc) for R, fc in CCH_CASES})
     print(json.dumps(res), flush=True)
     return res
 

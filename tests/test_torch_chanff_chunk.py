@@ -17,6 +17,7 @@ though both sides keep the products in f32 and round once); each grad within
 
 import functools
 import importlib.util
+import re
 from pathlib import Path
 
 import jax
@@ -27,9 +28,9 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from pips_tpu_torch.kernels import chanff_chunk_cuda, mixer_cuda
-from pips_tpu_torch.kernels.chanff_chunk_cuda import (chan_ff_block_chunked,
+from pips_tpu_torch.kernels.chanff_chunk_cuda import (FCS, chan_ff_block_chunked,
                                                       chan_ff_chunked_bwd_reference,
-                                                      chan_ff_chunked_reference)
+                                                      chan_ff_chunked_reference, chunk_plan)
 from pips_tpu_torch.tools import profile_chanff_chunk
 from test_torch_mixer import BWD_TOL, GRAD_NAMES, TOL, _assert_grads_close
 
@@ -175,3 +176,114 @@ def test_ported_tool_weights_are_the_jax_tools():
     for w, jw in zip((ws[0], ws[-1]), (jws[0], jws[-1])):
         for t, j in zip(w, jw):
             np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
+# ---- the launch plan (``chunk_plan``), on the host
+
+_SRC = chanff_chunk_cuda._build.CSRC / "chanff_chunk.cu"
+
+
+def _constexpr(name: str) -> int:
+    """The value of ``constexpr int <name> = <int>;`` in ``csrc/chanff_chunk.cu``."""
+    m = re.search(rf"constexpr int {name} = (\d+);", _SRC.read_text())
+    assert m, f"chanff_chunk.cu defines no constexpr int {name}"
+    return int(m.group(1))
+
+
+def _c_args(entry: str) -> tuple:
+    """(pointer, int) parameter counts of the C entry ``entry``."""
+    m = re.search(rf"int {entry}\(([^)]*)\)", _SRC.read_text())
+    params = [p.strip() for p in m.group(1).split(",")]
+    return (sum(p.startswith(("const void*", "void*")) and p != "void* stream" for p in params),
+            sum(p.startswith("int ") for p in params))
+
+
+def test_chunk_plan_constants_are_the_kernels():
+    """The plan is laid out for what ``csrc/chanff_chunk.cu`` is compiled
+    with: its row tile, largest cluster, slab widths and ring; the
+    shared memory it reckons is the kernels' (the same sum of xa, two slabs,
+    the ring's slots and barriers and the backward's statistics); the C
+    entries take the pointers and integers the wrapper passes, the plan's
+    row tile and split among them."""
+    c = chanff_chunk_cuda
+    assert _constexpr("kRowTile") == c.ROW_TILE == 64
+    assert _constexpr("kMaxSplit") == c.MAX_SPLIT
+    assert (_constexpr("kFwdSlab"), _constexpr("kBwdSlab")) == (c.FWD_SLAB, c.BWD_SLAB)
+    assert (_constexpr("kFwdStages"), _constexpr("kFwdSlot")) == (c.FWD_STAGES, c.FWD_SLOT)
+    assert (_constexpr("kBwdStages"), _constexpr("kBwdSlot")) == (c.BWD_STAGES, c.BWD_SLOT)
+    assert _constexpr("kAlign") == c.ALIGN
+    src = _SRC.read_text()
+    assert "constexpr int kSmem = kAlign + kTileBytes + 2 * kSlabBytes + Ring::kSmem + kSlab * 4;" \
+        in src
+    assert ("constexpr int kSmem =\n    kAlign + kTileBytes + 2 * kSlabBytes + Ring::kSmem + "
+            "kRowTile * 8 + kRed * 4 + kSlab * 4;") in src
+    assert "constexpr int kRed = 2 * 2 * 4 * kHalf;" in src and c.BWD_SLAB // 2 * 16 * 4 == 4096
+    assert "static constexpr int kSmem = kStages * kSlot + 2 * kStages * 8;" in src
+    assert c.FWD_SMEM == 1024 + 65536 + 2 * 64 * 256 * 2 + 3 * (32768 + 16) + 1024 <= c.SMEM_LIMIT
+    assert c.BWD_SMEM == (1024 + 65536 + 2 * 64 * 128 * 2 + 3 * (40960 + 16) + 512 + 4096
+                          + 512) <= c.SMEM_LIMIT
+    for name, (n_ptr, n_int) in c._ENTRIES.items():
+        assert _c_args(name) == (n_ptr, n_int), name
+    assert "int row_tile, int split, int device, void* stream" in src
+    for kernel in ("chanff_chunk_fwd(", "chanff_chunk_bwd_rows("):
+        assert re.search(r"__global__ void __launch_bounds__\(kThreads, 1\)\n" + re.escape(kernel),
+                         src), kernel
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+@pytest.mark.parametrize("fc", FCS)
+@pytest.mark.parametrize("R", [1, 100, 800, 1024, 24576, 61440])
+def test_chunk_plan(R, fc):
+    """Both passes cover every row in 64-row tiles; each row tile's blocks
+    are one cluster whose F runs are contiguous whole chunks in chunk order
+    (so the rank-order sum is the reference's chunk order); the clusters
+    and their blocks fit the card at once; a block's shared memory fits;
+    the forward is one kernel with no scratch (g1 stays on chip), the
+    backward its row kernel and the finishing launches, its partials in
+    tiles of the row tile."""
+    F = 2048
+    plan = chunk_plan(R, F, fc)
+    tiles = _cdiv(R, 64)
+    c = chanff_chunk_cuda
+    for p in (plan.fwd, plan.bwd):
+        assert p.row_tile == c.ROW_TILE == 64
+        assert p.grid == (p.split, tiles, 1) and (tiles - 1) * 64 < R <= tiles * 64
+        assert p.cluster == (p.split, 1, 1) and p.split in (1, 2, 4, 8)
+        assert len(p.runs) == p.split and p.runs[0][0] == 0 and p.runs[-1][1] == F
+        assert all(a[1] == b[0] for a, b in zip(p.runs, p.runs[1:]))
+        assert all(f1 > f0 and f0 % fc == 0 and (f1 - f0) % fc == 0 for f0, f1 in p.runs)
+        assert len({f1 - f0 for f0, f1 in p.runs}) == 1  # equal runs: the kernel's rank * run
+        # a split's blocks and clusters all fit the card at once (no cluster: waves)
+        assert p.split == 1 or (tiles * p.split <= mixer_cuda.SMS
+                                and tiles <= c.CLUSTERS_AT_ONCE[p.split])
+        assert p.smem <= c.SMEM_LIMIT == 232448
+    assert plan.fwd.kernels == ("chanff_chunk_fwd",) and plan.fwd.scratch == {}
+    assert plan.bwd.kernels == ("chanff_chunk_bwd_rows",) + tuple(
+        f"chanff_bwd_{k}" for k in list(plan.finish.grids)[-2:])
+    assert list(plan.finish.grids)[-2:] == ["wgrad", "colsum"]
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert plan.bwd.scratch == {
+        "xa": ((R, 512), bf16), "g1": ((R, F), bf16), "da1": ((R, F), bf16),
+        "part_d": ((tiles, 3, 512), f32), "part_f": ((tiles, F), f32),
+        "wsplit": plan.finish.scratch["wsplit"]}
+    # the split is the most the chunks and the card allow
+    want = 1
+    for s in (8, 4, 2):
+        if (F // fc) % s == 0 and tiles * s <= 132 and tiles <= c.CLUSTERS_AT_ONCE[s]:
+            want = s
+            break
+    assert plan.fwd.split == plan.bwd.split == want
+    if R == 1024:  # the tool's rows: 16 row tiles, clusters of four where the chunks allow
+        assert want == {128: 4, 256: 4, 512: 4, 1024: 2}[fc]
+    if R >= 24576:
+        assert want == 1
+
+
+@pytest.mark.parametrize("R,F,fc", [(0, 2048, 512), (100, 2048, 384), (100, 2048, 64),
+                                    (100, 1000, 128)])
+def test_chunk_plan_refuses_what_the_kernels_do_not_take(R, F, fc):
+    with pytest.raises(ValueError, match="no chunked plan"):
+        chunk_plan(R, F, fc)

@@ -251,7 +251,8 @@ def _constexpr(source: str, name: str) -> int:
 def test_bwd_plan_constants_are_the_kernels():
     """The plan's tiles, splits and LN rows are those ``csrc/chanff_bwd.cu``
     is compiled with (its tiles and LN rows from ``chanff_tiles.cuh``, which
-    it includes); the chunked path's partial tiles those of its kernel."""
+    it includes); the chunked path's partial tiles those of its kernel, whose
+    row tiles they are."""
     src = "chanff_bwd.cu"
     assert '#include "chanff_tiles.cuh"' in (_CSRC / src).read_text()
     assert _constexpr("chanff_tiles.cuh", "kTileRows") == mixer_cuda.TILE_ROWS
@@ -259,8 +260,10 @@ def test_bwd_plan_constants_are_the_kernels():
     assert _constexpr(src, "kMaxSplit") == mixer_cuda.MAX_SPLIT
     assert _constexpr("chanff_tiles.cuh", "kLnRows") == mixer_cuda.LN_ROWS
     assert _constexpr("chanff_rows.cuh", "kD") == mixer_cuda.KERNEL_D
-    assert _constexpr("chanff_rows.cuh", "kBwdRows") == chanff_chunk_cuda.PART_ROWS
-    assert "constexpr int TR = kBwdRows;" in (_CSRC / "chanff_chunk.cu").read_text()
+    assert _constexpr("chanff_chunk.cu", "kRowTile") == chanff_chunk_cuda.ROW_TILE
+    assert re.search(r"constexpr int kRowTile = 64; +// rows of a block: one wgmma M, the "
+                     r"partials' tiles", (_CSRC / "chanff_chunk.cu").read_text())
+    assert chanff_chunk_cuda.chunk_plan(800, 2048, 512).bwd.row_tile == chanff_chunk_cuda.ROW_TILE
     assert f"<<<(unsigned)((n + {mixer_cuda.COLSUM_THREADS - 1}) / {mixer_cuda.COLSUM_THREADS}), " \
            f"{mixer_cuda.COLSUM_THREADS}" in (_CSRC / src).read_text()
 
@@ -316,18 +319,20 @@ def test_bwd_buffers_allocate_the_plan(dtype):
 
 @pytest.mark.parametrize("R", [800, 1024, 100])
 def test_chunked_partials_are_what_the_column_sums_are_told(R, monkeypatch):
-    """The F-chunked backward writes its partials in 16-row tiles; the
-    buffers it gets hold ceil(R / 16) of them, and ``bwd_finish`` hands the
-    C entry that count, the 16 rows (which it checks against R) and the
-    plan's split with its scratch."""
+    """The F-chunked backward writes its partials in 64-row tiles (its row
+    tiles); the buffers it gets hold ceil(R / 64) of them, and ``bwd_finish``
+    hands the C entry that count, the 64 rows (which it checks against R) and
+    the finishing plan's split with its scratch."""
     x = torch.zeros(R, mixer_cuda.KERNEL_D, dtype=torch.bfloat16)
-    plan = mixer_cuda.bwd_plan(R, 2048, torch.bfloat16)
-    rows = chanff_chunk_cuda.PART_ROWS
-    outs, scratch = mixer_cuda.bwd_buffers(x, plan, part_rows=rows)
+    plan = chanff_chunk_cuda.chunk_plan(R, 2048, 512)
+    rows = chanff_chunk_cuda.ROW_TILE
+    assert plan.bwd.row_tile == rows == 64
+    outs, scratch = chanff_chunk_cuda.bwd_buffers(x, plan)
     tiles = _cdiv(R, rows)
     assert tuple(scratch["part_d"].shape) == (tiles, 3, 512)
     assert tuple(scratch["part_f"].shape) == (tiles, 2048)
     assert tuple(scratch["g1"].shape) == (R, 2048) and scratch["xa"].dtype == torch.bfloat16
+    assert "stats" not in scratch  # the row kernel keeps its LN statistics on chip
     calls = []
 
     def entry(*a):
@@ -337,10 +342,10 @@ def test_chunked_partials_are_what_the_column_sums_are_told(R, monkeypatch):
     monkeypatch.setattr(mixer_cuda, "_kernel", lambda name: entry)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: types.SimpleNamespace(
         cuda_stream=7))
-    mixer_cuda.bwd_finish(torch.zeros_like(x), outs, scratch, plan, rows)
+    mixer_cuda.bwd_finish(torch.zeros_like(x), outs, scratch, plan.finish, rows)
     (a,) = calls
     assert len(a) == 13 + 5 + 2  # pointers, R, F, nblk, part_rows, split, device, stream
-    assert a[13:18] == (R, 2048, tiles, rows, plan.split)
+    assert a[13:18] == (R, 2048, tiles, rows, plan.finish.split)
     assert a[18:] == (None, 7)  # a CPU tensor's device index, the stream
     assert a[12] is None and tiles == _cdiv(R, a[16])  # no split at F=2048 in bf16
 
