@@ -16,7 +16,9 @@ Phases, each printing a progress line with the elapsed seconds:
      captured in a CUDA graph, the kernels of its launch plan, whose replay
      gives the same bits) and
      ``corr_sample`` (fused corr sampler, three point counts by three dtype
-     pairs); and ``chan_ff_bwd``
+     pairs, then ``CORR_EDGES``: points all off the map, coords at +-1e8,
+     N=1, a pyramid down to a 1x1 level; two calls bit-identical, and one
+     kernel a call, captured in a CUDA graph); and ``chan_ff_bwd``
      (the channel block's backward, bf16, at the train shapes R=1024, 24,576,
      800 and 100, which fills no whole row tile), all seven grads, two calls
      bit-identical, and one call, captured in a CUDA graph, the kernels of
@@ -75,7 +77,11 @@ Phase 3 also holds (3d) ``conv3x3_same`` (the encoder's stage-1 3x3 conv)
 against its plain version, forward and dx, at a window's, the training
 default's and the bench train shape's stage 1 in bf16 and a small ragged
 shape in bf16 and f32, all channels_last, with dW and db through its autograd Function, timed in turns with
-``F.conv2d``; and phase 4 (4b) serves the N=256 window with ``fuse_conv3``
+``F.conv2d``; two calls bit-identical, and one forward and one dx call each
+captured in a CUDA graph: one kernel, the one ``conv_cuda.launch_plan``
+names (C = O = 64 bf16 the wgmma kernel); and at ``CONV_WIDTHS`` (other
+widths, the mma.sync kernel) the same checks and times; and phase 4 (4b)
+serves the N=256 window with ``fuse_conv3``
 against the same weights without it, 4 conv launches per window. 3e holds
 ``conv_pass`` (the residual block's conv with the norm statistics in its
 epilogue), with and without its prologue, against its plain version and
@@ -152,6 +158,12 @@ CORR_C = 128
 # window (features carried on the host in f32); f32
 CORR_PAIRS = [("bfloat16", "bfloat16"), ("bfloat16", "float32"), ("float32", "float32")]
 CORR_CASES = [("flagship", 256, 60, 128), ("ragged", 100, 32, 48), ("dense", 7680, 60, 128)]
+# phase 3b's edges, each with every dtype pair: (name, N, level-0 H, W, where
+# the coords lie): every point off every level's map (4 px and more past the
+# patch reach), coords at +-1e8 (and one NaN-free mix of both signs), one
+# point, and a pyramid whose last level is 1x1
+CORR_EDGES = [("off the map", 64, 60, 128, "off"), ("+-1e8", 64, 60, 128, "huge"),
+              ("N=1", 1, 60, 128, "uniform"), ("1x1 level", 32, 8, 8, "uniform")]
 # drift bounds of a served window against the same model with a plain part
 # (one iteration: bf16 rounding; six: bounded chaos, docs/TESTING.md)
 ONE_ITER = dict(traj_max=1.0, vis_max=0.25)
@@ -183,6 +195,9 @@ CONV_SHAPES = [("window", 8, 240, 512, "bfloat16"),
                ("bench train", 8, 192, 256, "bfloat16"),
                ("small", 2, 31, 70, "bfloat16"),
                ("small f32", 2, 31, 70, "float32")]
+# widths other than 64 -> 64, which the earlier mma.sync kernel takes: the
+# window's shape at 32 outputs, and a small ragged one at 24 -> 40
+CONV_WIDTHS = [("window C=64 O=32", 8, 240, 512, 64, 32), ("small C=24 O=40", 2, 31, 70, 24, 40)]
 CONV_PER_ENCODE = 4  # layer1_0.conv1/conv2 and layer1_1.conv1/conv2
 LOOP_STEPS, LOOP_EVERY, LOOP_MORE = 12, 6, 6  # phase 8: steps, val/save/media period, relaunch
 # phase 3e: the residual block's conv pass at the stage-1 bench shape of
@@ -254,7 +269,10 @@ PTXAS_REPORT = [("stem_wgrad", "stem_wgrad_tc"), ("mixer_probes", "probe_stream_
                 ("chanff_bwd", "chanff_bwd_wgrad"), ("chanff_fwd", "chanff_fwd_act"),
                 ("chanff_fwd", "chanff_fwd_out"), ("chanff_fwd", "chanff_fwd_act_f32"),
                 ("chanff_fwd", "chanff_fwd_out_f32"), ("chanff_chunk", "chanff_chunk_fwd"),
-                ("chanff_chunk", "chanff_chunk_bwd_rows")]
+                ("chanff_chunk", "chanff_chunk_bwd_rows"), ("conv3x3_fwd", "conv3x3_wgmma"),
+                ("corr_sample_fwd", "corr_sample_points")]
+# of those, the kernels whose report must show no spills
+NO_SPILLS = ("conv3x3_wgmma", "corr_sample_points")
 
 
 def ptxas_report(log_path: Path, kernel: str) -> str:
@@ -415,9 +433,13 @@ def grad_errors(torch, label: str, out, ref, tols):
     return worst, parts, max(errs)
 
 
-def corr_args(torch, np, N: int, H8: int, W8: int, map_dt: str, tgt_dt: str, seed: int):
+def corr_args(torch, np, N: int, H8: int, W8: int, map_dt: str, tgt_dt: str, seed: int,
+              where: str = "uniform"):
     """A 4-level pyramid of random (1, 8, H8, W8, 128) maps built by the port,
-    targets, and coords uniform over the map and 4 px beyond every side."""
+    targets, and coords (level-0 scale): ``uniform`` over the map and 4 px
+    beyond every side; ``off``, every point at least 4 px past the reach of
+    every level's patch (8 * 2^3 px past the level-0 map, on every side);
+    ``huge``, at +-1e8."""
     from pips_tpu_torch.ops.corr import build_fmap_pyramid
 
     rng = np.random.RandomState(seed)
@@ -426,7 +448,15 @@ def corr_args(torch, np, N: int, H8: int, W8: int, map_dt: str, tgt_dt: str, see
                build_fmap_pyramid(fm.to("cuda", getattr(torch, map_dt)), 4)]
     targets = torch.from_numpy(rng.randn(1, 8, N, CORR_C).astype(np.float32))
     coords = np.stack([rng.uniform(-4, W8 + 3, (1, 8, N)), rng.uniform(-4, H8 + 3, (1, 8, N))],
-                      axis=-1).astype(np.float32)
+                      axis=-1)
+    if where == "off":  # each point past one side, chosen at random, by 96 to 200 px
+        side = rng.randint(0, 4, (1, 8, N))
+        far = rng.uniform(96, 200, (1, 8, N))
+        coords[..., 0] = np.where(side == 0, -far, np.where(side == 1, W8 + far, coords[..., 0]))
+        coords[..., 1] = np.where(side == 2, -far, np.where(side == 3, H8 + far, coords[..., 1]))
+    elif where == "huge":
+        coords = np.sign(rng.randn(1, 8, N, 2)) * 1e8
+    coords = coords.astype(np.float32)
     return [pyramid, targets.to("cuda", getattr(torch, tgt_dt)),
             torch.from_numpy(coords).cuda()]
 
@@ -470,12 +500,13 @@ def corr_tol(corr_cuda, pyramid, targets, coords):
     return 2.0 * (C + 8) * 2.0 ** -24 * absref
 
 
-def conv_args(torch, np, B: int, H: int, W: int, dtype: str, seed: int, C: int = 64):
-    """x (B, C, H, W) in dtype and channels_last, an f32 weight and bias as
-    the encoder holds them, and dy for the backward."""
+def conv_args(torch, np, B: int, H: int, W: int, dtype: str, seed: int, C: int = 64,
+              O: int = 64):
+    """x (B, C, H, W) in dtype and channels_last, an f32 weight (O, C, 3, 3)
+    and bias as the encoder holds them, and dy (B, O, H, W) for the backward."""
     rng = np.random.RandomState(seed)
-    vals = [rng.randn(B, C, H, W), rng.randn(C, C, 3, 3) * np.sqrt(2.0 / (9 * C)),
-            0.1 * rng.randn(C), rng.randn(B, C, H, W)]
+    vals = [rng.randn(B, C, H, W), rng.randn(O, C, 3, 3) * np.sqrt(2.0 / (9 * C)),
+            0.1 * rng.randn(O), rng.randn(B, O, H, W)]
     dts = [getattr(torch, dtype), torch.float32, torch.float32, getattr(torch, dtype)]
     x, w, b, dy = (torch.from_numpy(v.astype(np.float32)).to("cuda", dt)
                    for v, dt in zip(vals, dts))
@@ -843,6 +874,21 @@ def names_kernel(label: str, name: str) -> bool:
     template arguments)."""
     return f"{len(name)}{name}" in label or re.search(re.escape(name) + r"(?=\(|\\?<)",
                                                       label) is not None
+
+
+def one_kernel_call(torch, fn, args, out, kernel: str, label: str) -> None:
+    """``fn(*args)`` called again gives ``out``'s bits, and one call, captured
+    in a CUDA graph, is one kernel, ``kernel``, whose replay gives them too;
+    fails otherwise."""
+    again = fn(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(again, out):
+        fail(f"{label}: two calls on the same inputs differ")
+    kernels, replayed = captured_kernels(torch, lambda: fn(*args))
+    if len(kernels) != 1 or not names_kernel(kernels[0], kernel):
+        fail(f"{label}: one call launched {kernels}, not one {kernel}")
+    if not torch.equal(replayed, out):
+        fail(f"{label}: the captured call's replay differs from the call")
 
 
 def bwd_repeat(torch, mixer_cuda, args, out, label: str) -> None:
@@ -1691,8 +1737,11 @@ def main() -> int:
                      f"-> {i['path']}")
     log("build", f"all kernels ready in {time.perf_counter() - t:.2f} s")
     for stem, kernel in PTXAS_REPORT:
-        log("build", f"{kernel} ({stem}.cu): "
-                     + ptxas_report(Path(info[stem]["path"]).with_suffix(".log"), kernel))
+        report = ptxas_report(Path(info[stem]["path"]).with_suffix(".log"), kernel)
+        log("build", f"{kernel} ({stem}.cu): {report}")
+        spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", report)
+        if kernel in NO_SPILLS and any(int(n) for n in spills):
+            fail(f"ptxas spills registers in {kernel}: {report}")
 
     # 3a. chan_ff_block against its plain version, at the main path's shapes:
     # the served windows' (R_MAIN, and 2000, no multiple of the kernels' row
@@ -1758,9 +1807,33 @@ def main() -> int:
                            f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.2f} MB)")
             if not (out.shape == ref.shape and out.dtype == torch.float32 and ratio <= 1.0):
                 fail(f"corr_sample {case} {map_dt}/{tgt_dt} disagrees with its plain version")
+            one_kernel_call(torch, corr_cuda.corr_sample, args, out, corr_cuda.KERNEL,
+                            f"corr_sample {case} {map_dt}/{tgt_dt}")
             corr[(case, map_dt, tgt_dt)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                                 bound_ms=bound_ms, bound_by=bound_by)
             del args, out, ref, tol, diff
+    # the edges: against the plain version, repeats bit-identical, one kernel a call
+    for case, N, H8, W8, where in CORR_EDGES:
+        parts = []
+        for map_dt, tgt_dt in CORR_PAIRS:
+            args = corr_args(torch, np, N, H8, W8, map_dt, tgt_dt, seed=N + H8, where=where)
+            out = corr_cuda.corr_sample(*args)
+            torch.cuda.synchronize()
+            ref = corr_cuda.corr_sample_reference(*args)
+            diff = (out - ref).abs()
+            ratio = (diff / corr_tol(corr_cuda, *args).clamp_min(1e-30)).max().item()
+            zero = where in ("off", "huge")  # no tap on any map: every output is zero
+            if not (out.shape == ref.shape and ratio <= 1.0
+                    and (not zero or not out.abs().max().item())):
+                fail(f"corr_sample edge {case} {map_dt}/{tgt_dt} disagrees with its plain "
+                     f"version (worst err/tol {ratio:.3g}, |out| <= {out.abs().max().item()})")
+            one_kernel_call(torch, corr_cuda.corr_sample, args, out, corr_cuda.KERNEL,
+                            f"corr_sample edge {case} {map_dt}/{tgt_dt}")
+            parts.append(f"{map_dt}/{tgt_dt} err/tol {ratio:.3g}")
+            del args, out, ref, diff
+        log("kernels", f"corr_sample edge {case} (N={N}, {H8}x{W8}, levels "
+                       f"{[(H8 >> k, W8 >> k) for k in range(4)]}): " + "; ".join(parts)
+                       + f"; repeats bit-identical, one {corr_cuda.KERNEL} a call")
     torch.cuda.empty_cache()
 
     # 3c. chan_ff_bwd against its plain version: the bench train shape
@@ -1819,6 +1892,13 @@ def main() -> int:
                     and err <= tol):
                 fail(f"conv3x3_same {case} {name} disagrees with its plain version: {err} > {tol}")
             errs[name] = err
+        # the kernel's own operands (a weight already in x's dtype and
+        # contiguous), so that the call enqueues the conv and nothing else
+        for name, args in (("y", (x, w.to(x.dtype), b)), ("dx", (dy, w_rot.contiguous(), zero))):
+            kernel = conv_cuda.launch_plan(B, 64, 64, H, W, x.dtype).kernel
+            one_kernel_call(torch, conv_cuda.conv3x3_same, args, outs[name], kernel,
+                            f"conv3x3_same {case} {name}")
+        parts.append(f"repeats bit-identical, one {kernel} a call")
         if case == "bench train":  # dW and db through the autograd Function
             leaves = {}
             for side, fn in (("kernel", conv_cuda.conv3x3_same),
@@ -1855,6 +1935,41 @@ def main() -> int:
         conv[case] = dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
         del x, w, b, dy, w_rot, outs, refs
+    # other widths: the mma.sync kernel, forward and dx, timed in turns with F.conv2d
+    for case, B, H, W, C, O in CONV_WIDTHS:
+        x, w, b, dy = conv_args(torch, np, B, H, W, "bfloat16", seed=B + H + C, C=C, O=O)
+        w_rot = w.to(x.dtype).flip(2, 3).transpose(0, 1)
+        zero = torch.zeros(C, device="cuda")
+        parts = []
+        for name, args, cin, cout in (("y", (x, w.to(x.dtype), b), C, O),
+                                      ("dx", (dy, w_rot.contiguous(), zero), O, C)):
+            out = conv_cuda.conv3x3_same(*args)
+            torch.cuda.synchronize()
+            ref = conv_cuda.conv3x3_reference(*args)
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = bf16_tol(ref.float().abs().max().item())
+            if not (out.shape == ref.shape and err <= tol
+                    and out.is_contiguous(memory_format=torch.channels_last)):
+                fail(f"conv3x3_same {case} {name} disagrees with its plain version: {err} > {tol}")
+            kernel = conv_cuda.launch_plan(B, cin, cout, H, W, x.dtype).kernel
+            one_kernel_call(torch, conv_cuda.conv3x3_same, args, out, kernel,
+                            f"conv3x3_same {case} {name}")
+            parts.append(f"{name} {err:.3g} (tol {tol:.3g}), one {kernel} a call")
+        wl, bl = w.to(x.dtype), b.to(x.dtype)
+
+        def library():
+            return F.conv2d(x, wl, bl, padding=1)
+
+        k1 = median_ms(torch, conv_cuda.conv3x3_same, (x, w, b))
+        l1 = median_ms(torch, library, ())
+        k2 = median_ms(torch, conv_cuda.conv3x3_same, (x, w, b))
+        l2 = median_ms(torch, library, ())
+        bound_ms, bound_by = conv_bound(B, H, W, "bfloat16", C=C, O=O)
+        log("kernels", f"conv3x3_same {case} {B}x{C}->{O}x{H}x{W} bfloat16 channels_last: "
+                       + "; ".join(parts) + f"; repeats bit-identical; {k1:.4f}/{k2:.4f} ms, "
+                       f"F.conv2d {l1:.4f}/{l2:.4f} ms (in turns), bound {bound_ms:.4f} ms "
+                       f"({bound_by})")
+        del x, w, b, dy, w_rot, out, ref
     torch.cuda.empty_cache()
 
     # 3e. the residual block's conv pass and the whole block; 3f. the stem

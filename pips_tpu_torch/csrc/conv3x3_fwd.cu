@@ -14,28 +14,38 @@
 //
 // Design. The TPU kernel packs a W-space-to-depth (1152, 128) weight with 50%
 // structural zeros to fill 128 MXU lanes; Hopper has no lane width to fill,
-// so this is the plain implicit GEMM: M = output pixels, N = 64 outputs,
-// K = 9 taps x 64 channels = 576.
-//   * The whole weight (9x64x64 bf16 = 72 KB) stays in shared memory. Blocks
-//     are persistent (two per SM) and load it once, then walk output tiles of
-//     2 rows x 64 columns; while one block loads a tile the other computes.
-//   * NHWC is read in place, no permute: the port's encoder runs
-//     channels_last (Pips.encode permutes (B*S, H, W, 3) frames, and cuDNN
-//     keeps that format through every conv), where a pixel's 64 channels are
-//     one 128-byte row: each 16-byte chunk is one load straight into a
-//     pixel-major row in shared memory, and the output leaves the same way.
-//     Rows are XOR-swizzled by 16-byte chunk, so the ldmatrix reads below are
-//     free of bank conflicts without padding (which keeps two blocks per SM).
-//   * Tap (ky, kx) of a run of 16 output pixels is a run of 16 consecutive
-//     pixel rows of the tile, so each (tap, 16-channel step) is one ldmatrix
-//     of A per 16 pixels; each warp owns 32 pixels x 64 outputs and runs
-//     mma.sync m16n8k16 (bf16 in, f32 accumulators) over K = 576.
-//   * Epilogue: the f32 bias is added to the f32 accumulator before the one
-//     rounding (as the TPU kernel does); the tile is staged in shared memory
-//     as [pixel][o] and written out in 16-byte chunks.
-// f32 runs a SIMT kernel with f32 FMAs (mma.sync in f32 would be TF32, which
-// keeps 10 mantissa bits and would fail the f32 reference). wgmma, TMA and a
-// double-buffered tile are later work.
+// so this is the plain implicit GEMM: M = 64 outputs, N = output pixels,
+// K = 9 taps x 64 channels = 576. Three kernels, one a call, by the path the
+// wrapper's plan names (kernels/conv_cuda.py:launch_plan):
+//   * bf16 with C = O = 64, every model call (conv3x3_wgmma): persistent
+//     blocks, one an SM, walk output tiles of 4 rows x 30 columns. The haloed
+//     input box of a tile, 6 x 32 pixels, is one TMA load into a six-slot
+//     ring, fed by a producer warp. Three consumer warpgroups take the tiles
+//     by turns, so that two run products while the third finishes a tile. A
+//     tile is 36 wgmma m64n128k16 (one a (tap, 16 channels)) from the
+//     resident weight and the box shifted by the tap: conv3x3_tiles.cuh's
+//     mainloop, which conv3x3_stats.cu shares. Epilogue: the f32 bias added
+//     to the f32 accumulator, one rounding to bf16 (as the TPU kernel does),
+//     the tile staged by stmatrix (transposed to [pixel][o], swizzled as the
+//     store's box) into its own ring slot, whose products are done, and
+//     written by one TMA store, clipped at the image's edge. The slot goes
+//     back to the producer once the store has read it, a wait that rides on
+//     the warpgroup's next products.
+//     Taller tiles read less halo (8 x 30 tiles: 1.33 input pixels an
+//     output pixel, against 1.6 here) but measured slower on an H100
+//     (tools/profile_pipelines.py's tile variants): their n256 or n192
+//     accumulators need 128 or 96 registers a thread, and ptxas allots a
+//     block of 288 or 416 threads registers as if it had 384 or 512, so the
+//     kernel spills or runs on fewer warpgroups; the halo's second reads
+//     come from L2.
+//   * bf16 with other widths (multiples of 8 up to 64: conv3x3_bf16, the
+//     first kernel): the weight resident, persistent blocks two an SM over
+//     2 x 64 tiles, synchronous 16-byte loads into XOR-swizzled rows, four
+//     warps on mma.sync m16n8k16 with ldmatrix, an epilogue staged through
+//     the input tile.
+//   * f32 (conv3x3_f32): a SIMT kernel with f32 FMAs (mma.sync in f32 would
+//     be TF32, which keeps 10 mantissa bits and would fail the f32
+//     reference), one output pixel a thread in 8 x 32 tiles.
 //
 // Plain C ABI (loaded with ctypes): pips_conv3x3_fwd returns
 // cudaGetLastError() after the launch; 0 means launched.
@@ -44,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
+#include "conv3x3_tiles.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -57,7 +69,149 @@ cudaError_t set_smem(Kernel k, size_t bytes) {
   return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// ------------------------------------------------------------ bf16 (mma.sync)
+// ----------------------------------------- bf16, C = O = 64 (wgmma, TMA ring)
+namespace wg {
+constexpr int TH = 4;                              // output tile rows
+constexpr int TW = conv3::kBoxCols - 2;            // output tile columns: 30
+constexpr int HR = TH + 2, HC = conv3::kBoxCols;   // the haloed box: 6 x 32 pixels
+constexpr int kN = TH * HC;                        // 128: the products' N
+constexpr int kWGs = 3;                            // consumer warpgroups, tiles by turns
+constexpr int kStages = 6;                         // ring slots
+constexpr int kConsumers = 128 * kWGs;
+constexpr int kThreads = kConsumers + 32;          // and one producer warp
+constexpr uint32_t kBoxBytes = HR * HC * 128;                       // 24,576: one TMA box
+constexpr size_t kStageBytes = (kBoxBytes + 1023) / 1024 * 1024;    // 24,576
+constexpr size_t kOutBytes = (size_t)TH * TW * 128;                 // 15,360: a tile's outputs
+constexpr size_t kJunkBytes = 128;  // where the two columns past a row's outputs are stored
+// 1024 bytes to align the tiles, the ring (a tile's outputs are staged in its
+// own slot), the weight, the junk row, 2 * kStages mbarriers
+constexpr size_t kSmem = 1024 + kStages * kStageBytes + conv3::kWBytes + kJunkBytes +
+                         2 * kStages * 8;  // 222,432: one block an SM
+static_assert(kStageBytes % 1024 == 0 && kOutBytes <= kStageBytes && kSmem <= 232448,
+              "tiles 1024-byte aligned; a tile's outputs fit its slot; the block fits an SM");
+static_assert(kStages > kWGs, "a warpgroup's next box lands while it holds its last slot");
+
+// x_map / y_map: x and y as (64, W, H, B) bf16, boxes of (64, HC, HR, 1) and
+// (64, TW, TH, 1), 128-byte swizzled
+__global__ void __launch_bounds__(kThreads, 1)
+conv3x3_wgmma(__grid_constant__ const CUtensorMap x_map,
+              __grid_constant__ const CUtensorMap y_map, const bf16* __restrict__ w,
+              const float* __restrict__ bias, int B, int H, int W) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* xs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* ws = xs + kStages * kStageBytes;
+  unsigned char* junk = ws + conv3::kWBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(junk + kJunkBytes);
+  uint64_t* empty = full + kStages;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tiles_w = (W + TW - 1) / TW;
+  const int per_image = ((H + TH - 1) / TH) * tiles_w;
+  const int ntiles = B * per_image;
+  // the block's tile i is tile blockIdx.x + i * gridDim.x, in ring slot
+  // i % kStages; consumer warpgroup i % kWGs takes it
+  auto tile_at = [&](int i, int& b, int& h0, int& w0) {
+    const int t = blockIdx.x + i * gridDim.x;
+    b = t / per_image;
+    const int ti = t % per_image;
+    h0 = ti / tiles_w * TH;
+    w0 = (ti % tiles_w) * TW;
+    return t < ntiles;
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  int b, h0, w0;
+  if (warp == kConsumers / 32) {
+    // the producer: each tile's haloed box by one TMA load (a 4D box; pixels
+    // outside the image, the SAME padding, read as zero), into its slot once
+    // the store of the outputs last staged there has read them
+    if (lane == 0) {
+      for (int i = 0; tile_at(i, b, h0, w0); ++i) {
+        const int s = i % kStages;
+        if (i >= kStages) mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
+        mbar_arrive_expect_tx(&full[s], kBoxBytes);
+        tma_load_4d(xs + s * kStageBytes, &x_map, 0, w0 - 1, h0 - 1, b, &full[s]);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4, wl = warp % 4, ctid = tid % 128;
+  const int gq = lane / 4;
+  // the weight, once a block, while the first boxes land: A of the products
+  conv3::stage_weight(ws, w, tid, kConsumers);
+  fence_proxy_async();  // the products read the weight through the async proxy
+  named_sync(1, kConsumers);
+  // this thread's outputs o1 = 16 wl + gq and o1 + 8 (accumulator rows)
+  const int o1 = 16 * wl + gq;
+  const float bias1 = bias[o1], bias2 = bias[o1 + 8];
+
+  int prev = -1;  // the slot of this warpgroup's last tile, until its store has read it
+  for (int i = wg; tile_at(i, b, h0, w0); i += kWGs) {
+    const int s = i % kStages;
+    mbar_wait(&full[s], (i / kStages) & 1);
+    unsigned char* st = xs + s * kStageBytes;
+
+    // y^T (64 outputs x 128 box pixels) = W^T X: per (tap, 16 channels) one
+    // wgmma m64n128k16, all 36 issued at once (conv3x3_tiles.cuh)
+    float acc[kN / 2];  // accumulator 4 n + 2 hi + e: output o1 + 8 hi, box pixel 8 n + 2 tq + e
+#pragma unroll
+    for (int j = 0; j < kN / 2; ++j) acc[j] = 0.0f;
+    wgmma_fence();
+    conv3::products<kN>(acc, ws, st);
+    wgmma_commit();
+    // the last tile's slot goes back to the producer once its store has read
+    // it: the wait rides on these products
+    if (ctid == 0 && prev >= 0) {
+      bulk_wait_read<0>();
+      mbar_arrive(&empty[prev]);
+    }
+    wgmma_wait<0>();
+
+    // epilogue: every warp's products from this box are done, so its slot
+    // takes the outputs. Accumulator 4 n + 2 hi + e: output o1 + 8 hi, box
+    // pixel 8 n + 2 tq + e (row n / 4, column 8 (n % 4) + 2 tq + e: an output
+    // where the column is below TW; the store clips rows and columns past the
+    // image). The f32 bias is added, the value rounded once, and staged
+    // [pixel][o] swizzled as the store's box by stmatrix (transposed: a row
+    // of the store is a pixel's 8 outputs); the two columns past a row's
+    // outputs go to a junk row
+    named_sync(2 + wg, 128);
+#pragma unroll
+    for (int n2 = 0; n2 < kN / 16; ++n2) {
+      uint32_t r[4];  // matrices (n, hi): (2 n2, 0), (2 n2, 1), (2 n2 + 1, 0), (2 n2 + 1, 1)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int n = 2 * n2 + k / 2, hi = k % 2;
+        const float bo = hi ? bias2 : bias1;
+        r[k] = bits(__floats2bfloat162_rn(acc[4 * n + 2 * hi] + bo, acc[4 * n + 2 * hi + 1] + bo));
+      }
+      // lane 8 k + j: row j of matrix k, pixel 8 n + j, outputs 16 wl + 8 hi ..
+      const int k = lane / 8, n = 2 * n2 + k / 2, c = 8 * (n % 4) + lane % 8;
+      unsigned char* dst = c < TW ? st + swz128((n / 4) * TW + c, 2 * wl + k % 2) : junk;
+      stmatrix_x4_trans(dst, r[0], r[1], r[2], r[3]);
+    }
+    fence_proxy_async();  // the staged outputs are the TMA store's to read
+    named_sync(2 + wg, 128);
+    if (ctid == 0) {
+      tma_store_4d(&y_map, st, 0, w0, h0, b);
+      bulk_commit();
+    }
+    prev = s;
+  }
+  if (ctid == 0) bulk_wait<0>();  // the last stores are complete before the block ends
+}
+}  // namespace wg
+
+// -------------------------------------------- bf16, other widths (mma.sync)
 namespace tc {
 constexpr int kThreads = 128;  // 4 warps, each 32 pixels x 64 outputs
 constexpr int TH = 2;          // output tile rows
@@ -272,41 +426,59 @@ conv3x3_f32(const float* __restrict__ x, const float* __restrict__ w,
 
 extern "C" {
 
-// Shapes the kernel takes: x (B, Cin, H, W) and y (B, Cout, H, W), both
+// Shapes the kernels take: x (B, Cin, H, W) and y (B, Cout, H, W), both
 // contiguous NHWC in memory, i.e. torch.channels_last; w (Cout, Cin, 3, 3)
 // contiguous in x's dtype; bias (Cout,) float32; Cin and Cout multiples of 8
 // from 8 to 64; pointers 16-byte aligned.
 // dtype_code 0 = float32, 1 = bfloat16 (x, w, y).
+// The launch, as kernels/conv_cuda.py:launch_plan lays it out: path 0 =
+// conv3x3_f32 (float32), 1 = conv3x3_bf16 (bfloat16, other widths), 2 =
+// conv3x3_wgmma (bfloat16, Cin = Cout = 64); tile_rows, the path's output
+// tile rows (8, 2, 4); grid, the blocks: every tile's own block on path 0,
+// 1 .. tiles persistent blocks on paths 1 and 2. A plan that differs from
+// what the kernels are compiled for is refused.
 int pips_conv3x3_fwd(const void* x, const void* w, const void* bias, void* y, int B, int Cin,
-                     int H, int W, int Cout, int dtype_code, int device, void* stream) {
+                     int H, int W, int Cout, int dtype_code, int path, int tile_rows, int grid,
+                     int device, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cin > kC || Cin % 8 || Cout <= 0 ||
       Cout > kC || Cout % 8 || (dtype_code != 0 && dtype_code != 1))
+    return (int)cudaErrorInvalidValue;
+  const int want = dtype_code == 0 ? 0 : (Cin == kC && Cout == kC ? 2 : 1);
+  const int rows = path == 0 ? simt::TH : path == 1 ? tc::TH : wg::TH;
+  const int cols = path == 0 ? simt::TW : path == 1 ? tc::TW : wg::TW;
+  const long ntiles = (long)B * ((H + rows - 1) / rows) * ((W + cols - 1) / cols);
+  if (path != want || tile_rows != rows || grid < 1 || grid > ntiles ||
+      (path == 0 && grid != ntiles))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bb = static_cast<const float*>(bias);
-  if (dtype_code == 1) {
+  if (path == 2) {
+    // x and y as (64, W, H, B): 128-byte pixels, rows of W pixels, images
+    const uint64_t dims[4] = {(uint64_t)kC, (uint64_t)W, (uint64_t)H, (uint64_t)B};
+    const uint64_t strides[3] = {kC * 2, (uint64_t)W * kC * 2, (uint64_t)H * W * kC * 2};
+    const uint32_t in_box[4] = {kC, wg::HC, wg::HR, 1};
+    const uint32_t out_box[4] = {kC, wg::TW, wg::TH, 1};
+    CUtensorMap x_map, y_map;
+    err = make_map_bf16(&x_map, x, 4, dims, strides, in_box);
+    if (err != cudaSuccess) return (int)err;
+    err = make_map_bf16(&y_map, y, 4, dims, strides, out_box);
+    if (err != cudaSuccess) return (int)err;
+    err = set_smem(wg::conv3x3_wgmma, wg::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    wg::conv3x3_wgmma<<<dim3((unsigned)grid), wg::kThreads, wg::kSmem, s>>>(
+        x_map, y_map, static_cast<const bf16*>(w), bb, B, H, W);
+  } else if (path == 1) {
     err = set_smem(tc::conv3x3_bf16, tc::kSmem);
     if (err != cudaSuccess) return (int)err;
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tc::conv3x3_bf16, tc::kThreads,
-                                                        tc::kSmem);
-    if (err != cudaSuccess) return (int)err;
-    const long ntiles = (long)B * ((H + tc::TH - 1) / tc::TH) * ((W + tc::TW - 1) / tc::TW);
-    const long resident = (long)(per_sm > 0 ? per_sm : 1) * sms;
-    const dim3 grid((unsigned)(ntiles < resident ? ntiles : resident));
-    tc::conv3x3_bf16<<<grid, tc::kThreads, tc::kSmem, s>>>(
+    tc::conv3x3_bf16<<<dim3((unsigned)grid), tc::kThreads, tc::kSmem, s>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(w), bb, static_cast<bf16*>(y), B,
         Cin, H, W, Cout);
   } else {
     err = set_smem(simt::conv3x3_f32, simt::kSmem);
     if (err != cudaSuccess) return (int)err;
-    const long ntiles =
-        (long)B * ((H + simt::TH - 1) / simt::TH) * ((W + simt::TW - 1) / simt::TW);
-    simt::conv3x3_f32<<<dim3((unsigned)ntiles), simt::kThreads, simt::kSmem, s>>>(
+    simt::conv3x3_f32<<<dim3((unsigned)grid), simt::kThreads, simt::kSmem, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w), bb, static_cast<float*>(y),
         B, Cin, H, W, Cout);
   }

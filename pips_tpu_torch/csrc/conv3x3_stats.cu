@@ -47,7 +47,9 @@
 //     follows the shared-memory address, so a descriptor may start at any
 //     pixel row. B's 128 rows are the four box rows whole, 32 pixels each,
 //     so every tap shifts them alike and the two last columns of a row are
-//     products that are no outputs (6% of the tensor work).
+//     products that are no outputs (6% of the tensor work). The weight's
+//     layout and the products are conv3x3_tiles.cuh's, which conv3x3_fwd.cu
+//     shares.
 // Why three: one warpgroup's products alone run at ~156 cycles a product
 // (the tensor cores' rate is 64), two together at ~85 each; with two
 // warpgroups both epilogues fell together and the tensor cores idled, with
@@ -76,6 +78,7 @@
 #include <stdint.h>
 
 #include "async_copy.cuh"
+#include "conv3x3_tiles.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -111,7 +114,7 @@ constexpr int kPrologueThreads = 128;    // one warpgroup: the prologue, in plac
 constexpr int kThreads = kConsumers + kPrologueThreads;  // 16 warps: 128 registers a thread
 constexpr uint32_t kBoxBytes = HR * HC * 128;                      // 24,576: one TMA box
 constexpr size_t kStageBytes = (kBoxBytes + 1023) / 1024 * 1024;   // 24,576
-constexpr size_t kWBytes = 9 * 64 * 128;                           // 73,728: [tap][o][c]
+constexpr size_t kWBytes = conv3::kWBytes;                         // 73,728: [tap][o][c]
 constexpr size_t kOutBytes = (size_t)TH * TW * 128;                // 15,360: a tile's outputs
 constexpr size_t kJunkBytes = 128;  // where the two columns past a row's outputs are stored
 // 1024 bytes to align the tiles, the ring (a tile's outputs are staged in its
@@ -121,7 +124,7 @@ constexpr size_t kSmem = 1024 + kStages * kStageBytes + kWBytes + kJunkBytes +
                          2 * kStages * 8;  // 222,432: one block an SM
 static_assert(kStageBytes % 1024 == 0 && kWBytes % 1024 == 0 && kOutBytes <= kStageBytes,
               "tiles 1024-byte aligned; a tile's outputs fit its slot");
-static_assert(kN == 128 && HC == 32, "a box row is four n8 tiles of the products");
+static_assert(kN == 128 && HC == conv3::kBoxCols, "a box row is four n8 tiles of the products");
 
 // output tiles of 4 x 30 pixels per image: the rows of partial statistics
 __host__ __device__ constexpr int tiles(int H, int W) {
@@ -245,24 +248,8 @@ conv3x3_stats_bf16(__grid_constant__ const CUtensorMap x_map,
   };
   if (ctid == 0)
     for (int k = 0; k < kSlotsWG; ++k) load(wg + k * kWGs);
-  // the weight, once a block, while the first boxes land: A of the products,
-  // [tap][o][c] K-major, each tap's 64 rows of 128 bytes swizzled as TMA
-  // would write them; read from (O, C, 3, 3) by 16-byte loads (eight
-  // consecutive (c, tap) of one output o: 576 = 72 * 8)
-  for (int q = tid; q < 9 * kC * kC / 8; q += kConsumers) {
-    const uint4 u = reinterpret_cast<const uint4*>(w)[q];
-    const bf16* v = reinterpret_cast<const bf16*>(&u);
-    const int o = q / 72, e = (q % 72) * 8;
-    int c = e / 9, tap = e % 9;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      *reinterpret_cast<bf16*>(ws + tap * (kC * 128) + swz128(o, c / 8) + (c % 8) * 2) = v[k];
-      if (++tap == 9) {
-        tap = 0;
-        ++c;
-      }
-    }
-  }
+  // the weight, once a block, while the first boxes land: A of the products
+  conv3::stage_weight(ws, w, tid, kConsumers);
   fence_proxy_async();  // the products read the weight through the async proxy
   named_sync(1, kConsumers);
   // this thread's outputs o1 = 16 wl + gq and o1 + 8 (accumulator rows)
@@ -277,22 +264,12 @@ conv3x3_stats_bf16(__grid_constant__ const CUtensorMap x_map,
     unsigned char* st = xs + s * kStageBytes;
 
     // y^T (64 outputs x 128 box pixels) = W^T X: per (tap, 16 channels) one
-    // wgmma m64n128k16, all 36 issued at once. A: the weight's rows of the
-    // tap; B: the box's pixel rows shifted by the tap, straight from the
-    // swizzled box (the swizzle follows the shared-memory address, so a
-    // descriptor may start at any row)
+    // wgmma m64n128k16, all 36 issued at once (conv3x3_tiles.cuh)
     float acc[64];  // from the f32 bias: accumulator 4 n + 2 hi + e is output o1 + 8 hi
 #pragma unroll
     for (int j = 0; j < 64; ++j) acc[j] = j & 2 ? bias2 : bias1;
     wgmma_fence();
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int ky = tap / 3, kx = tap % 3;
-#pragma unroll
-      for (int kc = 0; kc < kC / 16; ++kc)
-        wgmma_m64n128k16<0, 0>(acc, gmma_desc(ws + tap * (kC * 128) + kc * 32, 16, 1024, 128),
-                               gmma_desc(st + (ky * HC + kx) * 128 + kc * 32, 16, 1024, 128));
-    }
+    conv3::products<kN>(acc, ws, st);
     wgmma_commit();
     wgmma_wait<0>();
 

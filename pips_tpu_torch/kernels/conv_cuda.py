@@ -2,10 +2,12 @@
 
 Counterpart of ``pips_tpu/kernels/conv_pallas.py:conv3x3_same``: the conv
 that ``Pips(fuse_conv3=True)`` routes the encoder's four 64->64 stage-1 convs
-through. On a CUDA tensor it launches the hand-written kernel in
-``pips_tpu_torch/csrc/conv3x3_fwd.cu`` (which replaces the TPU kernel
-``_conv3x3_pallas_raw``; the source's header says what bounds it and how its
-design answers that). ``conv3x3_reference`` is its plain PyTorch version.
+through. On a CUDA tensor it launches one of the hand-written kernels in
+``pips_tpu_torch/csrc/conv3x3_fwd.cu`` (which replace the TPU kernel
+``_conv3x3_pallas_raw``; the source's header says what bounds them and how
+their design answers that), the one ``launch_plan`` names: 64->64 bf16 on
+``wgmma``, other widths on ``mma.sync``, f32 SIMT. ``conv3x3_reference`` is
+their plain PyTorch version.
 
 x is (B, C, H, W) and w (O, C, 3, 3) as ``F.conv2d`` takes them, where JAX
 takes NHWC and HWIO. On the card x must be ``torch.channels_last`` (NHWC in
@@ -27,18 +29,73 @@ raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 import torch.nn.functional as F
 
-from pips_tpu_torch.kernels import _build
+from pips_tpu_torch.kernels import _build, mixer_cuda
 
 KERNEL_C = 64  # the kernel holds up to 64 input and 64 output channels
+SMEM_LIMIT = 232_448  # shared memory a block may use on an H100
 
 launches = 0  # kernel launches so far (forward and dx); read (and reset) by chip_smoke.py
 _fn = None
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class Path:
+    """One kernel of ``csrc/conv3x3_fwd.cu``: its code in the C entry, output
+    tile (rows, columns), threads and shared memory a block, and blocks an SM
+    (0: one block a tile, not persistent)."""
+    code: int
+    tile: tuple
+    threads: int
+    smem: int
+    per_sm: int
+
+
+# bf16 C = O = 64: one block an SM, 3 consumer warpgroups and a producer warp;
+# 1024 (alignment) + 6 ring slots of a 6 x 32 box + the weight + a junk row
+# + 12 mbarriers. Other bf16 widths: the weight and a 4 x 66 tile, two blocks
+# an SM. f32: 8 channels of a 10 x 34 tile and their weights.
+PATHS = {"conv3x3_wgmma": Path(2, (4, 30), 3 * 128 + 32,
+                               1024 + 6 * 6 * 32 * 128 + 9 * 64 * 128 + 128 + 12 * 8, 1),
+         "conv3x3_bf16": Path(1, (2, 64), 128, 9 * 64 * 64 * 2 + 4 * 66 * 64 * 2, 2),
+         "conv3x3_f32": Path(0, (8, 32), 256, 8 * 10 * 34 * 4 + 8 * 9 * 64 * 4, 0)}
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """The one launch of a conv: ``kernel`` (a key of ``PATHS``), the image
+    cut into ``tiles`` output tiles of ``path.tile``, ``grid`` blocks (a
+    persistent block takes tiles blockIdx, blockIdx + grid, ...)."""
+    kernel: str
+    path: Path
+    tiles: int
+    grid: int
+
+
+def launch_plan(B: int, C: int, O: int, H: int, W: int, dtype: torch.dtype,
+                sms: int = mixer_cuda.SMS) -> ConvPlan:
+    """The kernel a conv of x (B, C, H, W) to O outputs in ``dtype`` takes on
+    a card of ``sms`` SMs, and its launch: bf16 with C = O = 64 (every model
+    call) the wgmma kernel, other bf16 widths the mma.sync one, f32 the SIMT
+    one."""
+    if not (B > 0 and H > 0 and W > 0 and 0 < C <= KERNEL_C and C % 8 == 0
+            and 0 < O <= KERNEL_C and O % 8 == 0 and dtype in _DTYPE_CODE):
+        raise ValueError(f"no conv3x3 kernel takes C={C}, O={O}, {B}x{H}x{W} {dtype}")
+    if dtype == torch.float32:
+        kernel = "conv3x3_f32"
+    else:
+        kernel = "conv3x3_wgmma" if C == O == KERNEL_C else "conv3x3_bf16"
+    path = PATHS[kernel]
+    (th, tw) = path.tile
+    tiles = B * -(-H // th) * -(-W // tw)
+    grid = tiles if path.per_sm == 0 else min(tiles, path.per_sm * sms)
+    return ConvPlan(kernel, path, tiles, grid)
 
 
 def conv3x3_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -52,7 +109,7 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load("conv3x3_fwd").pips_conv3x3_fwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -94,9 +151,10 @@ def _forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                     memory_format=torch.channels_last)
     if any(t.data_ptr() % 16 for t in (x, w, b, y)):
         raise ValueError("conv3x3_same's CUDA kernel needs 16-byte aligned tensors")
+    plan = launch_plan(B, C, H=H, W=W, O=O, dtype=x.dtype, sms=mixer_cuda._device_sms(x.device))
     err = _kernel()(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), B, C, H, W, O,
-                    _DTYPE_CODE[x.dtype], x.device.index,
-                    torch.cuda.current_stream(x.device).cuda_stream)
+                    _DTYPE_CODE[x.dtype], plan.path.code, plan.path.tile[0], plan.grid,
+                    x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"conv3x3_fwd kernel launch failed: CUDA error {err}")
     launches += 1

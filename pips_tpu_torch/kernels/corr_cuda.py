@@ -16,16 +16,27 @@ through ``sample_corr_onehot``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import torch
 
-from pips_tpu_torch.kernels import _build
+from pips_tpu_torch.kernels import _build, mixer_cuda
 from pips_tpu_torch.ops.corr import fused_corr_sample
 
 KERNEL_RADIUS = 3
 KERNEL_C = 128  # the channel width the kernel is compiled for (the flagship's latent)
 MAX_LEVELS = 8
+WARPS = 8  # a block's warps, each on one (frame, point) at a time, its levels in turn
+# shared memory by path: a warp's 8 x 8 f32 scores and its target's 16-byte
+# words, 32 lanes each (2 words a lane; 6 for an f32 target in three parts)
+SMEM = {path: WARPS * (64 * 4 + words * 32 * 16) for path, words in ((1, 2), (2, 6), (0, 2))}
+KERNEL = "corr_sample_points"
+FILL = 3  # blocks an SM a launch should give the card (the kernel's bounds allow 4)
+# (map, target) dtypes -> the C entry's path: the tensor cores, with the f32
+# target split in three bf16 parts, and SIMT for f32 maps
+PATHS = {(torch.bfloat16, torch.bfloat16): 1, (torch.bfloat16, torch.float32): 2,
+         (torch.float32, torch.float32): 0}
 
 launches = 0  # kernel launches so far; read (and reset) by chip_smoke.py
 _fn = None
@@ -35,12 +46,49 @@ corr_sample_reference = fused_corr_sample
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+@dataclasses.dataclass(frozen=True)
+class CorrPlan:
+    """The one launch of a call (``KERNEL``): ``path`` 1 on the tensor cores
+    (bf16 maps and targets), 2 on them with the f32 target split in three
+    bf16 parts (bf16 maps), 0 SIMT (f32 maps); block (x, y, z) takes
+    points ``WARPS`` x .. ``WARPS`` x + 7 of frame y, a warp a point, and its
+    levels ``lpw`` z .. ``lpw`` z + ``lpw`` - 1 in turn; ``blocks`` = (x, y,
+    z) extents, ``grid`` their product, ``smem`` bytes a block."""
+    path: int
+    lpw: int
+    blocks: tuple
+    grid: int
+    smem: int
+
+
+def launch_plan(B: int, S: int, N: int, L: int, map_dtype: torch.dtype,
+                tgt_dtype: torch.dtype, sms: int = mixer_cuda.SMS,
+                lpw: int | None = None) -> CorrPlan:
+    """The launch for B*S frames (at most 65535, the grid's y) of N points
+    over L levels on a card of ``sms`` SMs: a warp takes as many levels of
+    its point (L, half of them, or one; ``lpw`` forces a count) as still
+    leave ``FILL`` blocks an SM: where points are few, one wave of warps,
+    each working through few levels; where they are many, a warp a point,
+    whose coords and target are loaded once and whose L*49 outputs are
+    written together."""
+    if min(B, S, N) < 1 or not 1 <= L <= MAX_LEVELS or B * S > 65535 or (
+            map_dtype, tgt_dtype) not in PATHS or (lpw is not None and not 1 <= lpw <= L):
+        raise ValueError(f"no corr_sample kernel takes B={B}, S={S}, N={N}, L={L}, maps "
+                         f"{map_dtype}, targets {tgt_dtype}, {lpw} levels a warp")
+    bx = -(-N // WARPS)
+    if lpw is None:
+        lpw = next((k for k in (L, -(-L // 2)) if bx * B * S * -(-L // k) >= FILL * sms), 1)
+    blocks = (bx, B * S, -(-L // lpw))
+    path = PATHS[(map_dtype, tgt_dtype)]
+    return CorrPlan(path, lpw, blocks, blocks[0] * blocks[1] * blocks[2], SMEM[path])
+
+
 def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load("corr_sample_fwd").pips_corr_sample_fwd
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 5
-                       + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -76,9 +124,13 @@ def corr_sample(pyramid: list[torch.Tensor], targets: torch.Tensor, coords: torc
 
     On CUDA the kernel takes radius 3, C = 128, at most 8 levels, (map,
     target) dtypes bf16/bf16, bf16/f32 or f32/f32, contiguous 16-byte-aligned
-    maps, targets and coords whose last axis has unit stride, and f32 coords;
+    maps, targets whose last axis has unit stride and whose (b, s, n) rows are
+    16-byte aligned, coords whose last axis has unit stride, and f32 coords;
     anything else raises. Targets and coords may be strided views (an
-    expanded first-iteration target is read in place).
+    expanded first-iteration target is read in place). ``launch_plan`` lays
+    out the launch: bf16 maps on the tensor cores (an f32 target split
+    exactly in three bf16 parts), f32 maps SIMT. At most 65535 frames B*S;
+    a frame's map below 2 GiB.
     """
     global launches
     _check(pyramid, targets, coords, radius)
@@ -99,8 +151,15 @@ def corr_sample(pyramid: list[torch.Tensor], targets: torch.Tensor, coords: torc
     for fm in pyramid:
         if not fm.is_contiguous() or fm.data_ptr() % 16:
             raise ValueError("corr_sample's CUDA kernel needs contiguous, 16-byte aligned maps")
+        if fm[0, 0].numel() * fm.element_size() >= 2 ** 31:
+            raise ValueError(f"corr_sample's CUDA kernel takes a frame's map below 2 GiB, got "
+                             f"{tuple(fm.shape[2:])}")
     if targets.stride(-1) != 1 or coords.stride(-1) != 1:
         raise ValueError("corr_sample's CUDA kernel needs unit stride over C and over xy")
+    esize = targets.element_size()
+    if targets.data_ptr() % 16 or any(st * esize % 16 for st in targets.stride()[:3]):
+        raise ValueError("corr_sample's CUDA kernel reads targets by 16 bytes: each (b, s, n) "
+                         f"row must be 16-byte aligned; got strides {targets.stride()}")
     out = torch.empty((B, S, N, L * (2 * radius + 1) ** 2), dtype=torch.float32,
                       device=targets.device)
     if out.numel() == 0:
@@ -110,8 +169,11 @@ def corr_sample(pyramid: list[torch.Tensor], targets: torch.Tensor, coords: torc
     ws = (ctypes.c_int * L)(*(fm.shape[3] for fm in pyramid))
     tst = (ctypes.c_longlong * 3)(*targets.stride()[:3])
     cst = (ctypes.c_longlong * 3)(*coords.stride()[:3])
+    plan = launch_plan(B, S, N, L, pyramid[0].dtype, targets.dtype,
+                       mixer_cuda._device_sms(targets.device))
     err = _kernel()(maps, hs, ws, L, targets.data_ptr(), tst, coords.data_ptr(), cst,
-                    out.data_ptr(), B, S, N, C, md, td, 1.0 / math.sqrt(C),
+                    out.data_ptr(), B, S, N, C, md, td, plan.path, plan.lpw, plan.grid,
+                    1.0 / math.sqrt(C),
                     targets.device.index, torch.cuda.current_stream(targets.device).cuda_stream)
     if err:
         raise RuntimeError(f"corr_sample_fwd kernel launch failed: CUDA error {err}")

@@ -35,7 +35,7 @@ def sequence_loss(flow_preds: torch.Tensor, flow_gt: torch.Tensor, vis: torch.Te
     i_weights = gamma ** torch.arange(I - 1, -1, -1, dtype=torch.float32,
                                       device=flow_preds.device)
     i_loss = (flow_preds - flow_gt[None]).abs().mean(dim=-1)  # (I, B, S, N)
-    per_iter = reduce_masked_mean(i_loss, valids[None].expand_as(i_loss), dim=(1, 2, 3))
+    per_iter = reduce_masked_mean(i_loss, valids[None].expand_as(i_loss), axis=(1, 2, 3))
     return (per_iter * i_weights).sum() / I
 
 

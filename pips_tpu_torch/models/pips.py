@@ -127,15 +127,21 @@ class Pips(nn.Module):
     def track(self, fmaps: torch.Tensor, xys: torch.Tensor,
               coords_init: Optional[torch.Tensor] = None,
               feat_init: Optional[torch.Tensor] = None, iters: int = 3,
-              is_train: bool = False, corr_mode: str = "full", compute_fcp: bool = False,
+              is_train: bool = False, compute_fcp: bool = False,
+              use_fused_corr: bool = False, corr_mode: Optional[str] = None,
               ce_gt: Optional[tuple] = None) -> PipsOutput:
         """fmaps: (B, S, H8, W8, C); xys: (B, N, 2) query pixel coords in
         frame 0; coords_init: (B, S, N, 2) pixel coords; feat_init: (B, N, C).
+
+        The arguments come in the JAX package's order. ``corr_mode`` picks the
+        corr path (one of ``CORR_MODES``); left None it is ``"fused"`` when
+        ``use_fused_corr`` and ``"full"`` otherwise, as in JAX.
 
         ``compute_fcp`` (training) returns the score maps as ``fcps`` or, with
         ``ce_gt = (trajs_g pixels (B, S, N, 2), vis_g, valids)``, their CE loss
         averaged over the iterations as ``ce_loss``; it ignores ``corr_mode``.
         """
+        corr_mode = corr_mode or ("fused" if use_fused_corr else "full")
         if corr_mode not in CORR_MODES:
             raise ValueError(f"corr_mode must be one of {CORR_MODES}, got {corr_mode!r}")
         B, S, H8, W8, C = fmaps.shape
@@ -226,12 +232,14 @@ class Pips(nn.Module):
     def forward(self, xys: torch.Tensor, rgbs: torch.Tensor,
                 coords_init: Optional[torch.Tensor] = None,
                 feat_init: Optional[torch.Tensor] = None, iters: int = 3,
-                is_train: bool = False, corr_mode: str = "full", compute_fcp: bool = False,
+                is_train: bool = False, compute_fcp: bool = False,
+                use_fused_corr: bool = False, corr_mode: Optional[str] = None,
                 ce_gt: Optional[tuple] = None) -> PipsOutput:
-        """Full forward: encode + track."""
+        """Full forward: encode + track, with ``track``'s arguments."""
         return self.track(self.encode(rgbs), xys, coords_init=coords_init,
                           feat_init=feat_init, iters=iters, is_train=is_train,
-                          corr_mode=corr_mode, compute_fcp=compute_fcp, ce_gt=ce_gt)
+                          compute_fcp=compute_fcp, use_fused_corr=use_fused_corr,
+                          corr_mode=corr_mode, ce_gt=ce_gt)
 
 
 def make_pips(device="cuda", seed: int = 0, **config) -> Pips:

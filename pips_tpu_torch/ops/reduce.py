@@ -8,13 +8,17 @@ import torch
 EPS = 1e-6
 
 
-def reduce_masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None,
-                       keepdim: bool = False) -> torch.Tensor:
-    """Mean of ``x`` where ``mask`` is nonzero: sum(x*mask) / (EPS + sum(mask))."""
+def reduce_masked_mean(x: torch.Tensor, mask: torch.Tensor, axis=None,
+                       keepdims: bool = False) -> torch.Tensor:
+    """Mean of ``x`` where ``mask`` is nonzero: sum(x*mask) / (EPS + sum(mask)),
+    over ``axis`` (an int, a tuple, or None for all) as JAX's takes it."""
     prod = x * mask
-    if dim is None:
-        return prod.sum() / (EPS + mask.sum())
-    return prod.sum(dim=dim, keepdim=keepdim) / (EPS + mask.sum(dim=dim, keepdim=keepdim))
+    if axis is None:
+        if keepdims:
+            axis = tuple(range(x.dim()))
+        else:
+            return prod.sum() / (EPS + mask.sum())
+    return prod.sum(dim=axis, keepdim=keepdims) / (EPS + mask.sum(dim=axis, keepdim=keepdims))
 
 
 def normalize_single(d: torch.Tensor) -> torch.Tensor:

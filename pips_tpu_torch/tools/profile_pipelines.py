@@ -2,11 +2,12 @@
 
 The bf16 ``stem_wgrad`` kernel (``csrc/stem_wgrad.cu``), ``stream_accum``
 (``csrc/mixer_probes.cu``), the bf16 ``conv_pass`` (``csrc/conv3x3_stats.cu``),
-``row_contract`` (``csrc/row_contract.cu``) and the channel block's forward
-and backward (``csrc/chanff_fwd.cu``, ``csrc/chanff_bwd.cu``, bf16 and f32)
-each overlap asynchronous copies with products. No kernel profiler runs on
-the machine with the card, so this tool builds variants of each source with
-one phase taken out (a change to the source or to a header it includes) and
+``row_contract`` (``csrc/row_contract.cu``), the channel block's forward
+and backward (``csrc/chanff_fwd.cu``, ``csrc/chanff_bwd.cu``, bf16 and f32),
+the bf16 3x3 conv (``csrc/conv3x3_fwd.cu``) and the corr sampler
+(``csrc/corr_sample_fwd.cu``) each overlap memory traffic with products.
+No kernel profiler runs on the machine with the card, so this tool builds
+variants of each source with one phase taken out (a change to the source or to a header it includes) and
 times them beside the kernel, at the smoke's shapes: what a phase costs is
 the time it adds. A variant's output is wrong by construction; only the
 kernel's is held to its plain version.
@@ -49,7 +50,23 @@ at R=24,576 with fc 512, as ``chunk_plan`` splits them): "kernel"; "no GELU"
 and "no out/dxa products" (the consumers only wait for each step and release
 it); "no copies" (the producer only arrives: the products read stale tiles);
 "no cluster sum" (each block adds only the first rank's partial tile); and
-the kernel at each split its C entry takes there. Times: CUDA events around
+the kernel at each split its C entry takes there. Of the 3x3 conv's wgmma
+kernel (``csrc/conv3x3_fwd.cu``, bf16 64 -> 64 at the window's, the training
+default's and the bench train shape's stage 1; its products are
+``csrc/conv3x3_tiles.cuh``'s, which ``conv_pass`` shares): "kernel", beside
+``F.conv2d``; "no input copies" (the producer only arrives); "no products";
+"no epilogue" (no staging or stores); and four tile configurations against
+the kernel's 4 x 30 tiles, three consumer warpgroups and six ring slots (8 x
+30 and 6 x 30 tiles with two or three warpgroups, 4 x 30 with two). Of the
+corr sampler (``csrc/corr_sample_fwd.cu``, the smoke's flagship N=256 and
+dense N=7680 inputs on 60x128 maps, each dtype pair): "kernel";
+"no pixel loads" (the patch reads as zeros); "no products or dots"; "no
+reduction" (the shuffles that sum half-pixels or reduce-scatter partial
+dots); "no epilogue" (the 49 outputs not combined); "two blocks an SM" and
+"three blocks an SM" (the launch bounds against the kernel's four); and the
+kernel at one, two and four levels a warp. ``python3 -m pips_tpu_torch.tools.profile_pipelines
+conv3x3_fwd corr_sample_fwd`` builds and times those sources' variants
+alone. Times: CUDA events around
 ``reps`` calls queued behind a sleep kernel (so the host's cost per call
 hides), the median of ``rounds``. Prints one JSON line with the card's name
 and power limit; needs CUDA.
@@ -62,6 +79,7 @@ import dataclasses
 import json
 import re
 import subprocess
+import sys
 
 import numpy as np
 import torch
@@ -87,7 +105,7 @@ SA_COPY = [("        mbar_arrive_expect_tx(&full[s], kWTile + (i == 0 ? kXBytes 
             "        if (i < 0) tma_load_2d(ws + s * kWTile,")]
 CONV_COPY = [("    mbar_arrive_expect_tx(&full[s], kBoxBytes);", "    mbar_arrive(&full[s]);"),
              ("    tma_load_4d(xs + s * kStageBytes,", "    if (i < 0) tma_load_4d(xs + s * kStageBytes,")]
-CONV_MMA = ("        wgmma_m64n128k16<0, 0>(acc,", "        if (tap < 0) wgmma_m64n128k16<0, 0>(acc,")
+CONV_MMA = ("      product<N>(acc,", "      if (tap < 0) product<N>(acc,")
 # (the accumulators stay live: ptxas drops products whose results go unread)
 CONV_EPI = ("    wgmma_wait<0>();\n",
             "    wgmma_wait<0>();\n    named_sync(2 + wg, 128);\n"
@@ -158,6 +176,61 @@ CCH_SUM = [(f"      if (k >= split) break;\n#pragma unroll\n      for (int u = 0
             f"      if (k >= 1) break;\n#pragma unroll\n      for (int u = 0; u < {n}; ++u) {{")
            for n in ("kRound", "kU")]
 CCH_CASES = ((1024, 512), (1024, 1024), (CFB_R, 512))  # (R, fc): the tool's rows, the train default
+# the 3x3 conv's wgmma kernel (csrc/conv3x3_fwd.cu; its products are
+# conv3x3_tiles.cuh's, CONV_MMA): the producer only arrives; the epilogue
+# skips staging and stores (the accumulators kept live); and the tile
+# configurations measured against the kernel's 4 x 30 tiles, three warpgroups
+# and six slots: (output tile rows, consumer warpgroups, ring slots)
+C3_COPY = [("        mbar_arrive_expect_tx(&full[s], kBoxBytes);\n"
+            "        tma_load_4d(xs + s * kStageBytes, &x_map, 0, w0 - 1, h0 - 1, b, &full[s]);\n",
+            "        mbar_arrive(&full[s]);\n")]
+C3_EPI = [("    wgmma_wait<0>();\n",
+           "    wgmma_wait<0>();\n"
+           "    if (h0 < 0)\n"
+           "      reinterpret_cast<float*>(junk)[ctid % 32] = acc[0] + acc[17] + acc[63];\n"
+           "    prev = s;\n    continue;\n")]
+C3_TILES = {"8 x 30 tiles, two warpgroups": (8, 2, 3), "6 x 30 tiles, three warpgroups": (6, 3, 4),
+            "6 x 30 tiles, two warpgroups": (6, 2, 4), "4 x 30 tiles, two warpgroups": (4, 2, 6)}
+
+
+def c3_config(th: int, wgs: int, stages: int) -> list:
+    """The substitutions that build the wgmma conv with these constants."""
+    subs = [("constexpr int TH = 4;                              // output tile rows",
+             f"constexpr int TH = {th};"),
+            ("constexpr int kWGs = 3;", f"constexpr int kWGs = {wgs};"),
+            ("constexpr int kStages = 6;", f"constexpr int kStages = {stages};")]
+    return [(old, new) for old, new in subs if not old.startswith(new)]
+
+
+C3_SHAPES = (("window", 8, 240, 512), ("train default", 32, 184, 248), ("bench train", 8, 192, 256))
+# the corr sampler (csrc/corr_sample_fwd.cu): no pixel loads (the patch reads
+# as zeros); no products or dots (the loaded words are folded without
+# multiplying); no reduction (the half-pixel sums and the reduce-scatter
+# without their shuffles); no epilogue (the 49 outputs not combined, one
+# score written); the tensor-core path's launch bounds at two and three
+# blocks an SM against the kernel's four
+CS_COPY = [("    return ok ? __ldg(reinterpret_cast<const uint4*>(base + off)) "
+            ": make_uint4(0u, 0u, 0u, 0u);",
+            "    return make_uint4(0u, 0u, 0u, ok ? 0u : (uint32_t)off);")]
+CS_DOT = [("      mma_bf16(acc, a0, b0.x, b0.y);\n      mma_bf16(acc, a1, b0.z, b0.w);\n"
+           "      mma_bf16(acc, a2, b1.x, b1.y);\n      mma_bf16(acc, a3, b1.z, b1.w);\n",
+           "      acc[0] += __uint_as_float(a0[0] ^ a1[3] ^ a2[0] ^ a3[3] ^ b0.x ^ b1.w);\n"),
+          ("        for (int e = 0; e < 8; ++e) d = fmaf(__uint_as_float(u[e]), tv[e], d);",
+           "        for (int e = 0; e < 8; ++e) d += __uint_as_float(u[e]);\n        d += tv[r];")]
+CS_RED = [("    const float d0 = acc[0] + __shfl_xor_sync(0xffffffffu, acc[1], 4);\n"
+           "    const float d1 = acc[2] + __shfl_xor_sync(0xffffffffu, acc[3], 4);\n",
+           "    const float d0 = acc[0] + acc[1];\n    const float d1 = acc[2] + acc[3];\n"),
+          ("        v[i] = keep + __shfl_xor_sync(0xffffffffu, give, half);",
+           "        v[i] = keep + give;")]
+CS_EPI = [("  combine(g, it, o, lane);", "  if (lane == 0) o[0] = g[it.px & 63];")]
+CS_BLOCKS = {f"{w} blocks an SM": [("constexpr int kBlocksPerSM = 4;",
+                                     f"constexpr int kBlocksPerSM = {n};")]
+             for w, n in (("two", 2), ("three", 3))}
+CS_LPW = (1, 2, 4)  # levels a warp: the kernel also at each
+# (case, N, map dtype, target dtype) on a 60x128 level 0
+CS_CASES = tuple((case, N, md, td) for case, N in (("flagship", 256), ("dense", 7680))
+                 for md, td in (("bfloat16", "bfloat16"), ("bfloat16", "float32"),
+                                ("float32", "float32")))
 VARIANTS = {
     "stem_wgrad": {"kernel": [], "no x copies": [STEM_X], "no products": [STEM_MMA],
                    "dy only": [STEM_X, STEM_MMA], "no segments": [STEM_NONE]},
@@ -176,6 +249,11 @@ VARIANTS = {
     "chanff_chunk": {"kernel": [], "no GELU": CCH_GELU, "no activation products": CCH_ACT,
                      "no out/dxa products": CCH_OUT, "no copies": CCH_COPY,
                      "no cluster sum": CCH_SUM},
+    "conv3x3_fwd": {"kernel": [], "no input copies": C3_COPY, "no products": [CONV_MMA],
+                    "no epilogue": C3_EPI,
+                    **{name: c3_config(*cfg) for name, cfg in C3_TILES.items()}},
+    "corr_sample_fwd": {"kernel": [], "no pixel loads": CS_COPY, "no products or dots": CS_DOT,
+                        "no reduction": CS_RED, "no epilogue": CS_EPI, **CS_BLOCKS},
 }
 
 
@@ -205,14 +283,16 @@ def variant_sources(stem: str, subs) -> dict:
     return changed
 
 
-def build() -> dict:
-    """Every variant's library, all nvcc processes at once, under
-    ``build/pips_tpu_torch/variants/<source>_<i>/`` (the changed files beside
-    the library; a source's quoted includes find a changed header there
-    first): {(source, variant): ctypes.CDLL}."""
+def build(sources=None) -> dict:
+    """Every variant's library (of ``sources``, default all), all nvcc
+    processes at once, under ``build/pips_tpu_torch/variants/<source>_<i>/``
+    (the changed files beside the library; a source's quoted includes find a
+    changed header there first): {(source, variant): ctypes.CDLL}."""
     out = _build.BUILD_DIR / "variants"
     nvcc, running = _build._nvcc(), []
     for stem, variants in VARIANTS.items():
+        if sources is not None and stem not in sources:
+            continue
         for i, (name, subs) in enumerate(variants.items()):
             vdir = out / f"{stem}_{i}"
             vdir.mkdir(parents=True, exist_ok=True)
@@ -552,6 +632,107 @@ def chunk_variants(libs: dict, R: int, fc: int, F: int = CFB_F) -> dict:
     return out
 
 
+def conv3_variants(libs: dict) -> dict:
+    """Each variant of the wgmma conv at the three bf16 stage-1 shapes, and
+    for the kernel its largest error against the plain version and
+    ``F.conv2d``'s time in turns with it (each configuration's output held to
+    two bf16 ulps as well)."""
+    from pips_tpu_torch.kernels import conv_cuda
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for case, B, H, W in C3_SHAPES:
+        rng = np.random.RandomState(B + H)
+        x = torch.from_numpy(rng.randn(B, H, W, 64).astype(np.float32)).cuda().bfloat16()
+        x = x.permute(0, 3, 1, 2)
+        w = torch.from_numpy((rng.randn(64, 64, 3, 3) / 24).astype(np.float32)).cuda()
+        b = torch.from_numpy((0.1 * rng.randn(64)).astype(np.float32)).cuda()
+        wk = w.bfloat16().contiguous()
+        y = torch.empty_like(x)
+        ref = conv_cuda.conv3x3_reference(x, w, b).float()
+        tol = 2.0 ** (np.ceil(np.log2(ref.abs().max().item())) - 7)
+        res = {}
+        for name in VARIANTS["conv3x3_fwd"]:
+            fn = libs[("conv3x3_fwd", name)].pips_conv3x3_fwd
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+            th = C3_TILES[name][0] if name in C3_TILES else conv_cuda.PATHS["conv3x3_wgmma"].tile[0]
+            grid = min(B * -(-H // th) * -(-W // 30), sms)
+
+            def call(fn=fn, th=th, grid=grid, name=name):
+                checked(fn(x.data_ptr(), wk.data_ptr(), b.data_ptr(), y.data_ptr(), B, 64, H, W,
+                           64, 1, 2, th, grid, x.device.index, stream), f"conv3x3_fwd {name}")
+
+            call()
+            err = (y.float() - ref).abs().max().item()
+            if (name == "kernel" or name in C3_TILES) and err > tol:
+                raise RuntimeError(f"conv3x3_fwd {name} {case}: max_abs_err {err} > {tol}")
+            res[name] = device_ms(call)
+            if name == "kernel":
+                res["kernel max_abs_err"] = err
+                res["F.conv2d"] = device_ms(lambda: torch.nn.functional.conv2d(
+                    x, wk, b.bfloat16(), padding=1))
+                res["kernel again"] = device_ms(call)
+        out[case] = res
+    return out
+
+
+def corr_variants(libs: dict) -> dict:
+    """Each variant of the corr sampler at the smoke's flagship (N=256) and
+    dense (N=7680) inputs on a 60x128 level 0, with each (map, target) dtype
+    pair; for the kernel, its largest error against the plain version and
+    its time at one, two and four levels a warp."""
+    from pips_tpu_torch.kernels import corr_cuda
+    from pips_tpu_torch.ops.corr import build_fmap_pyramid
+
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for case, N, md, tgt in CS_CASES:
+        rng = np.random.RandomState(N)
+        fm = torch.from_numpy(rng.randn(1, 8, 60, 128, 128).astype(np.float32)).cuda()
+        fm = fm.to(getattr(torch, md))
+        pyramid = [p.contiguous() for p in build_fmap_pyramid(fm, 4)]
+        targets = torch.from_numpy(rng.randn(1, 8, N, 128).astype(np.float32)).cuda()
+        targets = targets.to(getattr(torch, tgt))
+        coords = torch.from_numpy(np.stack([rng.uniform(-4, 131, (1, 8, N)),
+                                            rng.uniform(-4, 63, (1, 8, N))], -1)
+                                  .astype(np.float32)).cuda()
+        o = torch.empty(1, 8, N, 4 * 49, device="cuda")
+        L = 4
+        maps = (ctypes.c_void_p * L)(*(p.data_ptr() for p in pyramid))
+        hs = (ctypes.c_int * L)(*(p.shape[2] for p in pyramid))
+        ws = (ctypes.c_int * L)(*(p.shape[3] for p in pyramid))
+        tst = (ctypes.c_longlong * 3)(*targets.stride()[:3])
+        cst = (ctypes.c_longlong * 3)(*coords.stride()[:3])
+        ref = corr_cuda.corr_sample_reference(pyramid, targets, coords)
+        plan = corr_cuda.launch_plan(1, 8, N, L, fm.dtype, targets.dtype,
+                                     torch.cuda.get_device_properties(0).multi_processor_count)
+        res = {}
+        for name in VARIANTS["corr_sample_fwd"]:
+            fn = libs[("corr_sample_fwd", name)].pips_corr_sample_fwd
+            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 5
+                           + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+            def call(fn=fn, name=name, p=plan):
+                checked(fn(maps, hs, ws, L, targets.data_ptr(), tst, coords.data_ptr(), cst,
+                           o.data_ptr(), 1, 8, N, 128, int(md == "bfloat16"),
+                           int(tgt == "bfloat16"), p.path, p.lpw,
+                           p.grid, 128 ** -0.5, 0, stream), f"corr_sample {name}")
+
+            res[name] = device_ms(call)
+            if name == "kernel":
+                call()
+                res["kernel max_abs_err"] = (o - ref).abs().max().item()
+                res["levels a warp"] = plan.lpw
+                for k in CS_LPW:
+                    p = corr_cuda.launch_plan(1, 8, N, L, fm.dtype, targets.dtype, lpw=k)
+                    call(p=p)
+                    res[f"{k} levels a warp"] = {"ms": device_ms(lambda p=p: call(p=p)),
+                                                 "max_abs_err": (o - ref).abs().max().item()}
+        out[f"{case} N={N} {md}/{tgt}"] = res
+    return out
+
+
 def launch_ms(call, launches: int, pattern: str) -> dict:
     """Each launch's device time (ms) of one call, by kernel name, averaged
     over three calls under the profiler. The trace may miss the first
@@ -570,26 +751,39 @@ def launch_ms(call, launches: int, pattern: str) -> dict:
     return out
 
 
-def main() -> dict:
+def main(sources=None) -> dict:
+    """Times the variants of ``sources`` (source stems; default all) and
+    prints them as one JSON line."""
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: profile_pipelines times kernels on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
-    libs = build()
+    unknown = set(sources or ()) - set(VARIANTS)
+    if unknown:
+        raise ValueError(f"no variants of {sorted(unknown)}; sources: {sorted(VARIANTS)}")
+    libs = build(sources)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip().splitlines()
-    res = {"device": torch.cuda.get_device_name(0), "nvidia-smi": smi[0] if smi else None,
-           "stem_wgrad B=8": stem_variants(libs, 8), "stem_wgrad B=1": stem_variants(libs, 1),
-           "stream_accum": stream_variants(libs), "conv_pass": conv_variants(libs),
-           "row_contract": contract_variants(libs),
-           "chanff_bwd bf16": chanff_bwd_variants(libs, torch.bfloat16),
-           "chanff_bwd f32": chanff_bwd_variants(libs, torch.float32),
-           "chanff_fwd bf16": chanff_fwd_variants(libs, torch.bfloat16),
-           "chanff_fwd f32": chanff_fwd_variants(libs, torch.float32),
-           "chanff_fwd splits": chanff_fwd_splits(libs)}
-    res.update({f"chanff_chunk R={R} fc={fc}": chunk_variants(libs, R, fc) for R, fc in CCH_CASES})
+    res = {"device": torch.cuda.get_device_name(0), "nvidia-smi": smi[0] if smi else None}
+    runs = {"stem_wgrad": lambda: {"stem_wgrad B=8": stem_variants(libs, 8),
+                                   "stem_wgrad B=1": stem_variants(libs, 1)},
+            "mixer_probes": lambda: {"stream_accum": stream_variants(libs)},
+            "conv3x3_stats": lambda: {"conv_pass": conv_variants(libs)},
+            "row_contract": lambda: {"row_contract": contract_variants(libs)},
+            "chanff_bwd": lambda: {"chanff_bwd bf16": chanff_bwd_variants(libs, torch.bfloat16),
+                                   "chanff_bwd f32": chanff_bwd_variants(libs, torch.float32)},
+            "chanff_fwd": lambda: {"chanff_fwd bf16": chanff_fwd_variants(libs, torch.bfloat16),
+                                   "chanff_fwd f32": chanff_fwd_variants(libs, torch.float32),
+                                   "chanff_fwd splits": chanff_fwd_splits(libs)},
+            "chanff_chunk": lambda: {f"chanff_chunk R={R} fc={fc}": chunk_variants(libs, R, fc)
+                                     for R, fc in CCH_CASES},
+            "conv3x3_fwd": lambda: {"conv3x3_same": conv3_variants(libs)},
+            "corr_sample_fwd": lambda: {"corr_sample": corr_variants(libs)}}
+    for stem in VARIANTS:
+        if sources is None or stem in sources:
+            res.update(runs[stem]())
     print(json.dumps(res), flush=True)
     return res
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:] or None)

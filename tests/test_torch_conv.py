@@ -30,6 +30,7 @@ port's NCHW/OIHW; the inputs are the same numpy arrays, transposed. Bounds:
 """
 
 import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -249,3 +250,99 @@ def test_pips_fuse_conv3_window_matches_jax(dtype):
     else:
         assert d.max() <= 2e-3, d.max()
         np.testing.assert_allclose(vis, jvis, rtol=0, atol=1e-3)
+
+
+# ---- the launch plan (``conv_cuda.launch_plan``), on the host
+
+_SRC = conv_cuda._build.CSRC / "conv3x3_fwd.cu"
+# the encoder's stage-1 shapes (the window, the training default, the bench
+# train shape), the smoke's small one, and ragged ones: H and W no multiples
+# of any tile, fewer tiles than SMs, one pixel
+PLAN_SHAPES = [(8, 240, 512), (32, 184, 248), (8, 192, 256), (2, 31, 70), (1, 9, 31),
+               (3, 17, 61), (1, 1, 1)]
+
+
+def _wg_constexpr(name: str) -> int:
+    """``constexpr int <name> = <int>;`` in the wgmma kernel's namespace of
+    ``csrc/conv3x3_fwd.cu``."""
+    src = _SRC.read_text()
+    body = src[src.index("namespace wg {"):src.index("}  // namespace wg")]
+    m = re.search(rf"constexpr int {name} = (\d+);", body)
+    assert m, f"conv3x3_fwd.cu's wg namespace defines no constexpr int {name}"
+    return int(m.group(1))
+
+
+def test_conv_plan_constants_are_the_kernels():
+    """The plan's tiles, threads and shared memory are those the kernels are
+    compiled with (the wgmma kernel's box rows, warpgroups and ring; the
+    shared mainloop's 32-pixel box rows), and the C entry takes the plan's
+    path, tile rows and grid."""
+    src = _SRC.read_text()
+    for walk in ("const int t = blockIdx.x + i * gridDim.x;", "h0 = ti / tiles_w * TH;",
+                 "w0 = (ti % tiles_w) * TW;",
+                 "for (int t = blockIdx.x; t < ntiles; t += gridDim.x)"):
+        assert walk in src, walk  # the walk _tile_origins mirrors
+    p = conv_cuda.PATHS["conv3x3_wgmma"]
+    th, wgs, stages = _wg_constexpr("TH"), _wg_constexpr("kWGs"), _wg_constexpr("kStages")
+    assert p.tile == (th, 32 - 2) and p.threads == 128 * wgs + 32 and p.per_sm == 1
+    tiles_src = (conv_cuda._build.CSRC / "conv3x3_tiles.cuh").read_text()
+    assert "constexpr int kBoxCols = 32;" in tiles_src
+    assert "constexpr int TW = conv3::kBoxCols - 2;" in src
+    assert p.smem == 1024 + stages * (th + 2) * 32 * 128 + 9 * 64 * 128 + 128 + 2 * stages * 8
+    assert p.smem <= conv_cuda.SMEM_LIMIT
+    assert "constexpr size_t kSmem = 1024 + kStages * kStageBytes + conv3::kWBytes + kJunkBytes +" \
+        in src
+    old = conv_cuda.PATHS["conv3x3_bf16"]
+    assert old.tile == (2, 64) and old.threads == 128 and old.smem == 107_520
+    assert "constexpr size_t kSmem = kWBytes + kXBytes;             // 107,520" in src
+    f32 = conv_cuda.PATHS["conv3x3_f32"]
+    assert f32.tile == (8, 32) and f32.threads == 256 and f32.smem == 10_880 + 18_432
+    assert ("int Cout, int dtype_code, int path, int tile_rows, int grid,\n"
+            "                     int device, void* stream)") in src
+    assert sorted(p.code for p in conv_cuda.PATHS.values()) == [0, 1, 2]
+
+
+def _tile_origins(plan, B, H, W, block):
+    """The (image, first row, first column) of each output tile that block
+    ``block`` of ``plan`` writes, as the kernels walk them: tiles blockIdx,
+    blockIdx + grid, ..., row-major over each image's tiles."""
+    th, tw = plan.path.tile
+    tiles_w = -(-W // tw)
+    per_image = -(-H // th) * tiles_w
+    return [(t // per_image, t % per_image // tiles_w * th, t % per_image % tiles_w * tw)
+            for t in range(block, plan.tiles, plan.grid)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+@pytest.mark.parametrize("dtype,C,O,kernel", [("bfloat16", 64, 64, "conv3x3_wgmma"),
+                                              ("bfloat16", 64, 32, "conv3x3_bf16"),
+                                              ("bfloat16", 8, 64, "conv3x3_bf16"),
+                                              ("float32", 64, 64, "conv3x3_f32")])
+def test_conv_launch_plan(shape, dtype, C, O, kernel):
+    """C = O = 64 bf16 (every model call) takes the wgmma kernel, other widths
+    and f32 the earlier ones; the blocks' tiles cover every output pixel
+    once; a block fits an SM; persistent blocks fill the card without
+    exceeding the tiles."""
+    B, H, W = shape
+    plan = conv_cuda.launch_plan(B, C, O, H, W, getattr(torch, dtype), sms=132)
+    assert plan.kernel == kernel and plan.path is conv_cuda.PATHS[kernel]
+    assert plan.path.smem <= conv_cuda.SMEM_LIMIT
+    th, tw = plan.path.tile
+    assert plan.tiles == B * -(-H // th) * -(-W // tw)
+    if plan.path.per_sm:
+        assert plan.grid == min(plan.tiles, plan.path.per_sm * 132)
+    else:
+        assert plan.grid == plan.tiles
+    hits = np.zeros((B, H, W), np.int32)
+    for block in range(plan.grid):
+        for b, h0, w0 in _tile_origins(plan, B, H, W, block):
+            assert 0 <= b < B and 0 <= h0 < H and 0 <= w0 < W
+            hits[b, h0:h0 + th, w0:w0 + tw] += 1
+    assert (hits == 1).all()
+
+
+@pytest.mark.parametrize("bad", [dict(C=72), dict(O=12), dict(H=0), dict(dtype=torch.float16)])
+def test_conv_launch_plan_refuses_what_the_kernels_do_not_take(bad):
+    args = dict(B=1, C=64, O=64, H=8, W=8, dtype=torch.bfloat16) | bad
+    with pytest.raises(ValueError, match="no conv3x3 kernel"):
+        conv_cuda.launch_plan(**args)

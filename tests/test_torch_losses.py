@@ -46,7 +46,7 @@ def test_reduce_and_normalize_match_jax():
     for axis in (None, 1, (0, 2)):
         want = np.asarray(jreduce.reduce_masked_mean(jnp.asarray(x, jnp.float32),
                                                      jnp.asarray(mask), axis=axis))
-        got = reduce.reduce_masked_mean(_t(x), _t(mask), dim=axis).numpy()
+        got = reduce.reduce_masked_mean(_t(x), _t(mask), axis=axis).numpy()
         np.testing.assert_allclose(got, want, **LOSS_TOL)
     # an empty mask divides by EPS alone, as in JAX
     assert reduce.reduce_masked_mean(_t(x), torch.zeros(3, 4, 5)).item() == 0.0

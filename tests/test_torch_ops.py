@@ -176,3 +176,25 @@ def test_transposed_patch_order(sampler):
     patch = fn([ramp], coords, radius=r).reshape(P, P).numpy()
     offs = np.arange(-r, r + 1, dtype=np.float32)
     np.testing.assert_array_equal(patch, np.broadcast_to((9.0 + offs)[:, None], (P, P)))
+
+
+@pytest.mark.parametrize("keepdims", [False, True])
+def test_reduce_masked_mean_takes_jax_keywords(keepdims):
+    """``reduce_masked_mean`` takes JAX's ``axis``/``keepdims``, and the ops
+    package exports it and ``normalize`` as JAX's does."""
+    from pips_tpu.ops import reduce_masked_mean as jax_reduce_masked_mean
+    from pips_tpu.ops import normalize as jax_normalize
+    from pips_tpu_torch.ops import normalize, reduce_masked_mean
+
+    want = np.asarray(jax_reduce_masked_mean(jnp.ones((2, 3)), jnp.ones((2, 3)), axis=1,
+                                             keepdims=keepdims))
+    got = reduce_masked_mean(torch.ones(2, 3), torch.ones(2, 3), axis=1, keepdims=keepdims)
+    assert got.shape == want.shape == ((2, 1) if keepdims else (2,))
+    np.testing.assert_allclose(got.numpy(), want, **TIGHT)
+    both = reduce_masked_mean(torch.ones(2, 3), torch.ones(2, 3), keepdims=keepdims)
+    jboth = np.asarray(jax_reduce_masked_mean(jnp.ones((2, 3)), jnp.ones((2, 3)),
+                                              keepdims=keepdims))
+    assert both.shape == jboth.shape
+    np.testing.assert_allclose(both.numpy(), jboth, **TIGHT)
+    d = np.random.RandomState(0).randn(2, 5)
+    np.testing.assert_allclose(normalize(t(d)).numpy(), np.asarray(jax_normalize(j(d))), **TIGHT)

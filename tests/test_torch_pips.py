@@ -235,3 +235,51 @@ def test_window_tracker_track_takes_numpy_like_jax():
     b = tb.track(fm16, torch.from_numpy(xys), torch.from_numpy(feat0).float())
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x.float().numpy(), y.float().numpy())
+
+
+# the argument-order case: widths of their own, so that a swapped width shows
+TINY_ORDER = dict(S=8, stride=8, latent_dim=32, mixer_dim=64, mixer_depth=2)
+# the calls both packages take in JAX's argument order: positionally
+# (coords_init, feat_init, iters, is_train, compute_fcp), and by keyword with
+# use_fused_corr and no corr_mode
+ORDER_CALLS = {"positional compute_fcp": ((None, None, 1, False, True), {}),
+               "use_fused_corr": ((), dict(iters=1, use_fused_corr=True))}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_order_outputs():
+    m = JaxPips(**TINY_ORDER)
+    xys, rgbs = _inputs()
+    params = jax.jit(lambda k: m.init(k, jnp.asarray(xys), jnp.asarray(rgbs), iters=1))(
+        jax.random.PRNGKey(2))
+    rng = np.random.RandomState(3)
+    params = jax.tree.map(lambda a: np.asarray(a + 0.02 * rng.randn(*a.shape).astype(np.float32)),
+                          params)
+    outs = {}
+    for name, (args, kw) in ORDER_CALLS.items():
+        out = jax.jit(lambda p, x, r: m.apply(p, x, r, *args, **kw))(
+            params, jnp.asarray(xys), jnp.asarray(rgbs))
+        outs[name] = jax.tree.map(lambda a: None if a is None else np.asarray(a, np.float32), out)
+    return params, outs
+
+
+@pytest.mark.parametrize("call", sorted(ORDER_CALLS))
+def test_pips_takes_jax_argument_order(call):
+    """``Pips.forward`` and ``track`` take JAX's order (..., iters, is_train,
+    compute_fcp, use_fused_corr, corr_mode, ce_gt), and a corr_mode left None
+    resolves from use_fused_corr as JAX resolves it; held to the one-iteration
+    bounds above, the score maps (fcps) to the visibility logits' 1e-3."""
+    params, outs = _jax_order_outputs()
+    want = outs[call]
+    args, kw = ORDER_CALLS[call]
+    xys, rgbs = _inputs()
+    tm = load_flax_params(Pips(**TINY_ORDER), params).eval()
+    with torch.no_grad():
+        o = tm(torch.from_numpy(xys), torch.from_numpy(rgbs), *args, **kw)
+    np.testing.assert_allclose(o.coord_predictions.numpy(), want.coord_predictions,
+                               rtol=0, atol=2e-3)
+    np.testing.assert_allclose(o.vis_e.numpy(), want.vis_e, rtol=0, atol=1e-3)
+    assert (o.fcps is None) == (want.fcps is None)
+    if want.fcps is not None:
+        assert o.fcps.shape == want.fcps.shape == (1, 8, 1, 12, 8, 12)
+        np.testing.assert_allclose(o.fcps.numpy(), want.fcps, rtol=0, atol=1e-3)
