@@ -12,17 +12,19 @@ Phases, each printing a progress line with the elapsed seconds:
      ``chan_ff_block`` (fused channel block, bf16 and f32 at the windows'
      R=2048 and 2000, the training default's R=24,576 and R=100, which fills
      no whole row tile; bf16 also at the dense window's R=61,440, f32 at the
-     f32 train path's R=1024; two calls bit-identical, and one call per case,
-     captured in a CUDA graph, the kernels of its launch plan, whose replay
-     gives the same bits) and
+     f32 train path's R=1024; then at the Pips2 refiner's D=256, F=1024 at
+     R=2048, 6144, 73,728 and 100 in both dtypes; two calls bit-identical, and
+     one call per case, captured in a CUDA graph, the kernels of its launch
+     plan, whose replay gives the same bits) and
      ``corr_sample`` (fused corr sampler, three point counts by three dtype
      pairs, then ``CORR_EDGES``: points all off the map, coords at +-1e8,
      N=1, a pyramid down to a 1x1 level; two calls bit-identical, and one
      kernel a call, captured in a CUDA graph); and ``chan_ff_bwd``
      (the channel block's backward, bf16, at the train shapes R=1024, 24,576,
-     800 and 100, which fills no whole row tile), all seven grads, two calls
-     bit-identical, and one call, captured in a CUDA graph, the kernels of
-     its launch plan, whose replay gives the same bits;
+     800 and 100, which fills no whole row tile, and at D=256, F=1024 at the
+     Pips2 rows), all seven grads, two calls bit-identical, and one call,
+     captured in a CUDA graph, the kernels of its launch plan, whose replay
+     gives the same bits;
   4. slice, onehot windows: the full-width bf16 PIPs model (S=8, mixer
      512x12, fused channel blocks, 6 iterations) serves three windows through
      ``WindowTracker(corr_mode="onehot")``; each must be finite, keep frame 0
@@ -72,7 +74,20 @@ Phases, each printing a progress line with the elapsed seconds:
      launch the conv-pass kernel 2 times per forward and 4 per
      forward+backward, ``stem_wgrad`` its kernel once per weight gradient,
      and the chunked chain 12 forward launches per chain forward and 12
-     backward launches per chain backward.
+     backward launches per chain backward;
+ 10. slice, Pips2 (PIPs++) at its class defaults (latent 128, 4 corr levels
+     of radius 3, refiner 256 x 6), bf16, fused channel blocks (the kernels at
+     D=256): (a) ``WindowTracker(corr_mode="onehot")``, 6 iterations, serves
+     N=256 at 480x1024 at S=8 and S=24 with one set of weights, each window
+     finite, frame 0 at the queries, 6 * 6 channel-block launches and within
+     phase 4's drift bounds of the plain channel block; (b)
+     ``ChainTracker(S=16)`` tracks phase 6's video; (c) one train step at S=24
+     (the bench train shape otherwise) against the plain channel block at
+     phase 7a's bounds; (d) ``train.loop.main`` with ``--model_family pips2
+     --S 24`` for 12 steps with a validation pass and a checkpoint, the loss
+     falling; (e) 2 timed steps at the loop's defaults (the refiner 512 x 12,
+     S=24, N=768, both flips: the D=512 kernels at R=73,728; N halved while a
+     step does not fit the card).
 Phase 3 also holds (3d) ``conv3x3_same`` (the encoder's stage-1 3x3 conv)
 against its plain version, forward and dx, at a window's, the training
 default's and the bench train shape's stage 1 in bf16 and a small ragged
@@ -94,7 +109,8 @@ timed in turns with ``F.conv2d`` and the modular ``ResidualBlock``. 3f holds
 row's last segment of columns partial) and a small f32 shape, timed in turns
 with the library's weight grad of the s2d conv and of the x7 conv. 3g holds
 ``chan_ff_bwd`` in f32 (the f32 kernels) at R=1024, 800, 100 and 24,576
-against its plain version, all seven grads, with matmuls in full f32 (TF32
+and at D=256, F=1024 at the Pips2 rows against its plain version, all
+seven grads, with matmuls in full f32 (TF32
 off), repeats and kernel counts as in 3c. 3h holds the F-chunked channel block
 (``chan_ff_block_chunked`` and ``chan_ff_chunked_bwd``) at R=1024, 800 and
 100 (one ragged 64-row tile), bf16, against its plain versions at every chunk
@@ -220,6 +236,24 @@ STEM_CASES = [("B=1", 1, 384, 512, "bfloat16"), ("B=8", 8, 384, 512, "bfloat16")
               ("ragged", 2, 192, 328, "bfloat16"), ("small f32", 2, 64, 96, "float32")]
 U32 = 2.0 ** -24  # unit roundoff of f32
 EDGE_R = 100  # phases 3a, 3c and 3g: rows that fill no whole 128-row tile of the kernels
+# the Pips2 (PIPs++) refiner's channel blocks (pips_tpu/models/pips2.py:111-121:
+# 256 wide, F = 4 x 256) and their rows in phases 3a, 3c and 3g: an S=8 and an
+# S=24 window of N=256 points, S=24 training (4 after both flips x 768 x 24) and
+# a ragged tile
+PIPS2_D, PIPS2_F = 256, 1024
+PIPS2_RS = (1 * 256 * 8, 1 * 256 * 24, 4 * 768 * 24, EDGE_R)
+# phase 10, Pips2 at its class defaults (latent 128, 4 levels of radius 3,
+# refiner 256 x 6), bf16, fused channel blocks: windows of these lengths with
+# one set of weights; a chain of S=16 windows; the bench train shape at S=24
+# (the README's --S 24) for the parity step and train.loop.main; and timed
+# steps at the loop's defaults (mixer_dim 512 x mixer_depth 12 as the refiner,
+# S=24, N=768, both flips), N halved while a step does not fit the card
+PIPS2_WINDOW_S = (8, 24)
+PIPS2_CHAIN_S = 16
+PIPS2_TRAIN = dict(TRAIN, S=24)
+PIPS2_DEFAULT = dict(TRAIN_DEFAULT, S=24)
+PIPS2_LOOP_DIMS = dict(refiner_dim=512, refiner_depth=12)
+LOOP_PIPS2_STEPS = 12
 CHUNK_FCS = (512, 1024)  # phase 3h times these: tools/profile_chanff_chunk.py's chunk widths
 # phase 3h's rows: the tool's, a ragged R and one ragged 64-row tile; and the
 # chunk width it also times at the training default's R=24,576
@@ -909,7 +943,7 @@ def bwd_launches_match_plans(torch, mixer_cuda, cases: dict, label: str) -> None
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for R, args in cases.items():
         x, w1 = args[0], args[4]
-        plan = mixer_cuda.bwd_plan(R, w1.shape[1], x.dtype, sms)
+        plan = mixer_cuda.bwd_plan(R, w1.shape[1], x.dtype, sms, x.shape[1])
         suffix = "_f32" if x.dtype == torch.float32 else ""
         want = [f"chanff_bwd_{k}{suffix if k in ('act', 'dxa', 'wgrad') else ''}"
                 for k in plan.grids]
@@ -936,7 +970,7 @@ def fwd_launches_match_plans(torch, mixer_cuda, cases: dict, label: str) -> None
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for (dtype, R), args in cases.items():
         x, w1 = args[0], args[3]
-        plan = mixer_cuda.fwd_plan(R, w1.shape[1], x.dtype, sms)
+        plan = mixer_cuda.fwd_plan(R, w1.shape[1], x.dtype, sms, x.shape[1])
         suffix = "_f32" if x.dtype == torch.float32 else ""
         want = [f"chanff_fwd_{k}{suffix if k in ('act', 'out') else ''}" for k in plan.grids]
         eager = mixer_cuda.chan_ff_block(*args)
@@ -955,40 +989,45 @@ def fwd_launches_match_plans(torch, mixer_cuda, cases: dict, label: str) -> None
 def phase_chanff_f32(torch, np, mixer_cuda) -> dict:
     """3g: ``chan_ff_bwd`` in f32 (the f32 kernels of ``csrc/chanff_bwd.cu``)
     against its plain version at the bench train shape, a ragged R, an edge R
-    that fills no whole row tile and the training default, all seven grads,
-    with its time and bound; a repeat must give the same bits, and one call
-    launch its plan's kernels."""
+    that fills no whole row tile and the training default, then at the Pips2
+    refiner's D=256, F=1024 (``PIPS2_RS``), all seven grads, with its time
+    and bound; a repeat must give the same bits, and one call launch its
+    plan's kernels. Keyed by (R, D)."""
     require_full_f32(torch)
-    out, cases = {}, {}
-    for R in (TRAIN_R, 800, EDGE_R, TRAIN_R_DEFAULT):
-        args = chanff_bwd_args(torch, np, R, seed=R + 3, dtype=torch.float32)
-        before = mixer_cuda.bwd_f32_launches, mixer_cuda.bwd_launches
-        got = mixer_cuda.chan_ff_bwd(*args)
-        torch.cuda.synchronize()
-        if (mixer_cuda.bwd_f32_launches, mixer_cuda.bwd_launches) != (before[0] + 1, before[1]):
-            fail(f"chan_ff_bwd f32 R={R} did not launch the f32 kernels once")
-        ref = mixer_cuda.chan_ff_bwd_reference(*args)
-        tols = chanff_bwd_tols(torch, mixer_cuda, args)
-        worst, parts, max_err = grad_errors(torch, f"chan_ff_bwd f32 R={R}", got, ref, tols)
-        bwd_repeat(torch, mixer_cuda, args, got, f"chan_ff_bwd f32 R={R}")
-        parts.append("repeat bit-identical")
-        n = 20 if R < TRAIN_R_DEFAULT else 5
-        ms = median_ms(torch, mixer_cuda.chan_ff_bwd, args, launches=n)
-        plain_ms = median_ms(torch, mixer_cuda.chan_ff_bwd_reference, args, launches=n)
-        bound_ms, bound_by = chanff_bwd_bound(R, "float32")
-        log("kernels", f"chan_ff_bwd f32 R={R}: max_abs_err " + "; ".join(parts)
-                       + f"; {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                         f"({bound_by})")
-        if worst > 1.0:
-            fail(f"chan_ff_bwd f32 R={R} disagrees with its plain version (worst err/tol "
-                 f"{worst:.3g})")
-        out[R] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                      bound_by=bound_by)
-        cases[R] = args
-        del got, ref, tols
-    bwd_launches_match_plans(torch, mixer_cuda, cases, "chan_ff_bwd f32")
-    del cases
-    torch.cuda.empty_cache()
+    out = {}
+    for D, F_, rows in ((512, 2048, (TRAIN_R, 800, EDGE_R, TRAIN_R_DEFAULT)),
+                        (PIPS2_D, PIPS2_F, PIPS2_RS)):
+        cases = {}
+        for R in rows:
+            args = chanff_bwd_args(torch, np, R, seed=R + 3, D=D, F=F_, dtype=torch.float32)
+            before = mixer_cuda.bwd_f32_launches, mixer_cuda.bwd_launches
+            got = mixer_cuda.chan_ff_bwd(*args)
+            torch.cuda.synchronize()
+            if (mixer_cuda.bwd_f32_launches, mixer_cuda.bwd_launches) != (before[0] + 1,
+                                                                          before[1]):
+                fail(f"chan_ff_bwd f32 D={D} R={R} did not launch the f32 kernels once")
+            ref = mixer_cuda.chan_ff_bwd_reference(*args)
+            tols = chanff_bwd_tols(torch, mixer_cuda, args)
+            label = f"chan_ff_bwd f32 D={D} R={R}"
+            worst, parts, max_err = grad_errors(torch, label, got, ref, tols)
+            bwd_repeat(torch, mixer_cuda, args, got, label)
+            parts.append("repeat bit-identical")
+            n = 20 if R < TRAIN_R_DEFAULT else 5
+            ms = median_ms(torch, mixer_cuda.chan_ff_bwd, args, launches=n)
+            plain_ms = median_ms(torch, mixer_cuda.chan_ff_bwd_reference, args, launches=n)
+            bound_ms, bound_by = chanff_bwd_bound(R, "float32", D, F_)
+            log("kernels", f"chan_ff_bwd f32 D={D} F={F_} R={R}: max_abs_err " + "; ".join(parts)
+                           + f"; {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                             f"({bound_by})")
+            if worst > 1.0:
+                fail(f"{label} disagrees with its plain version (worst err/tol {worst:.3g})")
+            out[(R, D)] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by)
+            cases[R] = args
+            del got, ref, tols
+        bwd_launches_match_plans(torch, mixer_cuda, cases, f"chan_ff_bwd f32 D={D}")
+        del cases
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1385,10 +1424,10 @@ def phase_tools(torch, block_cuda, stem_cuda, chunk_cuda) -> dict:
 
 
 def train_batch(torch, np, cfg: dict, seed: int) -> dict:
-    """A batch of ``cfg["B"]`` synthetic samples on the card."""
+    """A batch of ``cfg["B"]`` synthetic samples of ``cfg.get("S", 8)`` frames on the card."""
     from pips_tpu_torch.data import SyntheticPointDataset
 
-    ds = SyntheticPointDataset(S=8, N=cfg["N"], H=cfg["H"], W=cfg["W"], seed=seed)
+    ds = SyntheticPointDataset(S=cfg.get("S", 8), N=cfg["N"], H=cfg["H"], W=cfg["W"], seed=seed)
     samples = [ds[i][0] for i in range(cfg["B"])]
     return {k: torch.from_numpy(np.stack([x[k] for x in samples])).cuda() for k in samples[0]}
 
@@ -1413,11 +1452,12 @@ def train_counts(mixer_cuda, corr_cuda) -> tuple:
             corr_cuda.launches)
 
 
-def step_launches(torch, dtype, iters: int, steps: int = 1) -> tuple:
+def step_launches(torch, dtype, iters: int, steps: int = 1, depth: int = DEPTH) -> tuple:
     """``train_counts`` of ``steps`` train steps at ``iters`` refinement
-    iterations: 12 channel-block forwards and 12 backwards in the model's
-    dtype per iteration, no corr kernel (training samples through onehot)."""
-    n = DEPTH * iters * steps
+    iterations: ``depth`` (the mixer's 12, Pips2's refiner blocks)
+    channel-block forwards and as many backwards in the model's dtype per
+    iteration, no corr kernel (Pips trains through onehot, Pips2 full)."""
+    n = depth * iters * steps
     f32 = dtype == torch.float32
     return (n, 0 if f32 else n, n if f32 else 0, 0)
 
@@ -1472,9 +1512,10 @@ def grad_parity(torch, step, plain) -> dict:
 
 
 def parity_step(torch, mixer_cuda, corr_cuda, model, batch, dtype, iters: int, bounds: dict,
-                phase: str, witness=None) -> tuple:
-    """(a) of phases 7 and 7d: one step's loss and grads at the bench train
-    shape with ``iters`` refinement iterations, the kernels against the plain
+                phase: str, witness=None, cfg: dict = TRAIN, depth: int = DEPTH) -> tuple:
+    """(a) of phases 7, 7d and 10: one step's loss and grads at the bench train
+    shape (``cfg``, Pips2's at S=24) with ``iters`` refinement iterations and
+    ``depth`` channel blocks an iteration, the kernels against the plain
     channel block (forward and backward). Fails on a launch count, or past
     ``bounds`` (``grad_parity``'s keys: ``loss_rel`` at most, each cosine at
     least). ``witness``, a (forward, backward) pair, runs a third step through
@@ -1482,8 +1523,8 @@ def parity_step(torch, mixer_cuda, corr_cuda, model, batch, dtype, iters: int, b
     printed, not bounded: the reading of how far summation order alone moves
     the step. Returns the kernels' ``train_counts``."""
     zero_train_counts(mixer_cuda, corr_cuda)
-    k = loss_and_grads(torch, model, batch, TRAIN, iters)
-    got, want = train_counts(mixer_cuda, corr_cuda), step_launches(torch, dtype, iters)
+    k = loss_and_grads(torch, model, batch, cfg, iters)
+    got, want = train_counts(mixer_cuda, corr_cuda), step_launches(torch, dtype, iters, 1, depth)
     if got != want:
         fail(f"{phase} parity step I={iters}: {TRAIN_KERNELS} launched {got} times, "
              f"expected {want}")
@@ -1491,7 +1532,7 @@ def parity_step(torch, mixer_cuda, corr_cuda, model, batch, dtype, iters: int, b
     def plain_step(forward, backward):
         with channel_blocks_as(mixer_cuda, forward, backward):
             zero_train_counts(mixer_cuda, corr_cuda)
-            out = loss_and_grads(torch, model, batch, TRAIN, iters)
+            out = loss_and_grads(torch, model, batch, cfg, iters)
             if any(train_counts(mixer_cuda, corr_cuda)):
                 fail(f"the plain channel block launched kernels: "
                      f"{train_counts(mixer_cuda, corr_cuda)}")
@@ -1500,7 +1541,8 @@ def parity_step(torch, mixer_cuda, corr_cuda, model, batch, dtype, iters: int, b
     p = plain_step(mixer_cuda.chan_ff_reference, mixer_cuda.chan_ff_bwd_reference)
     r = grad_parity(torch, k, p)
     (km, _), (pm, _) = k, p
-    msg = (f"parity step (B={TRAIN['B']} N={TRAIN['N']} I={iters} {TRAIN['H']}x{TRAIN['W']}, "
+    msg = (f"parity step (B={cfg['B']} S={cfg.get('S', 8)} N={cfg['N']} I={iters} "
+           f"{cfg['H']}x{cfg['W']}, "
            f"{str(dtype).split('.')[-1]}): loss {km['total_loss']:.6g} (seq {km['seq']:.4g}, vis "
            f"{km['vis']:.4g}, ce {km['ce']:.4g}) vs plain {pm['total_loss']:.6g}, rel "
            f"{r['loss_rel']:.3g}; grads: global cos {r['global_cos']:.7f}, rel L2 "
@@ -1523,17 +1565,18 @@ def parity_step(torch, mixer_cuda, corr_cuda, model, batch, dtype, iters: int, b
     return got
 
 
-def timed_steps(torch, mixer_cuda, corr_cuda, model, batch, dtype, n: int, phase: str):
-    """(c) of phases 7 and 7d: a warm-up and ``n`` timed train steps at the
-    training default (host clock around each synchronised step), each with
-    its launches checked and finite metrics. Returns the median step ms,
+def timed_steps(torch, mixer_cuda, corr_cuda, model, batch, dtype, n: int, phase: str,
+                cfg: dict = TRAIN_DEFAULT, depth: int = DEPTH):
+    """(c) of phases 7, 7d and 10: a warm-up and ``n`` timed train steps at the
+    training default (``cfg``; both flips) (host clock around each
+    synchronised step), each with its launches (``depth`` channel blocks an
+    iteration) checked and finite metrics. Returns the median step ms,
     points*frames/s and peak memory, and the launches of all ``n + 1``."""
     from pips_tpu_torch.train import make_optimizer, make_train_step
 
     opt = make_optimizer(model.parameters(), lr=5e-4, num_steps=100)
-    step = make_train_step(model, opt, iters=TRAIN_DEFAULT["iters"], horz_flip=True,
-                           vert_flip=True)
-    want = step_launches(torch, dtype, TRAIN_DEFAULT["iters"])
+    step = make_train_step(model, opt, iters=cfg["iters"], horz_flip=True, vert_flip=True)
+    want = step_launches(torch, dtype, cfg["iters"], 1, depth)
     zero_train_counts(mixer_cuda, corr_cuda)
     step(batch)  # warm-up
     torch.cuda.synchronize()
@@ -1553,12 +1596,12 @@ def timed_steps(torch, mixer_cuda, corr_cuda, model, batch, dtype, n: int, phase
             fail(f"non-finite metrics at the training default in {dtype}: {m}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     med_s = statistics.median(step_s)
-    pf = 4 * TRAIN_DEFAULT["N"] * 8 / med_s
-    c = TRAIN_DEFAULT
-    log(phase, f"training default (B={c['B']} x4 flips, N={c['N']}, I={c['iters']}, "
+    c, S = cfg, cfg.get("S", 8)
+    pf = 4 * c["N"] * S / med_s
+    log(phase, f"training default (B={c['B']} x4 flips, S={S}, N={c['N']}, I={c['iters']}, "
                f"{c['H']}x{c['W']}, {str(dtype).split('.')[-1]}): steps "
                f"{', '.join(f'{x * 1e3:.1f}' for x in step_s)} ms, median {med_s * 1e3:.1f} ms; "
-               f"{pf:.0f} points*frames/s (4 x {c['N']} x 8 per step); "
+               f"{pf:.0f} points*frames/s (4 x {c['N']} x {S} per step); "
                f"peak memory {peak_gb:.2f} GB; {want[0]} chan_ff_block + {want[1] + want[2]} "
                f"chan_ff_bwd launches per step; total_loss {m['total_loss']:.4g}")
     return (dict(step_ms=med_s * 1e3, points_frames_per_s=pf, peak_gb=peak_gb),
@@ -1645,6 +1688,190 @@ def phase_train_f32(torch, np, mixer_cuda, chunk_cuda, corr_cuda, build_dir: Pat
     del model, big
     torch.cuda.empty_cache()
     return dict(launched=launched, **numbers, loop_s=secs)
+
+
+def pips2_model(torch, train: bool = False, **dims):
+    """A bf16 Pips2 with fused channel blocks at its class defaults (or
+    ``dims``), parameters from ``init_params(0)``, on the card."""
+    from pips_tpu_torch import Pips2, init_params
+
+    model = init_params(Pips2(dtype=torch.bfloat16, fuse_chanff=True, **dims), 0).to("cuda")
+    return model.train() if train else model.eval()
+
+
+def phase_pips2(torch, np, mixer_cuda, corr_cuda, build_dir: Path) -> dict:
+    """10: the Pips2 (PIPs++) family at its class defaults, bf16, its channel
+    blocks the kernels at D=256, F=1024: (a) ``WindowTracker`` (onehot, six
+    iterations) serves N=256 at 480x1024 with one set of weights at S=8 and
+    S=24, each window finite, frame 0 at the queries, 6 * 6 channel-block
+    launches, and within the phase-4 drift bounds of the plain channel block;
+    (b) ``ChainTracker(S=16)`` tracks phase 6's video; (c) one train step at
+    S=24 against the plain block at phase 7a's bounds; (d)
+    ``train.loop.main --model_family pips2 --S 24`` for 12 steps with a
+    validation pass and a checkpoint, the loss falling; (e) timed steps at the
+    loop's defaults (refiner 512 x 12, S=24, N=768, both flips; the D=512
+    kernels at R=73,728). Returns the launches and the numbers."""
+    from pips_tpu_torch import ChainTracker, WindowTracker, grid_queries
+    from pips_tpu_torch.models import pips2 as pips2_module
+    from pips_tpu_torch.train import parse_cli
+    from pips_tpu_torch.train import loop as train_loop
+    from pips_tpu_torch.utils import saverloader
+
+    bf16 = torch.bfloat16
+    launched, numbers = {"chan_ff_block": 0, "chan_ff_bwd": 0}, {}
+    model = pips2_model(torch)
+    depth = model.refiner.depth
+    log("pips2", f"bf16 Pips2 (refiner {model.refiner.embed.kernel.shape[1]} x {depth}) on cuda "
+                 f"({sum(p.numel() for p in model.parameters()) / 1e6:.2f} M params)")
+
+    # (a) windows of two lengths, one set of weights
+    tracker = WindowTracker(model, iters=ITERS, corr_mode="onehot")
+    tracker1 = WindowTracker(model, iters=1, corr_mode="onehot")
+    rng = np.random.RandomState(2)
+    H, W, N = 480, 1024, 256
+    xys = (rng.rand(1, N, 2) * [W - 8, H - 8] + 4).astype(np.float32)
+    for S in PIPS2_WINDOW_S:
+        name = f"Pips2 S={S} N={N} @{H}x{W}"
+        rgbs = (rng.rand(1, S, H, W, 3) * 255).astype(np.float32)
+        mixer_cuda.launches = corr_cuda.launches = 0
+        trajs, vis = tracker(xys, rgbs)
+        n_ff, n_corr = mixer_cuda.launches, corr_cuda.launches
+        check_window(np, name, trajs, vis, xys, S=S)
+        if n_ff != depth * ITERS or n_corr:
+            fail(f"{name}: chan_ff_block launched {n_ff} and corr_sample {n_corr} times, "
+                 f"expected {depth * ITERS} and 0")
+        launched["chan_ff_block"] += n_ff
+        k1 = tracker1(xys, rgbs)
+        with plain_channel_blocks(pips2_module, mixer_cuda.chan_ff_reference):
+            p1 = tracker1(xys, rgbs)
+            p6 = tracker(xys, rgbs)
+        one, six = drift(np, *k1, *p1), drift(np, trajs, vis, *p6)
+        times = sorted(window_seconds(torch, tracker, xys, rgbs) for _ in range(5))
+        numbers[f"window S={S} ms"] = times[2] * 1e3
+        log("pips2", f"{name}: {n_ff} chan_ff launches; moved up to "
+                     f"{np.abs(trajs - xys[:, None]).max():.1f} px; vs plain block: 1 iter traj "
+                     f"max {one['max']:.3g} px, vis max {one['vis_max']:.3g}; 6 iters {fmt(six)}; "
+                     f"median window over 5 {times[2] * 1e3:.2f} ms "
+                     f"({N * S / times[2]:.0f} points*frames/s, host clock)")
+        check_drift(name, one, six)
+    torch.cuda.empty_cache()
+
+    # (b) a chain of S=16 windows over phase 6's video
+    T, Hc, Wc = 32, 360, 640
+    video = (np.random.RandomState(1).rand(T, Hc, Wc, 3) * 255).astype(np.float32)
+    qs = grid_queries(Hc, Wc)[0]
+    chain = ChainTracker(model, iters=ITERS, corr_mode="onehot", capacity=256, S=PIPS2_CHAIN_S)
+    calls = [0]
+    track = chain.tracker.track
+
+    def counted_track(*a, **k):
+        calls[0] += 1
+        return track(*a, **k)
+
+    chain.tracker.track = counted_track
+    mixer_cuda.launches = corr_cuda.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ct, cv = chain.track_video(video, qs)
+    secs = time.perf_counter() - t
+    n_ff = mixer_cuda.launches
+    if ct.shape != (T, qs.shape[0], 2) or cv.shape != (T, qs.shape[0]):
+        fail(f"Pips2 chain: shapes {ct.shape}, {cv.shape}")
+    if not (np.isfinite(ct).all() and np.isfinite(cv).all() and np.array_equal(ct[0], qs)
+            and cv.min() >= 0.0 and cv.max() <= 1.0):
+        fail("Pips2 chain: non-finite output, frame 0 off the queries or vis outside [0, 1]")
+    if n_ff != depth * ITERS * calls[0] or corr_cuda.launches:
+        fail(f"Pips2 chain: {calls[0]} tracker calls launched chan_ff_block {n_ff} times")
+    launched["chan_ff_block"] += n_ff
+    numbers["chain s"] = secs
+    log("pips2", f"ChainTracker(S={chain.S}) T={T} {Hc}x{Wc} N={qs.shape[0]}: {calls[0]} tracker "
+                 f"calls, {n_ff} chan_ff launches; {secs:.3f} s wall, "
+                 f"{T * qs.shape[0] / secs:.0f} points*frames/s; moved up to "
+                 f"{np.abs(ct - qs[None]).max():.1f} px")
+    del model, tracker, tracker1, chain
+    torch.cuda.empty_cache()
+
+    # (c) one train step at S=24 against the plain channel block
+    model = pips2_model(torch, train=True)
+    batch = train_batch(torch, np, PIPS2_TRAIN, seed=0)
+    got = parity_step(torch, mixer_cuda, corr_cuda, model, batch, bf16, PIPS2_TRAIN["iters"],
+                      PARITY, "pips2", cfg=PIPS2_TRAIN, depth=depth)
+    launched["chan_ff_block"] += got[0]
+    launched["chan_ff_bwd"] += got[1]
+    del model, batch
+    torch.cuda.empty_cache()
+
+    # (d) the loop's own entry point at S=24, the refiner at its 256 x 6
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_pips2_", dir=build_dir))
+    c = PIPS2_TRAIN
+    argv = ["--model_family", "pips2", "--dataset", "synthetic", "--S", str(c["S"]),
+            "--mixer_dim", str(PIPS2_D), "--mixer_depth", str(depth), "--B", str(c["B"]),
+            "--N", str(c["N"]), "--I", str(c["iters"]), "--crop_size", f"{c['H']},{c['W']}",
+            "--horz_flip", "false", "--vert_flip", "false",
+            "--max_iters", str(LOOP_PIPS2_STEPS), "--save_freq", str(LOOP_PIPS2_STEPS),
+            "--val_freq", str(LOOP_PIPS2_STEPS), "--val_batches", "1",
+            "--log_freq", str(LOOP_PIPS2_STEPS), "--log_media", "false", "--metrics_every", "1",
+            "--num_workers", "4", "--ckpt_dir", str(root / "ckpts"), "--log_dir",
+            str(root / "logs")]
+    cfg = parse_cli(argv)
+    zero_train_counts(mixer_cuda, corr_cuda)
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        metrics = train_loop.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    want = (depth * cfg.I * (LOOP_PIPS2_STEPS + cfg.val_batches), depth * cfg.I * LOOP_PIPS2_STEPS,
+            0, 0)
+    got = train_counts(mixer_cuda, corr_cuda)
+    if got != want:
+        fail(f"the Pips2 loop: {TRAIN_KERNELS} launched {got} times, expected {want}")
+    launched["chan_ff_block"] += got[0]
+    launched["chan_ff_bwd"] += got[1]
+    losses = [float(v) for v in re.findall(r"loss = ([0-9.eE+-]+)", buf.getvalue())]
+    if len(losses) != LOOP_PIPS2_STEPS or not all(math.isfinite(v)
+                                                  for v in losses + [*metrics.values()]):
+        fail(f"the Pips2 loop: {len(losses)} step losses, metrics {metrics}")
+    head, tail = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    steps_saved = saverloader.list_steps(str(root / "ckpts" / cfg.model_name()))
+    numbers["loop s"] = secs
+    log("pips2", f"train.loop.main({' '.join(argv[:6])} ...): {LOOP_PIPS2_STEPS} steps, a "
+                 f"validation pass and a checkpoint in {secs:.1f} s; total_loss "
+                 f"{' '.join(f'{v:.4g}' for v in losses)} (ce {metrics['ce']:.3g}); checkpoints "
+                 f"{steps_saved}; launches {got}")
+    if not tail < head:
+        fail(f"the Pips2 loop's loss did not fall: first three {head:.4g}, last three {tail:.4g}")
+    if steps_saved != [LOOP_PIPS2_STEPS]:
+        fail(f"the Pips2 loop's checkpoints are {steps_saved}, expected [{LOOP_PIPS2_STEPS}]")
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+
+    # (e) timed steps at the loop's defaults, N halved until a step fits the card
+    model = pips2_model(torch, train=True, **PIPS2_LOOP_DIMS)
+    c = dict(PIPS2_DEFAULT)
+    while True:
+        big = train_batch(torch, np, c, seed=1)
+        try:
+            timed, got = timed_steps(torch, mixer_cuda, corr_cuda, model, big, bf16, 2, "pips2",
+                                     cfg=c, depth=PIPS2_LOOP_DIMS["refiner_depth"])
+            break
+        except torch.cuda.OutOfMemoryError:
+            del big
+            model.zero_grad(set_to_none=True)
+            torch.cuda.empty_cache()
+            log("pips2", f"a step at N={c['N']} does not fit the card: halving N")
+            c["N"] //= 2
+            if c["N"] < 96:
+                fail("no Pips2 step at the loop's defaults fits the card")
+    launched["chan_ff_block"] += got[0]
+    launched["chan_ff_bwd"] += got[1]
+    numbers.update({f"default {k}": v for k, v in timed.items()}, default_N=c["N"])
+    log("pips2", f"timed at refiner {PIPS2_LOOP_DIMS['refiner_dim']} x "
+                 f"{PIPS2_LOOP_DIMS['refiner_depth']}, S={c['S']}, N={c['N']} (asked 768), "
+                 f"rows {4 * c['N'] * c['S']} a channel block")
+    del model, big
+    torch.cuda.empty_cache()
+    return dict(launched=launched, **numbers)
 
 
 def check_window(np, name, trajs, vis, xys, S: int = 8) -> None:
@@ -1748,41 +1975,46 @@ def main() -> int:
     # tiles), the dense window's (bf16), the train paths' (the training
     # default; the bench train shape in f32) and an edge R that fills no row
     # tile; a repeat gives the same bits, and one call launches its plan's
-    # kernels, captured in a CUDA graph
+    # kernels, captured in a CUDA graph; then the same at the Pips2 refiner's
+    # D=256, F=1024 (PIPS2_RS)
     require_full_f32(torch)
     R_MAIN = 1 * 256 * 8  # B*N*S of the first request
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    chanff, fwd_cases = {}, {}
-    for dtype in ("bfloat16", "float32"):
-        rows = (DENSE_R,) if dtype == "bfloat16" else (TRAIN_R,)
-        for R in (R_MAIN, 2000, TRAIN_R_DEFAULT) + rows + (EDGE_R,):
-            args = chanff_args(torch, np, R, getattr(torch, dtype), seed=R)
-            y = mixer_cuda.chan_ff_block(*args)
-            torch.cuda.synchronize()
-            ref = mixer_cuda.chan_ff_reference(*args)
-            err = (y.float() - ref.float()).abs().max().item()
-            ref_max = ref.float().abs().max().item()
-            tol = bf16_tol(ref_max) if dtype == "bfloat16" else TOL_F32
-            if not torch.equal(y, mixer_cuda.chan_ff_block(*args)):
-                fail(f"chan_ff_block {dtype} R={R}: two calls on the same inputs differ")
-            n = 20 if R < TRAIN_R_DEFAULT else 5
-            ms = median_ms(torch, mixer_cuda.chan_ff_block, args, launches=n)
-            plain_ms = median_ms(torch, mixer_cuda.chan_ff_reference, args, launches=n)
-            bound_ms, bound_by = chanff_bound(R, dtype)
-            split = mixer_cuda.fwd_plan(R, args[3].shape[1], args[0].dtype, sms).split
-            log("kernels", f"chan_ff_block {dtype} R={R}: max_abs_err {err:.3g} (tol {tol:.3g}, "
-                           f"|y| <= {ref_max:.3g}); repeat bit-identical; split {split}; "
-                           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                           f"({bound_by})")
-            if not (y.shape == ref.shape and err <= tol):
-                fail(f"chan_ff_block {dtype} R={R} disagrees with its plain version: {err} > {tol}")
-            chanff[(dtype, R)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                      bound_ms=bound_ms, bound_by=bound_by)
-            fwd_cases[(dtype, R)] = args
-            del y, ref
-    fwd_launches_match_plans(torch, mixer_cuda, fwd_cases, "chan_ff_block")
-    del fwd_cases
-    torch.cuda.empty_cache()
+    chanff = {}
+    for D, F_ in ((512, 2048), (PIPS2_D, PIPS2_F)):
+        fwd_cases = {}
+        for dtype in ("bfloat16", "float32"):
+            rows = (DENSE_R,) if dtype == "bfloat16" else (TRAIN_R,)
+            rows = (R_MAIN, 2000, TRAIN_R_DEFAULT) + rows + (EDGE_R,) if D == 512 else PIPS2_RS
+            for R in rows:
+                args = chanff_args(torch, np, R, getattr(torch, dtype), seed=R, D=D, F=F_)
+                y = mixer_cuda.chan_ff_block(*args)
+                torch.cuda.synchronize()
+                ref = mixer_cuda.chan_ff_reference(*args)
+                err = (y.float() - ref.float()).abs().max().item()
+                ref_max = ref.float().abs().max().item()
+                tol = bf16_tol(ref_max) if dtype == "bfloat16" else TOL_F32
+                if not torch.equal(y, mixer_cuda.chan_ff_block(*args)):
+                    fail(f"chan_ff_block {dtype} D={D} R={R}: two calls on the same inputs differ")
+                n = 20 if R < TRAIN_R_DEFAULT else 5
+                ms = median_ms(torch, mixer_cuda.chan_ff_block, args, launches=n)
+                plain_ms = median_ms(torch, mixer_cuda.chan_ff_reference, args, launches=n)
+                bound_ms, bound_by = chanff_bound(R, dtype, D, F_)
+                split = mixer_cuda.fwd_plan(R, F_, args[0].dtype, sms, D).split
+                log("kernels", f"chan_ff_block {dtype} D={D} F={F_} R={R}: max_abs_err {err:.3g} "
+                               f"(tol {tol:.3g}, |y| <= {ref_max:.3g}); repeat bit-identical; "
+                               f"split {split}; {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                               f"{bound_ms:.4f} ms ({bound_by})")
+                if not (y.shape == ref.shape and err <= tol):
+                    fail(f"chan_ff_block {dtype} D={D} R={R} disagrees with its plain version: "
+                         f"{err} > {tol}")
+                chanff[(dtype, R, D)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                             bound_ms=bound_ms, bound_by=bound_by)
+                fwd_cases[(dtype, R)] = args
+                del y, ref
+        fwd_launches_match_plans(torch, mixer_cuda, fwd_cases, f"chan_ff_block D={D}")
+        del fwd_cases
+        torch.cuda.empty_cache()
 
     # 3b. corr_sample against its plain version: the flagship's level 0 at
     # 480x1024 is 60x128 (N=256, and the dense probe's N=7680); 32x48 with
@@ -1840,32 +2072,38 @@ def main() -> int:
     # (B*N*S = 1*128*8), the training default (4*768*8 after both flips), a
     # ragged R that is no multiple of the kernels' 128-row tiles and an edge
     # R that fills none; a repeat gives the same bits, and one call launches
-    # its plan's kernels, captured in a CUDA graph
-    chanff_bwd, bwd_cases = {}, {}
-    for R in (TRAIN_R, TRAIN_R_DEFAULT, 800, EDGE_R):
-        args = chanff_bwd_args(torch, np, R, seed=R)
-        out = mixer_cuda.chan_ff_bwd(*args)
-        torch.cuda.synchronize()
-        ref = mixer_cuda.chan_ff_bwd_reference(*args)
-        tols = chanff_bwd_tols(torch, mixer_cuda, args)
-        worst, parts, max_err = grad_errors(torch, f"chan_ff_bwd R={R}", out, ref, tols)
-        bwd_repeat(torch, mixer_cuda, args, out, f"chan_ff_bwd R={R}")
-        parts.append("repeat bit-identical")
-        ms = median_ms(torch, mixer_cuda.chan_ff_bwd, args)
-        plain_ms = median_ms(torch, mixer_cuda.chan_ff_bwd_reference, args)
-        bound_ms, bound_by = chanff_bwd_bound(R)
-        log("kernels", f"chan_ff_bwd bf16 R={R}: max_abs_err " + "; ".join(parts)
-                       + f"; {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                         f"({bound_by})")
-        if worst > 1.0:
-            fail(f"chan_ff_bwd R={R} disagrees with its plain version (worst err/tol {worst:.3g})")
-        chanff_bwd[R] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by)
-        bwd_cases[R] = args
-        del out, ref, tols
-    bwd_launches_match_plans(torch, mixer_cuda, bwd_cases, "chan_ff_bwd bf16")
-    del bwd_cases
-    torch.cuda.empty_cache()
+    # its plan's kernels, captured in a CUDA graph; then the same at the Pips2
+    # refiner's D=256, F=1024 (PIPS2_RS)
+    chanff_bwd = {}
+    for D, F_, rows in ((512, 2048, (TRAIN_R, TRAIN_R_DEFAULT, 800, EDGE_R)),
+                        (PIPS2_D, PIPS2_F, PIPS2_RS)):
+        bwd_cases = {}
+        for R in rows:
+            args = chanff_bwd_args(torch, np, R, seed=R, D=D, F=F_)
+            out = mixer_cuda.chan_ff_bwd(*args)
+            torch.cuda.synchronize()
+            ref = mixer_cuda.chan_ff_bwd_reference(*args)
+            tols = chanff_bwd_tols(torch, mixer_cuda, args)
+            worst, parts, max_err = grad_errors(torch, f"chan_ff_bwd D={D} R={R}", out, ref, tols)
+            bwd_repeat(torch, mixer_cuda, args, out, f"chan_ff_bwd D={D} R={R}")
+            parts.append("repeat bit-identical")
+            n = 20 if R <= TRAIN_R_DEFAULT else 5
+            ms = median_ms(torch, mixer_cuda.chan_ff_bwd, args, launches=n)
+            plain_ms = median_ms(torch, mixer_cuda.chan_ff_bwd_reference, args, launches=n)
+            bound_ms, bound_by = chanff_bwd_bound(R, "bfloat16", D, F_)
+            log("kernels", f"chan_ff_bwd bf16 D={D} F={F_} R={R}: max_abs_err " + "; ".join(parts)
+                           + f"; {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                             f"({bound_by})")
+            if worst > 1.0:
+                fail(f"chan_ff_bwd D={D} R={R} disagrees with its plain version (worst err/tol "
+                     f"{worst:.3g})")
+            chanff_bwd[(R, D)] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by)
+            bwd_cases[R] = args
+            del out, ref, tols
+        bwd_launches_match_plans(torch, mixer_cuda, bwd_cases, f"chan_ff_bwd bf16 D={D}")
+        del bwd_cases
+        torch.cuda.empty_cache()
 
     # 3d. conv3x3_same against its plain version, forward and dx (the same
     # kernel on dy with the rotated, in/out-swapped weights), at the encoder's
@@ -2339,11 +2577,19 @@ def main() -> int:
     zero_counts()
     main_path.update(phase_probe_tools(torch))
 
+    # 10. slice: the Pips2 (PIPs++) family, its channel blocks the kernels at
+    # D=256 (and at the loop's default refiner, D=512): windows, a chain, a
+    # parity step, the train loop and timed steps
+    zero_counts()
+    pips2 = phase_pips2(torch, np, mixer_cuda, corr_cuda, build_dir)
+    for k, n in pips2.pop("launched").items():
+        main_path[k] += n
+
     log("slice", f"main-path launches: {main_path}")
     if min(main_path.values()) == 0:
         fail(f"a kernel of the path never launched on it: {main_path}")
     print(smi, flush=True)  # again, so that the tail of the log holds the card and its limit
-    main_ff = chanff[("bfloat16", R_MAIN)]
+    main_ff = chanff[("bfloat16", R_MAIN, 512)]
     main_corr = corr[("flagship", "bfloat16", "bfloat16")]
     print(json.dumps({"kernels": [
         {"name": "chan_ff_block", "route": "cuda", "source": "pips_tpu_torch/csrc/chanff_fwd.cu",
@@ -2355,7 +2601,7 @@ def main() -> int:
          "launches": main_path["corr_sample"], **main_corr, "library_ms": None},
         {"name": "chan_ff_bwd", "route": "cuda", "source": "pips_tpu_torch/csrc/chanff_bwd.cu",
          "replaces": "pips_tpu/kernels/mixer_pallas.py:245",
-         "launches": main_path["chan_ff_bwd"], **chanff_bwd[TRAIN_R_DEFAULT],
+         "launches": main_path["chan_ff_bwd"], **chanff_bwd[(TRAIN_R_DEFAULT, 512)],
          "library_ms": None},
         {"name": "conv3x3_same", "route": "cuda", "source": "pips_tpu_torch/csrc/conv3x3_fwd.cu",
          "replaces": "pips_tpu/kernels/conv_pallas.py:148",
@@ -2369,7 +2615,7 @@ def main() -> int:
          **{k: v for k, v in stem["B=8"].items() if k != "x7_ms"}},
         {"name": "chan_ff_bwd_f32", "route": "cuda", "source": "pips_tpu_torch/csrc/chanff_bwd.cu",
          "replaces": "pips_tpu/kernels/mixer_pallas.py:245",
-         "launches": main_path["chan_ff_bwd_f32"], **chanff_f32[TRAIN_R_DEFAULT],
+         "launches": main_path["chan_ff_bwd_f32"], **chanff_f32[(TRAIN_R_DEFAULT, 512)],
          "library_ms": None},
         {"name": "chan_ff_chunked_fwd", "route": "cuda",
          "source": "pips_tpu_torch/csrc/chanff_chunk.cu",
@@ -2388,7 +2634,8 @@ def main() -> int:
         for name, source, replaces in PROBE_KERNELS]}), flush=True)
     log("done", f"all phases passed in {time.perf_counter() - T0:.1f} s "
                 f"(chained video {chain_s:.2f} s; windows {json.dumps(window_ms)}; "
-                f"training default {json.dumps(train_default)}; f32 {json.dumps(train_f32)})")
+                f"training default {json.dumps(train_default)}; f32 {json.dumps(train_f32)}; "
+                f"Pips2 {json.dumps(pips2)})")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

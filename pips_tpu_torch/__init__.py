@@ -1,9 +1,9 @@
 """PyTorch/CUDA port of pips_tpu (the JAX package stays as the reference).
 
-Serves PIPs windows and long videos: ``make_pips`` builds the model,
-``WindowTracker`` runs one window, ``ChainTracker`` (host scheduler) and
-``ChainTrackerOnDevice`` chain windows over a video, fed by an array or a
-``FrameFeed``. Entry points run on CUDA unless the caller passes
+Serves PIPs windows and long videos: ``make_pips`` builds the model and
+``Pips2`` is the S-agnostic PIPs++ family; ``WindowTracker`` runs one window,
+``ChainTracker`` (host scheduler) and ``ChainTrackerOnDevice`` chain windows
+over a video, fed by an array or a ``FrameFeed``. Entry points run on CUDA unless the caller passes
 ``device="cpu"``.
 """
 
@@ -12,7 +12,8 @@ from pips_tpu_torch.inference import (ChainTracker, ChainTrackerOnDevice, FrameF
                                       select_skip)
 from pips_tpu_torch.kernels.corr_cuda import corr_sample
 from pips_tpu_torch.models.pips import Pips, PipsOutput, init_params, make_pips
+from pips_tpu_torch.models.pips2 import Pips2
 
-__all__ = ["ChainTracker", "ChainTrackerOnDevice", "FrameFeed", "Pips", "PipsOutput",
+__all__ = ["ChainTracker", "ChainTrackerOnDevice", "FrameFeed", "Pips", "Pips2", "PipsOutput",
            "WindowTracker", "as_feed", "corr_sample", "dense_queries", "grid_queries",
            "init_params", "make_pips", "select_skip"]

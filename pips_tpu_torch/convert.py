@@ -1,15 +1,17 @@
-"""Parameter bridge between the JAX ``Pips`` param tree and the port's
-``state_dict`` (counterpart of ``pips_tpu/torchport/convert.py``).
+"""Parameter bridge between the JAX ``Pips`` and ``Pips2`` param trees and the
+port's ``state_dict`` (counterpart of ``pips_tpu/torchport/convert.py``).
 
 The port names its modules after the flax tree, so a leaf maps by path:
 
 * ``.../<conv>/Conv_0/kernel`` (kH, kW, I, O) <-> ``<conv>.weight`` (O, I, kH, kW)
 * ``.../<conv>/Conv_0/bias`` <-> ``<conv>.bias``
-* dense ``kernel`` (I, O), LayerNorm ``scale`` and every other ``bias`` keep
-  their name and layout.
+* dense ``kernel`` (I, O), Pips2's depthwise temporal conv ``tconv/kernel``
+  (3, 1, D) (``models.pips2.TemporalConv`` keeps flax's layout), LayerNorm
+  ``scale`` and every other ``bias`` keep their name and layout.
 
-The tree is the same with and without ``fuse_chanff``, so one bridge serves
-both. Arrays are numpy; every leaf is used exactly once.
+The tree is the same with and without ``fuse_chanff`` (the fused blocks'
+``_LNParams``/``_ChanFFParams`` mirror ``LN``/``ChannelMixFF``), so one bridge
+serves both. Arrays are numpy; every leaf is used exactly once.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ def _flatten(tree: Mapping[str, Any], prefix: tuple = ()):
 
 
 def state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, np.ndarray]:
-    """``{"params": tree}`` of the JAX ``Pips`` -> the port's state_dict (numpy)."""
+    """``{"params": tree}`` of the JAX ``Pips`` or ``Pips2`` -> the port's state_dict (numpy)."""
     if set(variables) != {"params"}:
         raise ValueError(f"expected {{'params': ...}}, got keys {sorted(variables)}")
     sd = {}

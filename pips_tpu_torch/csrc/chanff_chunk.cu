@@ -108,6 +108,8 @@
 namespace {
 
 namespace cg = cooperative_groups;
+
+constexpr int kD = 512;  // channel width the kernels are built for
 using bf16 = __nv_bfloat16;
 
 constexpr int kRowTile = 64;                 // rows of a block: one wgmma M, the partials' tiles

@@ -2,8 +2,10 @@
 //
 // Replaces the TPU kernel pips_tpu/kernels/mixer_pallas.py:_chanff_fwd
 // (pallas_call of _chanff_fwd_kernel). x is (R, D) rows, R = B*N*S; the PIPs
-// delta block runs it 12 times per refinement iteration at D=512, F=2048, in
-// bf16 or (with --dtype float32) in f32.
+// delta block runs it 12 times per refinement iteration at D=512, F=2048, the
+// Pips2 refiner once a block (6 by default) at D=256, F=1024 (at the
+// refiner's 512 x 12, also D=512), in bf16 or (with --dtype float32) in f32.
+// D is each kernel's template parameter; the C entry takes 256 and 512.
 //
 // What bounds it on an H100: two products of 2*R*D*F operations each, 4*R*D*F
 // in all, against x and y once, both weights once and the f32 vectors once.
@@ -22,19 +24,19 @@
 //   1 chanff_fwd_ln: xa_c = LN(x) * scale + bias in the compute dtype, a warp
 //     a row; bound by its bytes;
 //   2 chanff_fwd_act: for 128 rows x 128 columns of F, a1 = xa_c @ w1
-//     (K = 512); the epilogue writes g1_c = gelu(a1 + b1) in the compute
+//     (K = D); the epilogue writes g1_c = gelu(a1 + b1) in the compute
 //     dtype;
-//   3 chanff_fwd_out: for 128 rows x 128 of the 512 columns, o = g1_c @ w2
+//   3 chanff_fwd_out: for 128 rows x 128 of the D columns, o = g1_c @ w2
 //     (K = F); the epilogue writes y = x + (o + b2) in f32, cast to x's
 //     dtype, x read in rounds of loads issued before any is used. Where its
-//     4 * ceil(R / 128) tiles would leave most of the card idle, K is split
+//     D / 128 * ceil(R / 128) tiles would leave most of the card idle, K is split
 //     over a thread-block cluster of `split` blocks, which add their partial
 //     tiles in rank order through distributed shared memory: every output is
 //     deterministic, with no atomics.
 // g1_c goes to memory between the two products. The reference rounds it to
 // the compute dtype there too, so nothing is lost, and it is 2*R*F elements
 // of traffic (0.2 GB in bf16 at R=24,576, ~0.06 ms); one launch that kept it
-// on chip would hold a (rows, 512) f32 accumulator, at most 64 rows a block,
+// on chip would hold a (rows, D) f32 accumulator, at most 64 rows a block,
 // and stream both weights from L2 for every 64 rows.
 // The mainloops and the activation epilogue are chanff_tiles.cuh's, shared
 // with chanff_bwd.cu: bf16 (namespace tc) on wgmma m64n128k16 behind a TMA
@@ -68,20 +70,20 @@ constexpr int kXRound = 8;    // x loads a thread issues before it uses the firs
 
 // ------------------------------------------------------------ 1: LN rows
 // xa[row] = LN(x[row]) * scale + bias in T; grid ceil(R / kLnRows)
-template <typename T>
+template <int D, typename T>
 __global__ void __launch_bounds__(32 * kLnRows)
 chanff_fwd_ln(const T* __restrict__ x, const float* __restrict__ scale,
               const float* __restrict__ bias, T* __restrict__ xa, int R) {
-  ln_row_pass(x, scale, bias, xa, nullptr, R);
+  ln_row_pass<D>(x, scale, bias, xa, nullptr, R);
 }
 
 // ------------------------------------------ 3: the out product's epilogue
-// The out product's tile (rows row0 .., columns n0 .. of 512), staged as f32
+// The out product's tile (rows row0 .., columns n0 .. of D), staged as f32
 // [128][kLdt] by each of the `split` blocks of a cluster that cut K between
 // them (split 1: one block, no cluster): block z takes its share of the rows,
 // sums their partial tiles over the cluster in rank order and writes
 // y = x + (o + b2) in T. Every thread of the block calls it.
-template <typename T>
+template <int D, typename T>
 __device__ __forceinline__ void out_epilogue(float* tile, const T* __restrict__ x,
                                              const float* __restrict__ b2, T* __restrict__ y,
                                              int n0, int row0, int R, int split) {
@@ -105,7 +107,7 @@ __device__ __forceinline__ void out_epilogue(float* tile, const T* __restrict__ 
 #pragma unroll
     for (int u = 0; u < kXRound; ++u) {
       const int q = q0 + u * blockDim.x, row = row0 + r0 + q / kGroups;
-      xv[u] = q < n && row < R ? load4(x + (size_t)row * kD + n0 + 4 * (q % kGroups))
+      xv[u] = q < n && row < R ? load4(x + (size_t)row * D + n0 + 4 * (q % kGroups))
                                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
 #pragma unroll
@@ -120,33 +122,12 @@ __device__ __forceinline__ void out_epilogue(float* tile, const T* __restrict__ 
         o = make_float4(o.x + p.x, o.y + p.y, o.z + p.z, o.w + p.w);
       }
       const float4 b = *reinterpret_cast<const float4*>(b2 + n0 + c);
-      store4(y + (size_t)(row0 + r) * kD + n0 + c,
+      store4(y + (size_t)(row0 + r) * D + n0 + c,
              make_float4(xv[u].x + (o.x + b.x), xv[u].y + (o.y + b.y), xv[u].z + (o.z + b.z),
                          xv[u].w + (o.w + b.w)));
     }
   }
   if (split > 1) cluster.sync();  // no block leaves while another reads its tile
-}
-
-// the out product: grid (4, row tiles, split), the split blocks of a tile a
-// cluster along z (no cluster attribute for split 1)
-template <typename Kernel, typename... Args>
-cudaError_t launch_out(Kernel kernel, int nblk, int threads, size_t smem, int split,
-                       cudaStream_t s, Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kD / kTileCols, nblk, split);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = split;
-  cfg.attrs = attr;
-  cfg.numAttrs = split > 1 ? 1 : 0;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // ======================================================= bf16: wgmma, TMA ring
@@ -161,8 +142,9 @@ constexpr int kActStages = 3;
 using ActRing = Ring<kActStages>;
 static_assert(kTileF32 <= kActStages * kStageBytes, "a1 staged over the ring");
 
-// grid (ceil(F / 128), ceil(R / 128)). xa_map: (R, 512) in boxes of 128
-// rows; w1_map: (512, F) in boxes of 64.
+// grid (ceil(F / 128), ceil(R / 128)). xa_map: (R, D) in boxes of 128
+// rows; w1_map: (D, F) in boxes of 64.
+template <int D>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 chanff_fwd_act(const __grid_constant__ CUtensorMap xa_map,
                const __grid_constant__ CUtensorMap w1_map, const float* __restrict__ b1,
@@ -171,7 +153,7 @@ chanff_fwd_act(const __grid_constant__ CUtensorMap xa_map,
   ActRing ring(smem_raw);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int f0 = blockIdx.x * kTileCols, row0 = blockIdx.y * kTileRows;
-  constexpr int kSteps = kD / BK;
+  constexpr int kSteps = D / BK;
   if (tid == 0) ring.init();
   __syncthreads();
 
@@ -207,9 +189,10 @@ constexpr int kOutStages = 3;
 using OutRing = Ring<kOutStages>;
 static_assert(kTileF32 <= kOutStages * kStageBytes, "o staged over the ring");
 
-// grid (4, ceil(R / 128), split), clusters of `split` along z; block z takes
-// the z-th of `split` runs of F's k-steps. g1_map: (R, F) in boxes of 128
-// rows; w2_map: (F, 512) in boxes of 64.
+// grid (D / 128, ceil(R / 128), split), clusters of `split` along z; block
+// z takes the z-th of `split` runs of F's k-steps. g1_map: (R, F) in boxes
+// of 128 rows; w2_map: (F, D) in boxes of 64.
+template <int D>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 chanff_fwd_out(const __grid_constant__ CUtensorMap g1_map,
                const __grid_constant__ CUtensorMap w2_map, const bf16* __restrict__ x,
@@ -243,29 +226,31 @@ chanff_fwd_out(const __grid_constant__ CUtensorMap g1_map,
     named_sync(1, kConsumers);  // every warpgroup's products are done: the ring is free
     stage_acc(os, acc, wg);
   }
-  out_epilogue<bf16>(os, x, b2, y, n0, row0, R, split);
+  out_epilogue<D, bf16>(os, x, b2, y, n0, row0, R, split);
 }
 
+template <int D>
 cudaError_t launch(const bf16* x, const float* scale, const float* bias, const bf16* w1,
                    const float* b1, const bf16* w2, const float* b2, bf16* y, bf16* xa, bf16* g1,
                    int R, int F, int split, cudaStream_t s) {
   const int nblk = (R + kTileRows - 1) / kTileRows;
-  chanff_fwd_ln<bf16><<<(R + kLnRows - 1) / kLnRows, 32 * kLnRows, 0, s>>>(x, scale, bias, xa, R);
+  chanff_fwd_ln<D, bf16><<<(R + kLnRows - 1) / kLnRows, 32 * kLnRows, 0, s>>>(x, scale, bias, xa,
+                                                                              R);
   cudaError_t err = cudaGetLastError();
   CUtensorMap xa_map, w1_map, g1_map, w2_map;
-  if (err == cudaSuccess) err = make_map_2d_bf16(&xa_map, xa, kD, R, kD * 2, kTileRows);
-  if (err == cudaSuccess) err = make_map_2d_bf16(&w1_map, w1, F, kD, (uint64_t)F * 2, 64);
+  if (err == cudaSuccess) err = make_map_2d_bf16(&xa_map, xa, D, R, D * 2, kTileRows);
+  if (err == cudaSuccess) err = make_map_2d_bf16(&w1_map, w1, F, D, (uint64_t)F * 2, 64);
   if (err == cudaSuccess) err = make_map_2d_bf16(&g1_map, g1, F, R, (uint64_t)F * 2, kTileRows);
-  if (err == cudaSuccess) err = make_map_2d_bf16(&w2_map, w2, kD, F, kD * 2, 64);
-  if (err == cudaSuccess) err = set_smem(chanff_fwd_act, ActRing::kSmem);
-  if (err == cudaSuccess) err = set_smem(chanff_fwd_out, OutRing::kSmem);
+  if (err == cudaSuccess) err = make_map_2d_bf16(&w2_map, w2, D, F, D * 2, 64);
+  if (err == cudaSuccess) err = set_smem(chanff_fwd_act<D>, ActRing::kSmem);
+  if (err == cudaSuccess) err = set_smem(chanff_fwd_out<D>, OutRing::kSmem);
   if (err != cudaSuccess) return err;
-  chanff_fwd_act<<<dim3((F + kTileCols - 1) / kTileCols, nblk), kThreads, ActRing::kSmem, s>>>(
+  chanff_fwd_act<D><<<dim3((F + kTileCols - 1) / kTileCols, nblk), kThreads, ActRing::kSmem, s>>>(
       xa_map, w1_map, b1, g1, R, F);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_out(chanff_fwd_out, nblk, kThreads, OutRing::kSmem, split, s, g1_map, w2_map, x,
-                    b2, y, R, F, split);
+  return launch_clusters(chanff_fwd_out<D>, dim3(D / kTileCols, nblk, split), dim3(1, 1, split),
+                         kThreads, OutRing::kSmem, s, g1_map, w2_map, x, b2, y, R, F, split);
 }
 }  // namespace tc
 
@@ -288,16 +273,17 @@ __device__ __forceinline__ void stage_regs(float* tile, const float (&acc)[8][8]
 // slower at R=24,576.
 constexpr size_t kActSmem = (size_t)kStages * 2 * kOp * sizeof(float);
 
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 chanff_fwd_act_f32(const float* __restrict__ xa, const float* __restrict__ w1,
                    const float* __restrict__ b1, float* __restrict__ g1, int R, int F) {
   extern __shared__ __align__(16) float sm[];  // [kStages][xa, w1][kOp]
   const int f0 = blockIdx.x * kTileCols, row0 = blockIdx.y * kTileRows;
-  const Operand xa_op{xa, kD, R, kD}, w1_op{w1, F, F, kD};
+  const Operand xa_op{xa, D, R, D}, w1_op{w1, F, F, D};
   float acc[8][8];
   zero(acc);
   pipeline(
-      0, kD / BK,
+      0, D / BK,
       [&](int slot, int k0) {
         float* s = sm + slot * 2 * kOp;
         stage_a<true>(s, xa_op, row0, k0);
@@ -310,17 +296,18 @@ chanff_fwd_act_f32(const float* __restrict__ xa, const float* __restrict__ w1,
   act_epilogue<float>(Regs{acc}, NoGrad{}, b1, g1, nullptr, nullptr, nullptr, f0, row0, R, F);
 }
 
-// ---- 3: the out product; grid (4, ceil(R / 128), split), as tc's
+// ---- 3: the out product; grid (D / 128, ceil(R / 128), split), as tc's
 constexpr size_t kOutSmem = (size_t)kTileRows * kLdt * sizeof(float);  // the staged tile
 static_assert(kOutSmem >= (size_t)kStages * 2 * kOp * sizeof(float), "the stages fit under it");
 
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
 chanff_fwd_out_f32(const float* __restrict__ g1, const float* __restrict__ w2,
                    const float* __restrict__ x, const float* __restrict__ b2,
                    float* __restrict__ y, int R, int F, int split) {
   extern __shared__ __align__(16) float sm[];  // [kStages][g1, w2][kOp], then the tile
   const int n0 = blockIdx.x * kTileCols, row0 = blockIdx.y * kTileRows;
-  const Operand g1_op{g1, F, R, F}, w2_op{w2, kD, kD, F};
+  const Operand g1_op{g1, F, R, F}, w2_op{w2, D, D, F};
   int i0, i1;
   split_range(F / BK, split, blockIdx.z, i0, i1);
   float acc[8][8];
@@ -337,24 +324,25 @@ chanff_fwd_out_f32(const float* __restrict__ g1, const float* __restrict__ w2,
         fma_tiles<true>(acc, s, s + kOp);
       });
   stage_regs(sm, acc);  // the pipeline ended past every thread's products: the stages are free
-  out_epilogue<float>(sm, x, b2, y, n0, row0, R, split);
+  out_epilogue<D, float>(sm, x, b2, y, n0, row0, R, split);
 }
 
+template <int D>
 cudaError_t launch(const float* x, const float* scale, const float* bias, const float* w1,
                    const float* b1, const float* w2, const float* b2, float* y, float* xa,
                    float* g1, int R, int F, int split, cudaStream_t s) {
   const int nblk = (R + kTileRows - 1) / kTileRows;
-  cudaError_t err = set_smem(chanff_fwd_act_f32, kActSmem);
-  if (err == cudaSuccess) err = set_smem(chanff_fwd_out_f32, kOutSmem);
+  cudaError_t err = set_smem(chanff_fwd_act_f32<D>, kActSmem);
+  if (err == cudaSuccess) err = set_smem(chanff_fwd_out_f32<D>, kOutSmem);
   if (err != cudaSuccess) return err;
-  chanff_fwd_ln<float><<<(R + kLnRows - 1) / kLnRows, 32 * kLnRows, 0, s>>>(x, scale, bias, xa,
-                                                                             R);
-  chanff_fwd_act_f32<<<dim3((F + kTileCols - 1) / kTileCols, nblk), kThreads, kActSmem, s>>>(
+  chanff_fwd_ln<D, float><<<(R + kLnRows - 1) / kLnRows, 32 * kLnRows, 0, s>>>(x, scale, bias,
+                                                                                xa, R);
+  chanff_fwd_act_f32<D><<<dim3((F + kTileCols - 1) / kTileCols, nblk), kThreads, kActSmem, s>>>(
       xa, w1, b1, g1, R, F);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_out(chanff_fwd_out_f32, nblk, kThreads, kOutSmem, split, s, g1, w2, x, b2, y, R,
-                    F, split);
+  return launch_clusters(chanff_fwd_out_f32<D>, dim3(D / kTileCols, nblk, split),
+                         dim3(1, 1, split), kThreads, kOutSmem, s, g1, w2, x, b2, y, R, F, split);
 }
 }  // namespace simt
 
@@ -362,7 +350,7 @@ cudaError_t launch(const float* x, const float* scale, const float* bias, const 
 
 extern "C" {
 
-// Shapes the kernel takes: D == 512; F a positive multiple of 64; R >= 1;
+// Shapes the kernel takes: D == 256 or 512; F a positive multiple of 64; R >= 1;
 // tile_rows == 128, the rows of the products' tiles; 1 <= split <= 4 and
 // split <= F / 64, the out product's K splits (the blocks of a cluster).
 // dtype_code 0 = float32, 1 = bfloat16 (x, w1, w2, y and the scratch the
@@ -372,8 +360,8 @@ int pips_chanff_fwd(const void* x, const void* ln_scale, const void* ln_bias, co
                     const void* b1, const void* w2, const void* b2, void* y, void* xa, void* g1,
                     int R, int D, int F, int tile_rows, int split, int dtype_code, int device,
                     void* stream) {
-  if (D != kD || F <= 0 || F % 64 != 0 || R <= 0 || tile_rows != kTileRows || split < 1 ||
-      split > kMaxSplit || split > F / 64 || (dtype_code != 0 && dtype_code != 1))
+  if ((D != 256 && D != 512) || F <= 0 || F % 64 != 0 || R <= 0 || tile_rows != kTileRows ||
+      split < 1 || split > kMaxSplit || split > F / 64 || (dtype_code != 0 && dtype_code != 1))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -382,13 +370,16 @@ int pips_chanff_fwd(const void* x, const void* ln_scale, const void* ln_bias, co
   const float* bi = static_cast<const float*>(ln_bias);
   const float* bb1 = static_cast<const float*>(b1);
   const float* bb2 = static_cast<const float*>(b2);
-  if (dtype_code == 1)
-    return (int)tc::launch(static_cast<const bf16*>(x), sc, bi, static_cast<const bf16*>(w1), bb1,
-                           static_cast<const bf16*>(w2), bb2, static_cast<bf16*>(y),
-                           static_cast<bf16*>(xa), static_cast<bf16*>(g1), R, F, split, s);
-  return (int)simt::launch(static_cast<const float*>(x), sc, bi, static_cast<const float*>(w1),
-                           bb1, static_cast<const float*>(w2), bb2, static_cast<float*>(y),
-                           static_cast<float*>(xa), static_cast<float*>(g1), R, F, split, s);
+  if (dtype_code == 1) {
+    const auto launch = D == 256 ? &tc::launch<256> : &tc::launch<512>;
+    return (int)launch(static_cast<const bf16*>(x), sc, bi, static_cast<const bf16*>(w1), bb1,
+                       static_cast<const bf16*>(w2), bb2, static_cast<bf16*>(y),
+                       static_cast<bf16*>(xa), static_cast<bf16*>(g1), R, F, split, s);
+  }
+  const auto launch = D == 256 ? &simt::launch<256> : &simt::launch<512>;
+  return (int)launch(static_cast<const float*>(x), sc, bi, static_cast<const float*>(w1), bb1,
+                     static_cast<const float*>(w2), bb2, static_cast<float*>(y),
+                     static_cast<float*>(xa), static_cast<float*>(g1), R, F, split, s);
 }
 
 }  // extern "C"

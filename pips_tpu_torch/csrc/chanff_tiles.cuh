@@ -1,6 +1,7 @@
 // The tiled products of the channel block's kernels (chanff_fwd.cu,
 // chanff_bwd.cu) and what they share: the LN row pass; the tiles (128 rows by
-// 128 columns, a split's k-steps); the activation epilogue, g1 = gelu(a1 + b1)
+// 128 columns, a split's k-steps; the channel width D, a multiple of 128, is
+// each kernel's template parameter); the activation epilogue, g1 = gelu(a1 + b1)
 // and in the backward da1 with its column sums; and one mainloop for each
 // dtype:
 //   tc (bf16): wgmma m64n128k16 from shared memory with f32 accumulators, its
@@ -44,21 +45,45 @@ cudaError_t set_smem(Kernel k, size_t bytes) {
   return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// ---- the LN row pass: a warp a row, blocks of kLnRows rows
+// kernel over `grid` in thread-block clusters of `cluster` blocks (no cluster
+// attribute for 1 x 1 x 1): the forward's out product splits K over a
+// cluster along z, the backward's dxa products a row tile's D / 128 blocks
+// along x; returns the launch's error
+template <typename Kernel, typename... Args>
+cudaError_t launch_clusters(Kernel kernel, dim3 grid, dim3 cluster, int threads, size_t smem,
+                            cudaStream_t s, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster.x;
+  attr[0].val.clusterDim.y = cluster.y;
+  attr[0].val.clusterDim.z = cluster.z;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster.x * cluster.y * cluster.z > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// ---- the LN row pass: a warp a row of D, blocks of kLnRows rows
 // xa[row] = LN(x[row]) * scale + bias in T; with stats, stats[row] = mu and
 // stats[R + row] = rsig
-template <typename T>
+template <int D, typename T>
 __device__ __forceinline__ void ln_row_pass(const T* __restrict__ x,
                                             const float* __restrict__ scale,
                                             const float* __restrict__ bias, T* __restrict__ xa,
                                             float* __restrict__ stats, int R) {
+  static_assert(D % 32 == 0, "a lane takes D / 32 columns");
   const int row = blockIdx.x * kLnRows + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (row >= R) return;
-  const T* src = x + (size_t)row * kD;
-  float v[kD / 32];
+  const T* src = x + (size_t)row * D;
+  float v[D / 32];
   float s = 0.0f, s2 = 0.0f;
 #pragma unroll
-  for (int i = 0; i < kD / 32; ++i) {
+  for (int i = 0; i < D / 32; ++i) {
     v[i] = to_f32(src[lane + 32 * i]);
     s += v[i];
     s2 += v[i] * v[i];
@@ -68,16 +93,16 @@ __device__ __forceinline__ void ln_row_pass(const T* __restrict__ x,
     s += __shfl_xor_sync(0xffffffffu, s, o);
     s2 += __shfl_xor_sync(0xffffffffu, s2, o);
   }
-  const float mu = s / kD;
-  const float rsig = rsqrtf(fmaxf(s2 / kD - mu * mu, 0.0f) + kEps);
+  const float mu = s / D;
+  const float rsig = rsqrtf(fmaxf(s2 / D - mu * mu, 0.0f) + kEps);
   if (stats != nullptr && lane == 0) {
     stats[row] = mu;
     stats[R + row] = rsig;
   }
 #pragma unroll
-  for (int i = 0; i < kD / 32; ++i) {
+  for (int i = 0; i < D / 32; ++i) {
     const int c = lane + 32 * i;
-    xa[(size_t)row * kD + c] = from_f32<T>((v[i] - mu) * rsig * scale[c] + bias[c]);
+    xa[(size_t)row * D + c] = from_f32<T>((v[i] - mu) * rsig * scale[c] + bias[c]);
   }
 }
 

@@ -27,6 +27,7 @@ independently, so the port runs every group at its own size.
 from __future__ import annotations
 
 from collections import defaultdict
+from typing import Optional
 
 import numpy as np
 import torch
@@ -34,6 +35,7 @@ import torch
 from pips_tpu_torch.inference.feed import as_feed
 from pips_tpu_torch.inference.window import WindowTracker
 from pips_tpu_torch.models.pips import Pips
+from pips_tpu_torch.models.pips2 import Pips2
 
 
 def select_skip(vis_prob: np.ndarray, S: int = 8, thr_init: float = 0.9,
@@ -82,14 +84,16 @@ class ChainTracker:
 
     ``select_fn(vis (K, S), S) -> (K,)`` picks each point's next window start
     offset, in [1, S-1]; the default is ``select_skip``. ``record_starts``
-    keeps each point's window starts in ``last_window_starts``.
+    keeps each point's window starts in ``last_window_starts``. ``S`` is the
+    window length: ``Pips`` fixes it (``model.S``), the S-agnostic ``Pips2``
+    takes any (``S=``, default 8), as in JAX.
     """
 
-    def __init__(self, model: Pips, iters: int = 6, capacity: int = 256,
+    def __init__(self, model: Pips | Pips2, iters: int = 6, capacity: int = 256,
                  corr_mode: str = "onehot", encode_chunk: int = 8, select_fn=None,
-                 record_starts: bool = False, device="cuda"):
+                 S: Optional[int] = None, record_starts: bool = False, device="cuda"):
         self.record_starts = record_starts
-        self.S = model.S
+        self.S = S or getattr(model, "S", 8)
         self.capacity = capacity
         self.encode_chunk = encode_chunk
         self.select_fn = select_fn or select_skip

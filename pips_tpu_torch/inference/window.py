@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from pips_tpu_torch.models.pips import CORR_MODES, Pips, resolve_device
+from pips_tpu_torch.models.pips2 import Pips2
 from pips_tpu_torch.ops.grids import gridcloud2d
 
 
@@ -29,15 +30,15 @@ def dense_queries(H: int, W: int, stride: int = 8) -> np.ndarray:
 
 
 class WindowTracker:
-    """Eval-mode forward over one S-frame window of ``model`` on ``device``
-    (CUDA unless the caller asks for the CPU).
+    """Eval-mode forward over one S-frame window of ``model`` (a ``Pips``, or a
+    ``Pips2`` at any S) on ``device`` (CUDA unless the caller asks for the CPU).
 
     ``corr_mode`` is one of ``models.pips.CORR_MODES``; ``"pallas"`` runs the
     CUDA corr kernel on the card. ``use_fused_corr`` is the JAX package's older
     switch: when given, True means ``"fused"`` and False ``"full"``.
     """
 
-    def __init__(self, model: Pips, iters: int = 6, corr_mode: str = "onehot",
+    def __init__(self, model: Pips | Pips2, iters: int = 6, corr_mode: str = "onehot",
                  use_fused_corr: Optional[bool] = None, device="cuda"):
         if use_fused_corr is not None:
             corr_mode = "fused" if use_fused_corr else "full"

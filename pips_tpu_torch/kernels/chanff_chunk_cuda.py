@@ -43,12 +43,13 @@ import torch
 from pips_tpu_torch.kernels import _build, mixer_cuda
 
 FCS = (128, 256, 512, 1024)  # chunk widths the kernels take
+KERNEL_D = 512  # the channel width the kernels are built for (csrc/chanff_chunk.cu's kD)
 # the launch plan (csrc/chanff_chunk.cu holds the same constants)
 ROW_TILE = 64          # rows of a block: one wgmma M, the backward's partial tiles
 MAX_SPLIT = 8          # blocks of a row tile's cluster at most
 FWD_SLAB, BWD_SLAB = 256, 128  # F columns a slab of each kernel's pipeline
 ALIGN = 1024           # the dynamic shared memory's alignment slack
-TILE_BYTES = ROW_TILE * mixer_cuda.KERNEL_D * 2  # the resident xa tile
+TILE_BYTES = ROW_TILE * KERNEL_D * 2  # the resident xa tile
 FWD_STAGES, FWD_SLOT = 3, 32768
 BWD_STAGES, BWD_SLOT = 3, 40960
 SMEM_LIMIT = 232448    # a block's shared memory on an H100
@@ -145,7 +146,7 @@ def chunk_plan(R: int, F: int, fc: int, sms: int = mixer_cuda.SMS) -> ChunkPlan:
         raise ValueError(f"no chunked plan for R={R}, F={F}, fc={fc}")
     row_tiles, chunks = -(-R // ROW_TILE), F // fc
     split = _split(row_tiles, chunks, sms)
-    bf16, f32, D = torch.bfloat16, torch.float32, mixer_cuda.KERNEL_D
+    bf16, f32, D = torch.bfloat16, torch.float32, KERNEL_D
     finish = mixer_cuda.bwd_plan(R, F, bf16, sms)
     fwd = _pass(R, F, split, ("chanff_chunk_fwd",), {}, FWD_SMEM)
     scratch = {"xa": ((R, D), bf16), "g1": ((R, F), bf16), "da1": ((R, F), bf16),
@@ -191,6 +192,8 @@ def _check_fc(x, w1, fc) -> None:
         raise ValueError(f"fc must be a positive divisor of F={F}, got {fc!r}")
     if x.device.type == "cuda" and x.dtype == torch.bfloat16 and fc not in FCS:
         raise ValueError(f"the CUDA bf16 chunked channel block takes fc in {FCS}, got {fc}")
+    if x.device.type == "cuda" and x.shape[-1] != KERNEL_D:
+        raise ValueError(f"the CUDA chunked channel block takes D={KERNEL_D}, got {x.shape[-1]}")
 
 
 def _kernel(name: str):

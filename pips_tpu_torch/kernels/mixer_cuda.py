@@ -29,7 +29,7 @@ from pips_tpu_torch.kernels import _build
 
 _SQRT2 = math.sqrt(2.0)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
-KERNEL_D = 512      # channel width the kernels are compiled for
+KERNEL_D = (256, 512)  # the channel widths the kernels are compiled for
 KERNEL_F_MULT = 64  # F must be a multiple of the kernels' F chunk
 # the launch plans (csrc/chanff_tiles.cuh, chanff_fwd.cu and chanff_bwd.cu
 # hold the same constants)
@@ -170,8 +170,8 @@ def _kernel(name: str):
 
 
 def _cuda_ready(name: str, tensors, R: int, D: int, F: int) -> None:
-    if D != KERNEL_D or F % KERNEL_F_MULT or R == 0:
-        raise ValueError(f"CUDA {name} takes D={KERNEL_D}, F % {KERNEL_F_MULT} == 0, "
+    if D not in KERNEL_D or F % KERNEL_F_MULT or R == 0:
+        raise ValueError(f"CUDA {name} takes D in {KERNEL_D}, F % {KERNEL_F_MULT} == 0, "
                          f"R > 0; got R={R} D={D} F={F}")
     for t in tensors:
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -192,9 +192,9 @@ def _forward(x, ln_scale, ln_bias, w1, b1, w2, b2):
     args = (x, ln_scale, ln_bias, w1, b1, w2, b2)
     _cuda_ready("chan_ff_block", args, R, D, F)
     dev = x.device
-    plan = fwd_plan(R, F, x.dtype, _device_sms(dev))
+    plan = fwd_plan(R, F, x.dtype, _device_sms(dev), D)
     y = torch.empty_like(x)
-    # the scratch in one allocation: both parts in x's dtype, g1 R * 512
+    # the scratch in one allocation: both parts in x's dtype, g1 R * D
     # elements in (16-byte aligned)
     sizes = [math.prod(shape) for shape, _ in plan.scratch.values()]
     scratch = torch.empty(sum(sizes), dtype=x.dtype, device=dev).split(sizes)
@@ -228,21 +228,27 @@ class FwdPlan:
         return len(self.grids)
 
 
+def _check_plan(kind: str, R: int, F: int, dtype: torch.dtype, D: int) -> None:
+    if (R <= 0 or F <= 0 or F % KERNEL_F_MULT or D not in KERNEL_D
+            or dtype not in (torch.bfloat16, torch.float32)):
+        raise ValueError(f"no {kind} plan for R={R}, D={D}, F={F}, {dtype}")
+
+
 @functools.lru_cache(maxsize=64)  # one plan a shape: the wrapper asks on every call
-def fwd_plan(R: int, F: int, dtype: torch.dtype, sms: int = SMS) -> FwdPlan:
-    """The forward's launches for x (R, 512) in ``dtype`` and F hidden
-    columns on a card of ``sms`` SMs. The out product has 4 * ceil(R / 128)
-    tiles; K = F is split only where the split tiles still fit one to an SM
-    (more, in two blocks to an SM, measured slower), into at most
-    ``FWD_MAX_SPLIT`` runs of at least ``FWD_SPLIT_MIN_K`` columns."""
-    if R <= 0 or F <= 0 or F % KERNEL_F_MULT or dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"no forward plan for R={R}, F={F}, {dtype}")
+def fwd_plan(R: int, F: int, dtype: torch.dtype, sms: int = SMS, D: int = 512) -> FwdPlan:
+    """The forward's launches for x (R, D) in ``dtype`` and F hidden
+    columns on a card of ``sms`` SMs. The out product has
+    D / 128 * ceil(R / 128) tiles; K = F is split only where the split tiles
+    still fit one to an SM (more, in two blocks to an SM, measured slower),
+    into at most ``FWD_MAX_SPLIT`` runs of at least ``FWD_SPLIT_MIN_K``
+    columns."""
+    _check_plan("forward", R, F, dtype, D)
     row_tiles, col_tiles = -(-R // TILE_ROWS), -(-F // TILE_COLS)
-    tiles = (KERNEL_D // TILE_COLS) * row_tiles
+    tiles = (D // TILE_COLS) * row_tiles
     split = max(1, min(FWD_MAX_SPLIT, sms // tiles, F // FWD_SPLIT_MIN_K))
     grids = {"ln": (-(-R // LN_ROWS), 1, 1), "act": (col_tiles, row_tiles, 1),
-             "out": (KERNEL_D // TILE_COLS, row_tiles, split)}
-    scratch = {"xa": ((R, KERNEL_D), dtype), "g1": ((R, F), dtype)}
+             "out": (D // TILE_COLS, row_tiles, split)}
+    scratch = {"xa": ((R, D), dtype), "g1": ((R, F), dtype)}
     return FwdPlan(R, F, dtype, TILE_ROWS, split, grids, scratch)
 
 
@@ -268,15 +274,16 @@ class BwdPlan:
         return len(self.grids)
 
 
-def bwd_plan(R: int, F: int, dtype: torch.dtype, sms: int = SMS) -> BwdPlan:
-    """The backward's launches for x (R, 512) in ``dtype`` and F hidden
+def bwd_plan(R: int, F: int, dtype: torch.dtype, sms: int = SMS, D: int = 512) -> BwdPlan:
+    """The backward's launches for x (R, D) in ``dtype`` and F hidden
     columns on a card of ``sms`` SMs. The weight-grad products have
-    2 * 4 * ceil(F / 128) tiles (128 at F = 2048); K = R is split only where
-    those tiles would leave most of the blocks the card holds at once idle,
-    and never below ``SPLIT_MIN_ROWS`` rows a split."""
-    if R <= 0 or F <= 0 or F % KERNEL_F_MULT or dtype not in WGRAD_BLOCKS_PER_SM:
-        raise ValueError(f"no backward plan for R={R}, F={F}, {dtype}")
-    D, f32 = KERNEL_D, torch.float32
+    2 * D / 128 * ceil(F / 128) tiles (128 at D = 512, F = 2048; 32 at
+    D = 256, F = 1024); K = R is split only where those tiles would leave
+    most of the blocks the card holds at once idle, and never below
+    ``SPLIT_MIN_ROWS`` rows a split. The dxa products' row tiles are
+    clusters of D / 128 blocks."""
+    _check_plan("backward", R, F, dtype, D)
+    f32 = torch.float32
     row_tiles, col_tiles = -(-R // TILE_ROWS), -(-F // TILE_COLS)
     wtiles = 2 * (D // TILE_COLS) * col_tiles
     slots = sms * WGRAD_BLOCKS_PER_SM[dtype]
@@ -319,7 +326,7 @@ def chan_ff_bwd(x, dy, ln_scale, ln_bias, w1, b1, w2):
         raise ValueError("dy, w1 and w2 must be in x's dtype, dy of x's shape")
     _cuda_ready("chan_ff_bwd", args, R, D, F)
     dev = x.device
-    plan = bwd_plan(R, F, x.dtype, _device_sms(dev))
+    plan = bwd_plan(R, F, x.dtype, _device_sms(dev), D)
     outs, scratch = bwd_buffers(x, plan)
     ptrs = [t.data_ptr() for t in args + outs] + [None if t is None else t.data_ptr()
                                                   for t in scratch.values()]
@@ -397,8 +404,8 @@ def chan_ff_block(x, ln_scale, ln_bias, w1, b1, w2, b2):
     their own dtype); ln_scale, ln_bias, b1, b2 float32. Returns (R, D) in
     x.dtype, with a gradient when any input requires one.
 
-    On CUDA the kernels take D == 512, F a multiple of 64 and contiguous,
-    16-byte-aligned tensors; anything else raises.
+    On CUDA the kernels take D of 256 or 512 (``KERNEL_D``), F a multiple
+    of 64 and contiguous, 16-byte-aligned tensors; anything else raises.
     """
     _check(x, ln_scale, ln_bias, w1, b1, w2, b2)
     args = (x, ln_scale, ln_bias, w1, b1, w2, b2)

@@ -56,6 +56,26 @@ class Dense(nn.Module):
         return x.to(cd) @ self.kernel.to(cd) + self.bias.to(cd)
 
 
+def embed_parts(embed: Dense, x, dtype=None) -> torch.Tensor:
+    """``embed`` applied to x (B, S, input_dim), or to a tuple of parts whose
+    last dims sum to input_dim: a sum of per-part products with slices of the
+    one kernel, so the concat is never built. Computed in ``dtype``, or the
+    first part's dtype when that is None."""
+    parts = tuple(x) if isinstance(x, (tuple, list)) else (x,)
+    if sum(p.shape[-1] for p in parts) != embed.kernel.shape[0]:
+        raise ValueError(f"inputs sum to {sum(p.shape[-1] for p in parts)} "
+                         f"channels, the embedding takes {embed.kernel.shape[0]}")
+    cd = dtype or parts[0].dtype
+    wc = embed.kernel.to(cd)
+    acc, off = None, 0
+    for p in parts:
+        k = p.shape[-1]
+        term = p.to(cd) @ wc[off:off + k]
+        off += k
+        acc = term if acc is None else acc + term
+    return acc + embed.bias.to(cd)
+
+
 class TokenMixFF(nn.Module):
     """FeedForward across the token (S) axis: S -> S*expansion -> S."""
 
@@ -99,7 +119,7 @@ class MLPMixer(nn.Module):
     def __init__(self, S: int, input_dim: int, dim: int, output_dim: int, depth: int,
                  expansion: int = 4, dtype=None, fuse_chanff: bool = False):
         super().__init__()
-        self.input_dim, self.depth = input_dim, depth
+        self.depth = depth
         self.dtype, self.fuse_chanff = dtype, fuse_chanff
         self.embed = Dense(input_dim, dim)
         for d in range(depth):
@@ -111,22 +131,8 @@ class MLPMixer(nn.Module):
         self.head = Dense(dim, output_dim, dtype)
 
     def forward(self, x) -> torch.Tensor:
-        # x: (B, S, input_dim), or a tuple of parts whose last dims sum to
-        # input_dim; the embed matmul is then a sum of per-part products with
-        # slices of the same kernel, so the concat is never built.
-        parts = tuple(x) if isinstance(x, (tuple, list)) else (x,)
-        if sum(p.shape[-1] for p in parts) != self.input_dim:
-            raise ValueError(f"inputs sum to {sum(p.shape[-1] for p in parts)} "
-                             f"channels, mixer takes {self.input_dim}")
-        cd = self.dtype or parts[0].dtype
-        wc = self.embed.kernel.to(cd)
-        acc, off = None, 0
-        for p in parts:
-            k = p.shape[-1]
-            term = p.to(cd) @ wc[off:off + k]
-            off += k
-            acc = term if acc is None else acc + term
-        x = acc + self.embed.bias.to(cd)
+        # x: (B, S, input_dim), or a tuple of parts (``embed_parts``)
+        x = embed_parts(self.embed, x, self.dtype)
         for d in range(self.depth):
             token = getattr(self, f"block{d}_token")
             x = x + token(getattr(self, f"block{d}_token_norm")(x).to(x.dtype))

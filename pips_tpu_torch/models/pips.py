@@ -64,8 +64,10 @@ def resolve_device(device) -> torch.device:
 
 
 def init_params(model: nn.Module, seed: int) -> nn.Module:
-    """Fill every parameter from a numpy seed: conv weights He-normal over
-    fan-out, dense kernels LeCun-normal over fan-in, norm scales 1, biases 0."""
+    """Fill every parameter of a ``Pips`` or ``Pips2`` from a numpy seed: conv
+    weights He-normal over fan-out, dense kernels LeCun-normal over fan-in
+    (``Pips2``'s depthwise (3, 1, D) temporal kernels over their fan-in of
+    3), norm scales 1, biases 0."""
     rng = np.random.RandomState(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -73,7 +75,7 @@ def init_params(model: nn.Module, seed: int) -> nn.Module:
             if leaf == "weight":  # conv (O, I, kh, kw)
                 std = np.sqrt(2.0 / (p.shape[0] * p.shape[2] * p.shape[3]))
                 val = rng.standard_normal(tuple(p.shape)) * std
-            elif leaf == "kernel":  # dense (in, out)
+            elif leaf == "kernel":  # dense (in, out), depthwise (taps, 1, out)
                 val = rng.standard_normal(tuple(p.shape)) / np.sqrt(p.shape[0])
             elif leaf == "scale":
                 val = np.ones(tuple(p.shape))

@@ -79,7 +79,8 @@ class TrainConfig:
     num_processes: int = 0
     process_id: int = -1
     dtype: str = "bfloat16"   # compute dtype for the model ("float32" for exactness)
-    use_fused_corr: bool = False  # training samples through the one-hot form either way
+    use_fused_corr: bool = False  # Pips trains through the one-hot form either way;
+                                  # Pips2 samples fused with it, full without
     # remats: recompute on the backward instead of keeping activations
     remat: bool = False        # whole-step remat
     remat_mixer: bool = False  # DeltaBlock remat

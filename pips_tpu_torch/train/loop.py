@@ -6,10 +6,12 @@ Composes: dataset -> host batcher -> CUDA prefetch -> train step -> pooled
 metric logging -> periodic validation, media and checkpointing with
 auto-resume. Runs on CUDA unless the caller passes ``device="cpu"``.
 
+``model_family="pips2"`` trains the S-agnostic PIPs++ family (``Pips2``), its
+refiner ``mixer_dim`` wide and ``mixer_depth`` deep, as the JAX loop builds it.
 Not ported yet, and refused with the ROADMAP item that brings them: the
-FlyingThings++ and PointOdyssey sets (A4, data), ``model_family="pips2"``
-(A6), and data-parallel or multi-host runs (A7, parallel). The JAX loop's
-compile cache has no counterpart: PyTorch runs eagerly.
+FlyingThings++ and PointOdyssey sets (A4, data) and data-parallel or
+multi-host runs (A7, parallel). The JAX loop's compile cache has no
+counterpart: PyTorch runs eagerly.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 
 from pips_tpu_torch.data import DevicePrefetcher, SyntheticPointDataset, batch_iterator
 from pips_tpu_torch.models.pips import Pips, init_params, resolve_device
+from pips_tpu_torch.models.pips2 import Pips2
 from pips_tpu_torch.train.config import (TrainConfig, parse_cli, resolve_dtype,
                                          resolve_fuse_chanff)
 from pips_tpu_torch.train.optim import Optimizer, make_optimizer
@@ -47,27 +50,33 @@ def build_dataset(cfg: TrainConfig, split: str = "train"):
 
 
 def _refuse_unported(cfg: TrainConfig) -> None:
-    if cfg.model_family != "pips":
-        raise NotImplementedError(f"model_family {cfg.model_family!r} is not ported yet "
-                                  f"(ROADMAP A6, pips2)")
     mesh = None if cfg.mesh_shape is None else tuple(cfg.mesh_shape)
     if cfg.multihost or cfg.num_processes > 1 or mesh not in (None, (1, 1)):
         raise NotImplementedError("multi-device and multi-host training are not ported yet "
                                   "(ROADMAP A7, parallel); run with mesh_shape None or (1, 1)")
 
 
-def init_state(cfg: TrainConfig, device="cuda", seed: int = 0) -> tuple[Pips, Optimizer]:
+def init_state(cfg: TrainConfig, device="cuda", seed: int = 0) -> tuple[Pips | Pips2, Optimizer]:
     """The model (parameters from ``init_params(seed)``, in train mode on
-    ``device``) and its optimizer over ``max_iters // grad_acc`` steps."""
+    ``device``) and its optimizer over ``max_iters // grad_acc`` steps. For
+    ``model_family="pips2"`` a ``Pips2`` whose refiner is ``mixer_dim`` wide
+    and ``mixer_depth`` deep (PIPs++'s own 256 x 6 by the CLI), as the JAX
+    loop builds it: no remat or ``fuse_conv3`` fields there."""
     device = resolve_device(device)
     dtype = resolve_dtype(cfg.dtype)
-    model = Pips(S=cfg.S, stride=cfg.stride, latent_dim=cfg.latent_dim,
-                 corr_levels=cfg.corr_levels, corr_radius=cfg.corr_radius,
-                 mixer_dim=cfg.mixer_dim, mixer_depth=cfg.mixer_depth, dtype=dtype,
-                 remat_mixer=cfg.remat_mixer, remat_corr=cfg.remat_corr,
-                 remat_encoder=cfg.remat_encoder,
-                 fuse_chanff=resolve_fuse_chanff(cfg.fuse_chanff, dtype, device),
-                 fuse_conv3=resolve_fuse_chanff(cfg.fuse_conv3, dtype, device))
+    fuse_chanff = resolve_fuse_chanff(cfg.fuse_chanff, dtype, device)
+    if cfg.model_family == "pips2":
+        model = Pips2(stride=cfg.stride, latent_dim=cfg.latent_dim,
+                      corr_levels=cfg.corr_levels, corr_radius=cfg.corr_radius,
+                      refiner_dim=cfg.mixer_dim, refiner_depth=cfg.mixer_depth, dtype=dtype,
+                      fuse_chanff=fuse_chanff)
+    else:
+        model = Pips(S=cfg.S, stride=cfg.stride, latent_dim=cfg.latent_dim,
+                     corr_levels=cfg.corr_levels, corr_radius=cfg.corr_radius,
+                     mixer_dim=cfg.mixer_dim, mixer_depth=cfg.mixer_depth, dtype=dtype,
+                     remat_mixer=cfg.remat_mixer, remat_corr=cfg.remat_corr,
+                     remat_encoder=cfg.remat_encoder, fuse_chanff=fuse_chanff,
+                     fuse_conv3=resolve_fuse_chanff(cfg.fuse_conv3, dtype, device))
     model = init_params(model, seed).to(device).train()
     opt = make_optimizer(model.parameters(), cfg.lr, cfg.max_iters // cfg.grad_acc,
                          wdecay=cfg.wdecay, use_scheduler=cfg.use_scheduler)
@@ -153,7 +162,7 @@ def train(cfg: Optional[TrainConfig] = None, device="cuda") -> dict:
 
     step_fn = make_train_step(model, opt, iters=cfg.I, horz_flip=cfg.horz_flip,
                               vert_flip=cfg.vert_flip, grad_acc=cfg.grad_acc, remat=cfg.remat,
-                              sync_metrics=False)
+                              sync_metrics=False, use_fused_corr=cfg.use_fused_corr)
     seed0 = 125  # the JAX loop's, for its process 0
     train_it = DevicePrefetcher(
         batch_iterator(build_dataset(cfg, "train"), cfg.B, shuffle=cfg.shuffle, seed=seed0,
@@ -225,7 +234,8 @@ def train(cfg: Optional[TrainConfig] = None, device="cuda") -> dict:
                 # validation pass: cfg.val_batches held-out batches, pooled
                 for _ in range(max(cfg.val_batches, 1)):
                     with torch.no_grad():
-                        _, vmetrics = train_loss_fn(model, next(val_it), cfg.I, is_train=False)
+                        _, vmetrics = train_loss_fn(model, next(val_it), cfg.I, is_train=False,
+                                                    use_fused_corr=cfg.use_fused_corr)
                     vmetrics = _host(vmetrics)
                     _pool_update(val_pools, vmetrics)
                 writer.scalars(global_step, {

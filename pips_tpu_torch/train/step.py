@@ -43,13 +43,17 @@ def apply_flip_doubling(batch: Batch, horz_flip: bool, vert_flip: bool) -> Batch
     return batch
 
 
-def train_loss_fn(model, batch: Batch, iters: int, is_train: bool = True):
+def train_loss_fn(model, batch: Batch, iters: int, is_train: bool = True,
+                  use_fused_corr: bool = False):
     """(total_loss, metrics) of one batch: rgbs (B, S, H, W, 3) in [0, 255],
-    trajs (B, S, N, 2), visibles and valids (B, S, N)."""
+    trajs (B, S, N, 2), visibles and valids (B, S, N). ``Pips`` samples its
+    training corr through the one-hot form whatever ``use_fused_corr``;
+    ``Pips2`` samples ``fused`` with it and ``full`` without, and has no CE
+    term (``ce_loss`` None counts as 0), as in JAX."""
     rgbs, trajs_g = batch["rgbs"], batch["trajs"]
     vis_g, valids = batch["visibles"], batch["valids"]
     out = model(trajs_g[:, 0], rgbs, iters=iters, is_train=is_train, compute_fcp=True,
-                ce_gt=(trajs_g, vis_g, valids))
+                use_fused_corr=use_fused_corr, ce_gt=(trajs_g, vis_g, valids))
     seq_loss = sequence_loss(out.coord_predictions, trajs_g, vis_g, valids, 0.8)
     vis_loss, _ = balanced_ce_loss(out.vis_e, vis_g, valids)
     ce_loss = out.ce_loss if out.ce_loss is not None else torch.zeros((), device=rgbs.device)
@@ -69,7 +73,8 @@ def train_loss_fn(model, batch: Batch, iters: int, is_train: bool = True):
 
 def make_train_step(model, optimizer, iters: int = 4, horz_flip: bool = True,
                     vert_flip: bool = True, grad_acc: int = 1, remat: bool = False,
-                    sync_metrics: bool = True) -> Callable[[Batch], Dict[str, float]]:
+                    sync_metrics: bool = True,
+                    use_fused_corr: bool = False) -> Callable[[Batch], Dict[str, float]]:
     """``step(batch) -> metrics``: one optimizer step of ``model``.
 
     ``batch`` holds numpy arrays or tensors (moved to the model's device as
@@ -82,7 +87,8 @@ def make_train_step(model, optimizer, iters: int = 4, horz_flip: bool = True,
     """
 
     def loss_for_grad(mb: Batch):
-        return train_loss_fn(model, apply_flip_doubling(mb, horz_flip, vert_flip), iters)
+        return train_loss_fn(model, apply_flip_doubling(mb, horz_flip, vert_flip), iters,
+                             use_fused_corr=use_fused_corr)
 
     if remat:
         inner = loss_for_grad

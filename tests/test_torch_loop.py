@@ -142,15 +142,41 @@ def test_f32_fused_chanff_cli_trains(tmp_path, monkeypatch):
     assert dtypes == [torch.float32] * (2 * cfg.I * cfg.mixer_depth)
 
 
-@pytest.mark.parametrize("change", [dict(model_family="pips2"), dict(dataset="flyingthings"),
-                                    dict(dataset="pointodyssey"), dict(mesh_shape=(2, 1)),
-                                    dict(multihost=True), dict(num_processes=2)])
+@pytest.mark.parametrize("change", [dict(dataset="flyingthings"), dict(dataset="pointodyssey"),
+                                    dict(mesh_shape=(2, 1)), dict(multihost=True),
+                                    dict(num_processes=2)])
 def test_unported_options_name_their_roadmap_item(tmp_path, change):
     cfg = TrainConfig(**{**TINY, **change}, max_iters=1, ckpt_dir=str(tmp_path / "c"),
                       log_dir=str(tmp_path / "l"))
-    item = {"model_family": "A6", "dataset": "A4"}.get(next(iter(change)), "A7")
+    item = {"dataset": "A4"}.get(next(iter(change)), "A7")
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         train(cfg, device="cpu")
+
+
+def test_pips2_cli_trains(tmp_path, capsys):
+    """``--model_family pips2 --S 6``: the loop builds a ``Pips2`` whose refiner
+    is ``mixer_dim`` wide and ``mixer_depth`` deep, as JAX's loop does, and
+    trains it at TINY size on the synthetic set (f32, I=1, lr 5e-4, no
+    flips), with a validation pass and a checkpoint. PIPs++ has no CE term:
+    ``ce`` stays 0. Every loss is finite, and the mean of the last four of
+    twelve steps is below that of the first four (measured 22.6 against
+    33.7)."""
+    from pips_tpu_torch import Pips2
+
+    cfg = parse_cli(["--model_family", "pips2", "--dataset", "synthetic", "--S", "6"])
+    cfg = dataclasses.replace(cfg, **{**TINY, "S": 6, "lr": 5e-4, "val_freq": 12,
+                                       "save_freq": 12, "val_batches": 1},
+                              dtype="float32", max_iters=12, metrics_every=1,
+                              ckpt_dir=str(tmp_path / "c"), log_dir=str(tmp_path / "l"))
+    model, _ = init_state(cfg, device="cpu")
+    assert isinstance(model, Pips2)
+    assert model.refiner.depth == 2 and model.refiner.embed.kernel.shape[1] == 32
+    capsys.readouterr()
+    metrics = train(cfg, device="cpu")
+    losses = [float(x) for x in re.findall(r"loss = ([0-9.eE+-]+)", capsys.readouterr().out)]
+    assert len(losses) == 12 and all(np.isfinite(losses)) and metrics["ce"] == 0.0
+    assert np.mean(losses[-4:]) < np.mean(losses[:4]), losses
+    assert saverloader.list_steps(os.path.join(cfg.ckpt_dir, cfg.model_name())) == [12]
 
 
 def test_kernel_flags_resolve_like_jax():

@@ -27,6 +27,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from pips_tpu.kernels.mixer_pallas import chan_ff_block as jax_chan_ff_block
+from pips_tpu.kernels.mixer_pallas import chan_ff_reference as jax_chan_ff_reference
 from pips_tpu.models import mixer as jmixer
 from pips_tpu_torch.convert import state_dict_from_flax
 from pips_tpu_torch.kernels import chanff_chunk_cuda, mixer_cuda
@@ -259,7 +260,9 @@ def test_bwd_plan_constants_are_the_kernels():
     assert _constexpr("chanff_tiles.cuh", "kTileCols") == mixer_cuda.TILE_COLS
     assert _constexpr(src, "kMaxSplit") == mixer_cuda.MAX_SPLIT
     assert _constexpr("chanff_tiles.cuh", "kLnRows") == mixer_cuda.LN_ROWS
-    assert _constexpr("chanff_rows.cuh", "kD") == mixer_cuda.KERNEL_D
+    assert _constexpr("chanff_chunk.cu", "kD") == chanff_chunk_cuda.KERNEL_D == 512
+    assert mixer_cuda.KERNEL_D == (256, 512)
+    assert "if ((D != 256 && D != 512) || F <= 0" in (_CSRC / src).read_text()
     assert _constexpr("chanff_chunk.cu", "kRowTile") == chanff_chunk_cuda.ROW_TILE
     assert re.search(r"constexpr int kRowTile = 64; +// rows of a block: one wgmma M, the "
                      r"partials' tiles", (_CSRC / "chanff_chunk.cu").read_text())
@@ -276,7 +279,7 @@ def test_bwd_plan(R, dtype, F):
     128 x 128 tiles; K split only where the weight-grad tiles leave blocks
     the card holds idle, each split at least SPLIT_MIN_ROWS rows; scratch
     in the compute dtype and f32 partials per 128-row tile."""
-    D = mixer_cuda.KERNEL_D
+    D = 512
     plan = mixer_cuda.bwd_plan(R, F, dtype)
     rt, ct = _cdiv(R, 128), _cdiv(F, 128)
     wtiles = 2 * (D // 128) * ct
@@ -304,7 +307,7 @@ def test_bwd_plan(R, dtype, F):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_bwd_buffers_allocate_the_plan(dtype):
-    x = torch.zeros(800, mixer_cuda.KERNEL_D, dtype=dtype)
+    x = torch.zeros(800, 512, dtype=dtype)
     plan = mixer_cuda.bwd_plan(800, 2048, dtype)
     outs, scratch = mixer_cuda.bwd_buffers(x, plan)
     assert [(tuple(t.shape), t.dtype) for t in outs] == [
@@ -323,7 +326,7 @@ def test_chunked_partials_are_what_the_column_sums_are_told(R, monkeypatch):
     tiles); the buffers it gets hold ceil(R / 64) of them, and ``bwd_finish``
     hands the C entry that count, the 64 rows (which it checks against R) and
     the finishing plan's split with its scratch."""
-    x = torch.zeros(R, mixer_cuda.KERNEL_D, dtype=torch.bfloat16)
+    x = torch.zeros(R, chanff_chunk_cuda.KERNEL_D, dtype=torch.bfloat16)
     plan = chanff_chunk_cuda.chunk_plan(R, 2048, 512)
     rows = chanff_chunk_cuda.ROW_TILE
     assert plan.bwd.row_tile == rows == 64
@@ -364,15 +367,17 @@ def test_fwd_plan_constants_are_the_kernels():
     assert _constexpr("chanff_tiles.cuh", "kLnRows") == mixer_cuda.LN_ROWS
     assert _constexpr("chanff_fwd.cu", "kMaxSplit") == mixer_cuda.FWD_MAX_SPLIT
     assert "split > kMaxSplit || split > F / 64" in src
+    assert "if ((D != 256 && D != 512) || F <= 0" in src
     assert mixer_cuda.FWD_SPLIT_MIN_K % 64 == 0
     for dtype in ("tc", "simt"):
         body = src.split(f"namespace {dtype} {{")[1].split("cudaError_t launch(")[1]
-        names = re.findall(r"(chanff_fwd_\w+?)(?:<\w+>)?<<<|launch_out\((chanff_fwd_\w+),", body)
+        names = re.findall(
+            r"(chanff_fwd_\w+?)(?:<[\w, ]+>)?<<<|launch_clusters\((chanff_fwd_\w+)(?:<D>)?,", body)
         assert [a or b for a, b in names] == [
             f"chanff_fwd_{k}{'_f32' if dtype == 'simt' and k != 'ln' else ''}"
             for k in ("ln", "act", "out")], names
-    assert "attr[0].val.clusterDim.z = split;" in src
-    assert "cfg.gridDim = dim3(kD / kTileCols, nblk, split);" in src
+    assert src.count("dim3(D / kTileCols, nblk, split),") == 2  # the out product in both dtypes
+    assert src.count("dim3(1, 1, split)") == 2                   # its clusters along z
 
 
 @pytest.mark.parametrize("F", [2048, 64])
@@ -384,7 +389,7 @@ def test_fwd_plan(R, dtype, F):
     only while the split tiles fit one to an SM, at most FWD_MAX_SPLIT runs of
     at least FWD_SPLIT_MIN_K columns; scratch xa and g1 in the compute
     dtype."""
-    D = mixer_cuda.KERNEL_D
+    D = 512
     plan = mixer_cuda.fwd_plan(R, F, dtype)
     rt, ct = _cdiv(R, 128), _cdiv(F, 128)
     tiles = (D // 128) * rt
@@ -413,3 +418,107 @@ def test_fwd_plan_refuses_what_the_kernels_do_not_take():
         with pytest.raises(ValueError):
             mixer_cuda.fwd_plan(R, F, dtype)
     assert mixer_cuda.fwd_plan(2048, 2048, torch.bfloat16, sms=64).split == 1
+
+
+# ---- the Pips2 refiner's width: D=256, F=1024 (the kernels take 256 and 512)
+
+D2, F2 = 256, 1024
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chan_ff_reference_matches_jax_at_d256(dtype):
+    """The plain block at D=256, F=1024 on ragged rows (R=200) against JAX's
+    plain ``chan_ff_reference`` and its interpret-mode kernel, at ``TOL``:
+    the same formula, f32 sums in other orders (bf16: an operand one ulp off
+    where a sum sits at a rounding boundary)."""
+    a = _block_args(200, D=D2, F=F2, seed=11)
+    ja = [jnp.asarray(v, jnp.float32) for v in a]
+    ja[0] = ja[0].astype(getattr(jnp, dtype))
+    want_ref = np.asarray(jax_chan_ff_reference(*ja), np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want_kernel = np.asarray(jax_chan_ff_block(*ja), np.float32)
+    ta = _torch_args(a, getattr(torch, dtype))
+    got = mixer_cuda.chan_ff_reference(*ta)
+    assert got.dtype == ta[0].dtype and got.shape == (200, D2)
+    np.testing.assert_allclose(got.float().numpy(), want_ref, **TOL[dtype])
+    np.testing.assert_allclose(got.float().numpy(), want_kernel, **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chan_ff_bwd_reference_matches_jax_vjp_at_d256(dtype):
+    """The plain backward at D=256, F=1024 against ``jax.vjp`` of the JAX
+    block (interpret mode), each grad within ``BWD_TOL`` of its largest
+    magnitude (bf16 dx within two ulps), as at D=64; in f32 also against
+    ``jax.vjp`` of JAX's plain reference, whose f32 autodiff is the same math."""
+    R = 200
+    a = _block_args(R, D=D2, F=F2, seed=12)
+    dy = np.random.RandomState(13).randn(R, D2)
+    cd = getattr(jnp, dtype)
+    ja = [jnp.asarray(v, jnp.float32) for v in a]
+    ja[0] = ja[0].astype(cd)
+    jdy = jnp.asarray(dy, jnp.float32).astype(cd)
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(jax_chan_ff_block, *ja)
+        want = vjp(jdy)
+    x, s, b, w1, b1, w2, _ = _torch_args(a, getattr(torch, dtype))
+    got = mixer_cuda.chan_ff_bwd_reference(x, torch.from_numpy(dy.astype(np.float32)).to(x.dtype),
+                                           s, b, w1, b1, w2)
+    got = [g.float().numpy() for g in got]
+    _assert_grads_close(got, [want[0].astype(jnp.float32), *want[1:]], BWD_TOL[dtype],
+                        f"{dtype} D={D2}", bf16_dx=dtype == "bfloat16")
+    if dtype == "float32":
+        _, vjp_ref = jax.vjp(jax_chan_ff_reference, *ja)
+        _assert_grads_close(got, vjp_ref(jdy), BWD_TOL[dtype], "plain reference")
+
+
+def _expected_fwd_split(R, dtype):
+    """fwd_plan's split at D=256, F=1024: 2 * ceil(R / 128) out tiles, K split
+    while the split tiles fit one to an SM, in at most four runs of 256."""
+    return max(1, min(4, mixer_cuda.SMS // (2 * _cdiv(R, 128)), F2 // 256))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("R", [100, 2048, 6144, 73728])
+def test_plans_at_d256(R, dtype):
+    """The plans at the Pips2 refiner's rows (a ragged tile, S=8 and S=24
+    windows of 256 points, S=24 training: 4 x 768 x 24): two column tiles of
+    the out product and of the dxa products (a cluster of two), 32
+    weight-grad tiles, whose K split fills the blocks the card holds at once
+    (four splits in bf16 from R=2048 on, in f32 eight from R=6144 on: at
+    least 512 rows a split), and scratch of width 256."""
+    fwd = mixer_cuda.fwd_plan(R, F2, dtype, D=D2)
+    bwd = mixer_cuda.bwd_plan(R, F2, dtype, D=D2)
+    rt = _cdiv(R, 128)
+    assert fwd.launches == 3 and bwd.launches == 5
+    assert fwd.grids == {"ln": (_cdiv(R, 8), 1, 1), "act": (8, rt, 1),
+                         "out": (2, rt, fwd.split)}
+    assert fwd.split == _expected_fwd_split(R, dtype)
+    assert fwd.split == {100: 4, 2048: 4, 6144: 1, 73728: 1}[R]
+    assert fwd.scratch == {"xa": ((R, D2), dtype), "g1": ((R, F2), dtype)}
+    split = {100: 1, 2048: 4}.get(R, 4 if dtype == torch.bfloat16 else 8)
+    assert bwd.split == split
+    assert bwd.grids == {"ln": (_cdiv(R, 8), 1), "act": (8, rt), "dxa": (2, rt),
+                         "wgrad": (32, split),
+                         "colsum": (_cdiv(3 * D2 + F2 + (2 * D2 * F2 // 4 if split > 1 else 0),
+                                          256), 1)}
+    assert bwd.scratch["part_d"] == ((rt, 3, D2), torch.float32)
+    assert bwd.scratch["wsplit"] == (((split, 2, D2 * F2), torch.float32) if split > 1 else None)
+    outs, _ = mixer_cuda.bwd_buffers(torch.zeros(R, D2, dtype=dtype), bwd)
+    assert [tuple(t.shape) for t in outs] == [(R, D2), (D2,), (D2,), (D2, F2), (F2,), (F2, D2),
+                                              (D2,)]
+
+
+@pytest.mark.parametrize("D", [64, 128, 384, 768])
+def test_cuda_kernels_refuse_other_widths(D):
+    """Only D of 256 and 512 has a kernel; any other width raises on the card
+    (no fall back to the plain version), and has no plan."""
+    with pytest.raises(ValueError, match="D in"):
+        mixer_cuda._cuda_ready("chan_ff_block", (), 100, D, 1024)
+    with pytest.raises(ValueError):
+        mixer_cuda.fwd_plan(100, 1024, torch.bfloat16, D=D)
+    with pytest.raises(ValueError):
+        mixer_cuda.bwd_plan(100, 1024, torch.float32, D=D)
+    for ok in mixer_cuda.KERNEL_D:
+        mixer_cuda._cuda_ready("chan_ff_block", (), 100, ok, 1024)
+    with pytest.raises(ValueError, match="F %"):
+        mixer_cuda._cuda_ready("chan_ff_block", (), 100, 256, 1000)
