@@ -87,7 +87,19 @@ Phases, each printing a progress line with the elapsed seconds:
      --S 24`` for 12 steps with a validation pass and a checkpoint, the loss
      falling; (e) 2 timed steps at the loop's defaults (the refiner 512 x 12,
      S=24, N=768, both flips: the D=512 kernels at R=73,728; N halved while a
-     step does not fit the card).
+     step does not fit the card);
+ 11. slice, the data path: (a) the port's host library, built from its
+     source, each C entry against its numpy form at 540x960; (b) a
+     FlyingThings++ tree at 540x960 (TRAIN and TEST, 4 + 2 videos of 10
+     webp frames, 20,000 points a window, occluders) and
+     ``train.loop.main`` on it at the loop's defaults (full-width bf16
+     Pips, fused channel blocks, augs on, N=768, S=8, I=4, 384x512; B=2,
+     as B=4 does not fit the card) for 12 steps with a
+     validation pass, media and a checkpoint; (c) a PointOdyssey tree
+     (jpg, 540x960) and ``--model_family pips2 --dataset pointodyssey
+     --S 24`` (B=1) for 6 steps; finite losses, a forward and a backward
+     channel-block launch per block and iteration; host ms per sample,
+     step ms and the loader waits printed.
 Phase 3 also holds (3d) ``conv3x3_same`` (the encoder's stage-1 3x3 conv)
 against its plain version, forward and dx, at a window's, the training
 default's and the bench train shape's stage 1 in bf16 and a small ragged
@@ -147,6 +159,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import io
 import json
 import math
@@ -254,6 +267,27 @@ PIPS2_TRAIN = dict(TRAIN, S=24)
 PIPS2_DEFAULT = dict(TRAIN_DEFAULT, S=24)
 PIPS2_LOOP_DIMS = dict(refiner_dim=512, refiner_depth=12)
 LOOP_PIPS2_STEPS = 12
+# phase 11, the data path: FlyingThings++ at its published frame size, TRAIN
+# and TEST splits of 10-frame videos (three S_load=8 windows each),
+# trajectories and occluders laid out as tests/tests_treeutil.py lays out
+# its small tree; enough points a clip (20,000, and 2,000 an occluder) that
+# N=768 survive the crop and the twice-visible filter at most scales. Then a
+# PointOdyssey tree at its frame size with sequences long enough for S=24
+# windows. train.loop.main runs on each at the loop's defaults, only the
+# location, the steps and the logging cadence set, and B: the default B=4
+# (16 clips after both flips) does not fit an 80 GB card, nor does B=2 at
+# S=24 (a first run of this phase: out of memory at B=4 for both sets and
+# at B=2 for PointOdyssey, peak 55.5 GB at B=2 and 59.4 GB at B=1), so each
+# starts at the largest B that fitted, halved again while a step does not
+DATA_HW = (540, 960)
+DATA_VIDEOS = {"TRAIN": 4, "TEST": 2}
+DATA_FRAMES, DATA_S_LOAD = 10, 8
+DATA_TRAJS, DATA_OCC_TRAJS = 20000, 2000
+DATA_PO_FRAMES = {"train": 30, "val": 26}
+DATA_PO_POINTS = 5000
+LOOP_DATA_STEPS, LOOP_PO_STEPS = 12, 6
+DATA_B = {"flyingthings": 2, "pointodyssey": 1}
+DATA_HOST_SAMPLES = 2  # samples of each set timed on one host thread
 CHUNK_FCS = (512, 1024)  # phase 3h times these: tools/profile_chanff_chunk.py's chunk widths
 # phase 3h's rows: the tool's, a ragged R and one ragged 64-row tile; and the
 # chunk width it also times at the training default's R=24,576
@@ -1874,6 +1908,314 @@ def phase_pips2(torch, np, mixer_cuda, corr_cuda, build_dir: Path) -> dict:
     return dict(launched=launched, **numbers)
 
 
+def write_pfm(np, path: Path, data) -> None:
+    """A little-endian one-channel PFM, rows bottom-up (tests/tests_treeutil.py's)."""
+    h, w = data.shape
+    with open(path, "wb") as f:
+        f.write(b"Pf\n" + f"{w} {h}\n".encode() + b"-1.0\n")
+        f.write(np.flipud(data).astype("<f4").tobytes())
+
+
+def data_frame(np, rng, H: int, W: int):
+    """A uint8 frame of 8x8 blocks of random colour plus pixel noise: the
+    decoders and the photometric augs get texture, the encoder stays fast."""
+    coarse = rng.randint(0, 256, (H // 8 + 1, W // 8 + 1, 3)).astype(np.int16)
+    img = np.repeat(np.repeat(coarse, 8, 0), 8, 1)[:H, :W]
+    return np.clip(img + rng.randint(-6, 7, img.shape), 0, 255).astype(np.uint8)
+
+
+def save_frames(frames) -> None:
+    """Encode (path, array) pairs in parallel: webp lossless (the method that
+    encodes fastest; the pixels are the same), else jpg."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    def save(item):
+        path, img = item
+        kw = dict(lossless=True, method=0, quality=0) if path.suffix == ".webp" else {}
+        Image.fromarray(img).save(path, **kw)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(save, frames))
+
+
+def make_flyingthings_tree(np, root: Path) -> None:
+    """FlyingThings++ at ``DATA_HW``: per video 10 webp frames, object-index
+    PFMs (a background and two moving boxes, ids 1 and 2), three trajectory
+    windows of ``DATA_TRAJS`` static points and three occluder files of
+    object 1's ``DATA_OCC_TRAJS`` points."""
+    H, W = DATA_HW
+    rng = np.random.RandomState(11)
+    frames = []
+    for dset, n in DATA_VIDEOS.items():
+        for v in range(n):
+            folder = f"{v:07d}"
+            dirs = {k: root / k / dset / "A" / folder / "left"
+                    for k in ("frames_cleanpass_webp", "object_index", "trajs_ad", "occluders_al")}
+            for d in dirs.values():
+                d.mkdir(parents=True)
+            boxes = [(rng.randint(0, H - h - 20), rng.randint(0, W - w - 30), h, w)
+                     for h, w in ((H * 3 // 8, W * 5 // 16), (H * 2 // 9, W * 3 // 16))]
+            for fr in range(DATA_FRAMES):
+                frames.append((dirs["frames_cleanpass_webp"] / f"{fr:04d}.webp",
+                               data_frame(np, rng, H, W)))
+                mask = np.zeros((H, W), np.float32)
+                for oid, (y, x, h, w) in enumerate(boxes, start=1):
+                    y, x = min(y + 2 * fr, H - h), min(x + 3 * fr, W - w)
+                    mask[y:y + h, x:x + w] = oid
+                write_pfm(np, dirs["object_index"] / f"{fr:04d}.pfm", mask)
+            y, x, h, w = boxes[0]
+            for k in range(3):
+                pts = rng.rand(DATA_TRAJS, 2) * [W - 2, H - 2]
+                np.savez(dirs["trajs_ad"] / f"trajs_at_{k}.npz",
+                         trajs=np.tile(pts[None], (DATA_S_LOAD, 1, 1)).astype(np.float16))
+                occ = rng.rand(DATA_OCC_TRAJS, 2) * [w, h] + [x, y]
+                np.save(dirs["occluders_al"] / f"occluder_at_{k}.npy",
+                        {"1": np.tile(occ[None], (DATA_S_LOAD, 1, 1)).astype(np.float16)},
+                        allow_pickle=True)
+    save_frames(frames)
+
+
+def make_pointodyssey_tree(np, root: Path) -> None:
+    """PointOdyssey at ``DATA_HW``: one train and one val sequence of jpg
+    frames, ``DATA_PO_POINTS`` random-walk trajectories, 90% visible."""
+    H, W = DATA_HW
+    rng = np.random.RandomState(12)
+    frames = []
+    for split, T in DATA_PO_FRAMES.items():
+        seq = root / split / "seq0"
+        (seq / "rgbs").mkdir(parents=True)
+        for fr in range(T):
+            frames.append((seq / "rgbs" / f"rgb_{fr + 1:05d}.jpg", data_frame(np, rng, H, W)))
+        start = rng.rand(DATA_PO_POINTS, 2) * [W - 40, H - 40] + 20
+        walk = np.cumsum(rng.randn(T, DATA_PO_POINTS, 2), axis=0)
+        np.savez(seq / "annotations.npz", trajs_2d=(start + walk).astype(np.float32),
+                 visibilities=(rng.rand(T, DATA_PO_POINTS) < 0.9).astype(np.float32))
+    save_frames(frames)
+
+
+def phase_host_lib(np) -> dict:
+    """11a: build the port's host library from its source, then hold each C
+    entry against its numpy form at FlyingThings' frame size; one call each,
+    timed on the host clock. Returns {entry: (C ms, numpy ms)}."""
+    import tempfile as _tempfile
+
+    from pips_tpu_torch.data.augs import gaussian_taps
+    from pips_tpu_torch.native import lib
+
+    t = time.perf_counter()
+    path = lib.library_path()
+    lib.ensure_built(force=True)
+    log("data", f"host library built from {lib.SOURCE.name} in {time.perf_counter() - t:.2f} s "
+                f"-> {path}; version {lib._load().pips_native_version()}")
+    H, W = DATA_HW
+    rng = np.random.RandomState(13)
+    img = data_frame(np, rng, H, W)
+    f32 = img.astype(np.float32)
+    N = DATA_TRAJS
+    pts = (rng.rand(N, 2) * [W + 40, H + 40] - 20).astype(np.float32)
+    pts[np.abs(pts - np.round(pts)) == 0.5] += 0.125  # chain_step rounds halves otherwise
+    flow = rng.randn(H, W, 2).astype(np.float32)
+    occ = np.where(rng.rand(H, W) < 0.2, 255.0, 0.0).astype(np.float32)
+    painter = rng.randint(0, 5, (H, W)).astype(np.uint8)
+    birth = rng.randint(0, 5, N).astype(np.int32)
+    rects = np.array([[x, x + 60, y, y + 40] for x, y in rng.randint(0, 800, (10, 2))], np.int32)
+    M = np.full((3, 4), 0.02)
+    M[:, 3] = -11.0
+    M[np.arange(3), np.arange(3)] += 1.13
+    taps = gaussian_taps(11, 1.7)
+    pfm = (b"Pf\n" + f"{W} {H}\n".encode() + b"-1.0\n"
+           + np.flipud(flow[..., 0]).astype("<f4").tobytes())
+    alt = np.ascontiguousarray(f32[::-1])
+    mask = rng.rand(1, H, W).astype(np.float32)
+
+    def vis_pass(fn):
+        vis, inb = np.ones(N, np.float32), np.empty(N, np.uint8)
+        fn(pts, occ, vis, inb)
+        return vis, inb
+
+    def covered(fn):
+        vis = np.ones(N, np.float32)
+        fn(painter, pts, birth, vis)
+        return vis
+
+    def rects_in(fn):
+        vis = np.ones(N, np.float32)
+        fn(pts, rects, vis)
+        return vis
+
+    cases = {
+        "decode_pfm": (lambda: lib.decode_pfm(pfm), lambda: lib.decode_pfm_reference(pfm)),
+        "composite": (lambda: lib.composite(f32[None].copy(), alt[None], mask),
+                      lambda: lib.composite_reference(f32[None].copy(), alt[None], mask)),
+        "resize_bilinear": (lambda: lib.resize_bilinear(f32, (384, 512)),
+                            lambda: lib.resize_bilinear_reference(f32, (384, 512))),
+        "chain_step": (lambda: lib.chain_step(flow, pts.copy()),
+                       lambda: lib.chain_step_reference(flow, pts.copy())),
+        "mark_in_rects": (lambda: rects_in(lib.mark_in_rects),
+                          lambda: rects_in(lib.mark_in_rects_reference)),
+        "mark_covered_frame": (lambda: covered(lib.mark_covered_frame),
+                               lambda: covered(lib.mark_covered_frame_reference)),
+        "visibility_frame": (lambda: vis_pass(lib.visibility_frame),
+                             lambda: vis_pass(lib.visibility_frame_reference)),
+        "color_affine": (lambda: lib.color_affine(img, M),
+                         lambda: lib.color_affine_reference(img, M)),
+        "hue_shift": (lambda: lib.hue_shift(img, -17), lambda: lib.hue_shift_reference(img, -17)),
+        "gaussian_blur": (lambda: lib.gaussian_blur(img, taps),
+                          lambda: lib.gaussian_blur_reference(img, taps)),
+    }
+    with _tempfile.NamedTemporaryFile(suffix=".pfm") as f:
+        f.write(pfm)
+        f.flush()
+        cases["decode_pfm_file"] = (lambda: lib.decode_pfm_file(f.name),
+                                    lambda: lib.decode_pfm_reference(pfm))
+        times = {}
+        for name, (c_fn, np_fn) in cases.items():
+            c_fn()
+            t = time.perf_counter()
+            got = c_fn()
+            c_ms = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            want = np_fn()
+            np_ms = (time.perf_counter() - t) * 1e3
+            for g, w in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,)):
+                if g.shape != w.shape or not np.array_equal(g, w):
+                    fail(f"host library {name}: the C entry differs from its numpy form")
+            times[name] = (c_ms, np_ms)
+    per_entry = ", ".join(f"{k} {c:.2f} / {n:.1f}" for k, (c, n) in times.items())
+    log("data", f"host library at {H}x{W} ({N} points): every C entry equals its numpy form; "
+                f"C / numpy ms {per_entry}")
+    return times
+
+
+def host_ms_per_sample(ds) -> list:
+    """Host ms of ``DATA_HOST_SAMPLES`` samples on one thread (the first
+    decodes its frames cold; later ones may hit the frame caches)."""
+    out = []
+    for i in range(DATA_HOST_SAMPLES):
+        t = time.perf_counter()
+        ds[i * 7919]
+        out.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def data_loop(torch, mixer_cuda, corr_cuda, argv: list, steps: int, depth: int,
+              label: str) -> dict:
+    """``train.loop.main(argv)`` at ``DATA_B[label]``, halved while a step
+    does not fit the card. Asserts finite losses, a checkpoint at the last step
+    and the channel-block kernels' launches (a forward per block and
+    iteration of every step, validation batch and media render, a backward
+    per block and iteration of every step). Returns the numbers."""
+    from pips_tpu_torch.train import parse_cli
+    from pips_tpu_torch.train import loop as train_loop
+    from pips_tpu_torch.utils import saverloader
+
+    B = DATA_B[label]
+    while True:
+        args = argv + ["--B", str(B)]
+        cfg = parse_cli(args)
+        zero_train_counts(mixer_cuda, corr_cuda)
+        torch.cuda.reset_peak_memory_stats()
+        buf = io.StringIO()
+        t = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                metrics = train_loop.main(args)
+            torch.cuda.synchronize()
+            break
+        except RuntimeError as e:  # the allocator's OutOfMemoryError, or a library's
+            if not (isinstance(e, torch.cuda.OutOfMemoryError) or "out of memory" in str(e)):
+                raise
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("data", f"{label}: a step at B={B} does not fit the card "
+                    f"({time.perf_counter() - t:.1f} s spent): halving B")
+        B //= 2
+        if B == 0:
+            fail(f"{label}: no step at the loop's defaults fits the card")
+    secs = time.perf_counter() - t
+    out = buf.getvalue()
+    want = (depth * cfg.I * (steps + cfg.val_batches + 1), depth * cfg.I * steps, 0, 0)
+    got = train_counts(mixer_cuda, corr_cuda)
+    if got != want:
+        fail(f"{label}: {TRAIN_KERNELS} launched {got} times, expected {want}")
+    losses = [float(v) for v in re.findall(r"loss = ([0-9.eE+-]+)", out)]
+    rtime = [float(v) * 1e3 for v in re.findall(r"rtime ([0-9.]+)", out)]
+    itime = [float(v) * 1e3 for v in re.findall(r"itime ([0-9.]+)", out)]
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses + [*metrics.values()]):
+        fail(f"{label}: {len(losses)} step losses, metrics {metrics}")
+    saved = saverloader.list_steps(str(Path(cfg.ckpt_dir) / cfg.model_name()))
+    if saved != [steps]:
+        fail(f"{label}: checkpoints {saved}, expected [{steps}]")
+    step_ms = [i - r for i, r in zip(itime[1:], rtime[1:])]  # the first step includes warm-up
+    numbers = dict(B=B, loop_s=secs, step_ms=statistics.median(step_ms),
+                   loader_wait_ms_median=statistics.median(rtime[1:]),
+                   loader_wait_ms_max=max(rtime[1:]),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log("data", f"{label}: train.loop.main(B={B}, {cfg.model_name()}) {steps} steps, a validation "
+                f"pass of {cfg.val_batches}, media and a checkpoint in {secs:.1f} s; total_loss "
+                f"{' '.join(f'{v:.4g}' for v in losses)}; step ms after the first: median "
+                f"{numbers['step_ms']:.0f} ({' '.join(f'{v:.0f}' for v in step_ms)}); waited on "
+                f"the loader: median {numbers['loader_wait_ms_median']:.0f} ms, max "
+                f"{numbers['loader_wait_ms_max']:.0f} ms (first step {rtime[0]:.0f} ms); peak "
+                f"memory {numbers['peak_gb']:.2f} GB; launches {got}")
+    return dict(launched=got, **numbers)
+
+
+def phase_data(torch, np, mixer_cuda, corr_cuda, build_dir: Path) -> dict:
+    """11: the data path. (a) the host library against its numpy forms;
+    (b) a FlyingThings++ tree at 540x960 and ``train.loop.main`` on it at the
+    loop's defaults (full-width bf16 Pips, fused channel blocks, augs on; B
+    as ``DATA_B``), 12 steps with a validation pass, media and a checkpoint;
+    (c) a PointOdyssey tree and ``--model_family pips2 --dataset
+    pointodyssey --S 24`` for 6 steps. Prints host ms per sample, step ms and the
+    loader waits; returns the launches and the numbers."""
+    from pips_tpu_torch.data import FlyingThingsDataset, PointOdysseyDataset
+
+    numbers = {"host_lib_ms": phase_host_lib(np)}
+    launched = {"chan_ff_block": 0, "chan_ff_bwd": 0}
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_data_", dir=build_dir))
+    try:
+        t = time.perf_counter()
+        make_flyingthings_tree(np, root / "flt")
+        make_pointodyssey_tree(np, root / "po")
+        log("data", f"trees written in {time.perf_counter() - t:.1f} s: FlyingThings++ "
+                    f"{DATA_VIDEOS} videos of {DATA_FRAMES} webp frames at {DATA_HW[0]}x"
+                    f"{DATA_HW[1]}, {DATA_TRAJS} points a window; PointOdyssey {DATA_PO_FRAMES} "
+                    f"jpg frames, {DATA_PO_POINTS} points")
+        with contextlib.redirect_stdout(io.StringIO()):
+            ft = FlyingThingsDataset(str(root / "flt"), use_augs=True, N=768, S=8,
+                                     crop_size=(384, 512))
+            po = PointOdysseyDataset(str(root / "po"), use_augs=True, N=768, S=24,
+                                     crop_size=(384, 512))
+        for name, ds in (("flyingthings", ft), ("pointodyssey", po)):
+            ms = host_ms_per_sample(ds)
+            numbers[f"{name} host_ms_per_sample"] = statistics.median(ms)
+            log("data", f"{name} host ms per sample on one thread (augs on, N=768): "
+                        f"{' '.join(f'{v:.0f}' for v in ms)}, median {statistics.median(ms):.0f}")
+        del ft, po
+        common = ["--num_workers", "8", "--metrics_every", "1"]
+        for name, argv, steps, depth in [
+                ("flyingthings", ["--dataset_location", str(root / "flt")], LOOP_DATA_STEPS, DEPTH),
+                ("pointodyssey", ["--model_family", "pips2", "--dataset", "pointodyssey",
+                                  "--S", "24", "--dataset_location", str(root / "po")],
+                 LOOP_PO_STEPS, DEPTH)]:
+            cadence = ["--max_iters", str(steps), "--val_freq", str(steps), "--save_freq",
+                       str(steps), "--log_freq", str(steps), "--ckpt_dir",
+                       str(root / name / "ckpts"), "--log_dir", str(root / name / "logs")]
+            got = data_loop(torch, mixer_cuda, corr_cuda, argv + cadence + common, steps,
+                            depth, name)
+            for k, n in zip(("chan_ff_block", "chan_ff_bwd"), got.pop("launched")):
+                launched[k] += n
+            numbers.update({f"{name} {k}": v for k, v in got.items()})
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(launched=launched, **numbers)
+
+
 def check_window(np, name, trajs, vis, xys, S: int = 8) -> None:
     N = xys.shape[1]
     if trajs.shape != (1, S, N, 2) or vis.shape != (1, S, N):
@@ -2585,6 +2927,13 @@ def main() -> int:
     for k, n in pips2.pop("launched").items():
         main_path[k] += n
 
+    # 11. slice: the data path, the host library and the FlyingThings++ and
+    # PointOdyssey readers feeding train.loop.main at the loop's defaults
+    zero_counts()
+    data = phase_data(torch, np, mixer_cuda, corr_cuda, build_dir)
+    for k, n in data.pop("launched").items():
+        main_path[k] += n
+
     log("slice", f"main-path launches: {main_path}")
     if min(main_path.values()) == 0:
         fail(f"a kernel of the path never launched on it: {main_path}")
@@ -2635,7 +2984,7 @@ def main() -> int:
     log("done", f"all phases passed in {time.perf_counter() - T0:.1f} s "
                 f"(chained video {chain_s:.2f} s; windows {json.dumps(window_ms)}; "
                 f"training default {json.dumps(train_default)}; f32 {json.dumps(train_f32)}; "
-                f"Pips2 {json.dumps(pips2)})")
+                f"Pips2 {json.dumps(pips2)}; data {json.dumps(data)})")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

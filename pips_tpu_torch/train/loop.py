@@ -1,6 +1,8 @@
 """The train loop (counterpart of ``pips_tpu/train/loop.py``).
 
-    python -m pips_tpu_torch.train.loop --dataset synthetic --fuse_conv3 1 ...
+    python -m pips_tpu_torch.train.loop --dataset_location /data/flyingthings
+    python -m pips_tpu_torch.train.loop --model_family pips2 --dataset pointodyssey \
+        --dataset_location /data/pointodyssey --S 24
 
 Composes: dataset -> host batcher -> CUDA prefetch -> train step -> pooled
 metric logging -> periodic validation, media and checkpointing with
@@ -8,10 +10,11 @@ auto-resume. Runs on CUDA unless the caller passes ``device="cpu"``.
 
 ``model_family="pips2"`` trains the S-agnostic PIPs++ family (``Pips2``), its
 refiner ``mixer_dim`` wide and ``mixer_depth`` deep, as the JAX loop builds it.
-Not ported yet, and refused with the ROADMAP item that brings them: the
-FlyingThings++ and PointOdyssey sets (A4, data) and data-parallel or
-multi-host runs (A7, parallel). The JAX loop's compile cache has no
-counterpart: PyTorch runs eagerly.
+``dataset`` is ``flyingthings`` (FlyingThings++, the default), ``pointodyssey``
+or ``synthetic``; validation reads FlyingThings++'s TEST split and
+PointOdyssey's ``val``. Not ported yet, and refused with the ROADMAP item that
+brings them: data-parallel or multi-host runs (A7, parallel). The JAX loop's
+compile cache has no counterpart: PyTorch runs eagerly.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pips_tpu_torch.data import DevicePrefetcher, SyntheticPointDataset, batch_iterator
+from pips_tpu_torch.data import (DevicePrefetcher, FlyingThingsDataset, PointOdysseyDataset,
+                                  SyntheticPointDataset, batch_iterator)
 from pips_tpu_torch.models.pips import Pips, init_params, resolve_device
 from pips_tpu_torch.models.pips2 import Pips2
 from pips_tpu_torch.train.config import (TrainConfig, parse_cli, resolve_dtype,
@@ -43,9 +47,17 @@ def build_dataset(cfg: TrainConfig, split: str = "train"):
         return SyntheticPointDataset(S=cfg.S, N=cfg.N, H=cfg.crop_size[0],
                                      W=cfg.crop_size[1],
                                      seed=125 if split == "train" else 9125)
-    if cfg.dataset in ("flyingthings", "pointodyssey"):
-        raise NotImplementedError(f"dataset {cfg.dataset!r} is not ported yet (ROADMAP A4, "
-                                  f"data); use --dataset synthetic")
+    if cfg.dataset == "flyingthings":
+        return FlyingThingsDataset(
+            dataset_location=cfg.dataset_location,
+            dset="TRAIN" if split == "train" else "TEST",
+            subset=cfg.subset if split == "train" else "all",
+            use_augs=cfg.use_augs, N=cfg.N, S=cfg.S, crop_size=tuple(cfg.crop_size))
+    if cfg.dataset == "pointodyssey":
+        return PointOdysseyDataset(
+            dataset_location=cfg.dataset_location,
+            dset="train" if split == "train" else "val",
+            use_augs=cfg.use_augs, N=cfg.N, S=cfg.S, crop_size=tuple(cfg.crop_size))
     raise ValueError(f"unknown dataset {cfg.dataset!r}")
 
 
@@ -250,7 +262,7 @@ def train(cfg: Optional[TrainConfig] = None, device="cuda") -> dict:
             if sync:
                 last_metrics = metrics
                 print(f"{name}; step {global_step:06d}/{cfg.max_iters}; "
-                      f"rtime {read_time:.2f}; itime {iter_time:.2f}; "
+                      f"rtime {read_time:.3f}; itime {iter_time:.3f}; "
                       f"loss = {last_metrics['total_loss']:.5f}", flush=True)
     finally:
         if prof is not None:

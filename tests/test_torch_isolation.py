@@ -39,9 +39,24 @@ def test_port_imports_no_jax_and_nothing_of_pips_tpu():
                  "tools.profile_stem_wgrad", "kernels.chanff_chunk_cuda",
                  "tools.profile_chanff_chunk", "kernels.mixer_probes_cuda",
                  "kernels.corr_rows_cuda", "kernels.row_contract_cuda",
-                 "tools.debug_mixer_kernel", "tools.debug_pallas7", "tools.probe_mosaic_ops"):
+                 "tools.debug_mixer_kernel", "tools.debug_pallas7", "tools.probe_mosaic_ops",
+                 "data.flyingthings", "data.pointodyssey", "data.badja", "data.crohd",
+                 "data.augs", "data.pfm", "native.lib", "ops.fps", "utils.cli", "datagen.run",
+                 "datagen.trajs", "datagen.occluders"):
         assert f"pips_tpu_torch.{name}" in res["modules"]
     assert res["banned"] == []
+
+
+def test_host_library_is_the_ports_own():
+    """The port builds its host library from its own source and never names
+    the JAX package's prebuilt ``native/libpipshost.so``."""
+    lib = (REPO / "pips_tpu_torch" / "native" / "lib.py").read_text()
+    assert "libpipshost.so" not in lib and "NATIVE_DIR" not in lib
+    assert (REPO / "pips_tpu_torch" / "native" / "pips_host.cpp").is_file()
+    from pips_tpu_torch.native import lib as native_lib
+
+    assert native_lib.SOURCE == REPO / "pips_tpu_torch" / "native" / "pips_host.cpp"
+    assert native_lib.library_path().parent == REPO / "build" / "pips_tpu_torch"
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
