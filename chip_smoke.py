@@ -100,6 +100,20 @@ Phases, each printing a progress line with the elapsed seconds:
      --S 24`` (B=1) for 6 steps; finite losses, a forward and a backward
      channel-block launch per block and iteration; host ms per sample,
      step ms and the loader waits printed.
+ 12. slice, the eval runners: seeded full-width weights written as a
+     reference-format ``model-*.pth`` (``module.`` prefix), which
+     ``evals.common.load_params`` must give back bit for bit; then
+     ``pips_tpu_torch.evals.run_flt.main`` (FlyingThings++ TEST at 540x960,
+     crop 384x512, N=16), ``run_crohd.main`` (HT21 at 1080x1920, stride 4),
+     ``run_badja.main`` (a 20-frame 480x854 video resized to 320x512, chained
+     at stride 4) and ``run_davis.main`` (two 8-frame 1080x1920 videos at
+     480x1024, 7680 points, ``--chunk 0`` and ``256``), each with ``--dtype
+     bfloat16``, ``run_flt`` also in f32: finite metrics, media written, 12 * 6
+     ``chan_ff_block`` launches a window in bf16 and none in f32; the bf16
+     trajectories against the plain channel block within the six-iteration
+     drift bounds (DAVIS's dense ``trajs``, ``build_pips_tracker`` on the
+     first FlyingThings++ and CroHD samples); each runner's seconds, median
+     window ms and DAVIS's TPS printed.
 Phase 3 also holds (3d) ``conv3x3_same`` (the encoder's stage-1 3x3 conv)
 against its plain version, forward and dx, at a window's, the training
 default's and the bench train shape's stage 1 in bf16 and a small ragged
@@ -288,6 +302,25 @@ DATA_PO_POINTS = 5000
 LOOP_DATA_STEPS, LOOP_PO_STEPS = 12, 6
 DATA_B = {"flyingthings": 2, "pointodyssey": 1}
 DATA_HOST_SAMPLES = 2  # samples of each set timed on one host thread
+# phase 12, the eval runners at the sets' own frame sizes, on the flagship's
+# width with seeded weights written as a reference-format .pth (the module.
+# prefix of a DataParallel model): FlyingThings++ TEST (phase 11's maker, 2
+# videos of 3 windows at 540x960; crop 384x512, N=16: the runner's
+# defaults), CroHD at HT21's 1080x1920 (four 24-frame windows of 24 heads
+# moving 4 px a frame, 375 px from frame 0 summed over the 8 kept frames,
+# where prep_sample keeps more than 150; 20 of them occluded in frames 12-14
+# of a window, as the default req_occlusion keeps; stride 4), BADJA (a
+# 20-frame video at 480x854, resized to 320x512; stride 4) and DAVIS (two
+# 8-frame 1080x1920 videos, resized to 480x1024, 7680 points, --chunk 0 and
+# 256). Every runner in bf16 (the kernel path), run_flt also in f32. A
+# runner's first window runs at a shape no earlier phase ran (module loads,
+# cuDNN plans, the allocator's growth): it is timed apart from the median of
+# the rest, and DAVIS's steady TPS is its last video's.
+EVAL_FLT_WINDOWS = 4
+EVAL_CROHD_HW, EVAL_CROHD_WINDOWS, EVAL_CROHD_HEADS, EVAL_CROHD_OCCLUDED = (1080, 1920), 4, 24, 20
+EVAL_BADJA_HW, EVAL_BADJA_T = (480, 854), 20
+EVAL_DAVIS_HW, EVAL_DAVIS_VIDEOS, EVAL_DAVIS_CHUNKS = (1080, 1920), 2, (0, 256)
+EVAL_DAVIS_POINTS = (480 // 8) * (1024 // 8)  # run_davis's dense grid at its defaults
 CHUNK_FCS = (512, 1024)  # phase 3h times these: tools/profile_chanff_chunk.py's chunk widths
 # phase 3h's rows: the tool's, a ragged R and one ragged 64-row tile; and the
 # chunk width it also times at the training default's R=24,576
@@ -1940,15 +1973,15 @@ def save_frames(frames) -> None:
         list(pool.map(save, frames))
 
 
-def make_flyingthings_tree(np, root: Path) -> None:
-    """FlyingThings++ at ``DATA_HW``: per video 10 webp frames, object-index
-    PFMs (a background and two moving boxes, ids 1 and 2), three trajectory
-    windows of ``DATA_TRAJS`` static points and three occluder files of
-    object 1's ``DATA_OCC_TRAJS`` points."""
+def make_flyingthings_tree(np, root: Path, videos: dict = DATA_VIDEOS) -> None:
+    """FlyingThings++ at ``DATA_HW``, ``videos[split]`` videos a split: per
+    video 10 webp frames, object-index PFMs (a background and two moving
+    boxes, ids 1 and 2), three trajectory windows of ``DATA_TRAJS`` static
+    points and three occluder files of object 1's ``DATA_OCC_TRAJS`` points."""
     H, W = DATA_HW
     rng = np.random.RandomState(11)
     frames = []
-    for dset, n in DATA_VIDEOS.items():
+    for dset, n in videos.items():
         for v in range(n):
             folder = f"{v:07d}"
             dirs = {k: root / k / dset / "A" / folder / "left"
@@ -2211,6 +2244,295 @@ def phase_data(torch, np, mixer_cuda, corr_cuda, build_dir: Path) -> dict:
                 launched[k] += n
             numbers.update({f"{name} {k}": v for k, v in got.items()})
             torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(launched=launched, **numbers)
+
+
+def reference_state_dict(sd: dict, depth: int) -> dict:
+    """The port's state dict -> the reference model's (``nets/pips.py``)
+    names and layouts, with the ``module.`` prefix of a DataParallel model:
+    the inverse of ``torchport.convert_pips_state_dict`` composed with the
+    port's bridge. Dense kernels (in, out) become Linear weights (out, in),
+    the token mixers' Conv1d weights (out, in, 1); norm scales are weights."""
+    out = {}
+    for key, a in sd.items():
+        mods = key.split(".")
+        if mods[0] == "fnet":
+            m = re.fullmatch(r"layer(\d)_(\d)", mods[1])
+            if m:
+                mods[1:2] = [f"layer{m[1]}", m[2]]
+            if "downsample" in mods:
+                mods.insert(mods.index("downsample") + 1, "0")
+            out["module." + ".".join(mods)] = a.clone()
+            continue
+        *path, leaf = mods
+        if leaf == "kernel":
+            a = a.t()
+        leaf = {"kernel": "weight", "scale": "weight"}.get(leaf, leaf)
+        if path[0] == "delta_block":
+            name = path[2]
+            m = re.fullmatch(r"block(\d+)_(token|chan)(_norm)?", name)
+            if m:
+                d, sub = int(m[1]) + 1, "0" if m[2] == "token" else "1"
+                if m[3]:
+                    name = f"{d}.{sub}.norm"
+                else:
+                    fc = {"fc1": 0, "fc2": 3}[path[3]]
+                    name = f"{d}.{sub}.fn.{fc}"
+                    if m[2] == "token" and leaf == "weight":
+                        a = a[:, :, None]
+            else:
+                name = str({"embed": 0, "final_norm": depth + 1, "head": depth + 3}[name])
+            name = f"delta_block.to_delta.{name}"
+        else:
+            name = {"ffeat_norm": "norm", "ffeat_updater": "ffeat_updater.0",
+                    "vis_predictor": "vis_predictor.0"}[path[0]]
+        out[f"module.{name}.{leaf}"] = a.contiguous().clone()
+    return out
+
+
+def make_crohd_tree(np, root: Path) -> None:
+    """CroHD (HT21 train) at ``EVAL_CROHD_HW``: HT21-01 holds
+    ``EVAL_CROHD_WINDOWS`` 24-frame windows of jpg frames and the heads'
+    MOT rows; HT21-02..04 one label row each (no whole window)."""
+    H, W = EVAL_CROHD_HW
+    rng = np.random.RandomState(21)
+    T = 24 * EVAL_CROHD_WINDOWS
+    starts = rng.rand(EVAL_CROHD_HEADS, 2) * [W - 300, H - 200] + 100
+    vel = rng.choice([-1.0, 1.0], (EVAL_CROHD_HEADS, 2)) * [4.0, 2.0]
+    frames = []
+    for i, sub in enumerate(("HT21-01", "HT21-02", "HT21-03", "HT21-04")):
+        img, gt = root / "HT21/train" / sub / "img1", root / "HT21Labels/train" / sub / "gt"
+        img.mkdir(parents=True)
+        gt.mkdir(parents=True)
+        rows = []
+        for fr in range(T if i == 0 else 1):
+            if i == 0:
+                frames.append((img / f"{fr + 1:06d}.jpg", data_frame(np, rng, H, W)))
+            for h in range(EVAL_CROHD_HEADS):
+                x, y = starts[h] + vel[h] * (fr % 24)  # each window from its start
+                vis = int(not (h < EVAL_CROHD_OCCLUDED and 12 <= fr % 24 < 15))
+                rows.append(f"{fr + 1},{h + 1},{x - 20:.1f},{y - 20:.1f},40,40,1,1,{vis}")
+        (gt / "gt.txt").write_text("\n".join(rows))
+    save_frames(frames)
+
+
+def make_badja_tree(np, root: Path) -> None:
+    """BADJA: one ``EVAL_BADJA_T``-frame DAVIS video at ``EVAL_BADJA_HW``
+    (jpg frames, png segmentations) with its joint annotations, as
+    tests/tests_treeutil.py lays out its small tree."""
+    from PIL import Image
+
+    H, W = EVAL_BADJA_HW
+    rng = np.random.RandomState(22)
+    (root / "joint_annotations").mkdir(parents=True)
+    img_dir = root / "DAVIS/JPEGImages/Full-Resolution/bear"
+    seg_dir = root / "DAVIS/Annotations/Full-Resolution/bear"
+    img_dir.mkdir(parents=True)
+    seg_dir.mkdir(parents=True)
+    ann, frames = [], []
+    for fr in range(EVAL_BADJA_T):
+        frames.append((img_dir / f"{fr:05d}.jpg", data_frame(np, rng, H, W)))
+        seg = np.zeros((H, W), np.uint8)
+        seg[H // 5 + 3 * fr:H * 3 // 4 + 3 * fr, W // 4:W * 3 // 4] = 255
+        Image.fromarray(seg).save(seg_dir / f"{fr:05d}.png")
+        ann.append({"image_path": f"DAVIS/JPEGImages/Full-Resolution/bear/{fr:05d}.jpg",
+                    "segmentation_path": f"DAVIS/Annotations/Full-Resolution/bear/{fr:05d}.png",
+                    "joints": (rng.rand(37, 2) * [H * 0.5, W * 0.5] + [H * 0.25, W * 0.25]
+                               + 2.0 * fr).tolist(),  # (y, x)
+                    "visibility": (rng.rand(37) < 0.9).astype(int).tolist()})
+    (root / "joint_annotations" / "bear.json").write_text(json.dumps(ann))
+    save_frames(frames)
+
+
+def make_davis_tree(np, root: Path) -> None:
+    """DAVIS: ``EVAL_DAVIS_VIDEOS`` videos of 8 jpg frames at ``EVAL_DAVIS_HW``."""
+    H, W = EVAL_DAVIS_HW
+    rng = np.random.RandomState(23)
+    frames = []
+    for v in range(EVAL_DAVIS_VIDEOS):
+        vd = root / "JPEGImages/Full-Resolution" / f"video{v}"
+        vd.mkdir(parents=True)
+        frames += [(vd / f"{fr:05d}.jpg", data_frame(np, rng, H, W)) for fr in range(8)]
+    save_frames(frames)
+
+
+@contextlib.contextmanager
+def timed_windows(torch, window_tracker):
+    """Time every ``WindowTracker`` call (``__call__``, and ``track``, which
+    ``ChainTracker`` calls) on the host clock, ending in a device sync.
+    Yields the list the seconds go to."""
+    secs = []
+    call, track = window_tracker.__call__, window_tracker.track
+
+    def timed(fn):
+        def run(self, *args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(self, *args, **kw)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            return out
+        return run
+
+    window_tracker.__call__, window_tracker.track = timed(call), timed(track)
+    try:
+        yield secs
+    finally:
+        window_tracker.__call__, window_tracker.track = call, track
+
+
+def media_files(root: Path) -> list:
+    return sorted(str(p.relative_to(root)) for p in root.rglob("*") if p.suffix in (".png", ".gif"))
+
+
+def phase_evals(torch, np, mixer_cuda, mixer_module, build_dir: Path) -> dict:
+    """12: the eval runners (``pips_tpu_torch.evals.run_{flt,crohd,badja,
+    davis}.main``, as the CLI calls them) at the sets' frame sizes on the
+    flagship's width: seeded weights written as a reference-format ``.pth``
+    that ``load_params`` must give back bit for bit; each runner in bf16 with
+    finite metrics, its media written and 12 * 6 ``chan_ff_block`` launches a
+    window; ``run_flt`` also in f32 (the default: no kernel). The bf16
+    trajectories against the plain channel block within ``SIX_ITERS``:
+    DAVIS's dense ``trajs``, and ``build_pips_tracker`` on the first
+    FlyingThings++ and CroHD samples. Returns the launches and the numbers."""
+    from pips_tpu_torch import init_params
+    from pips_tpu_torch.data import CrohdDataset, FlyingThingsDataset
+    from pips_tpu_torch.data.crohd import prep_sample
+    from pips_tpu_torch.evals import common, run_badja, run_crohd, run_davis, run_flt
+    from pips_tpu_torch.inference.window import WindowTracker
+    from pips_tpu_torch.models.pips import Pips
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_evals_", dir=build_dir))
+    launched, numbers = {"chan_ff_block": 0}, {}
+    try:
+        t = time.perf_counter()
+        make_flyingthings_tree(np, root / "flt", {"TEST": DATA_VIDEOS["TEST"]})
+        make_crohd_tree(np, root / "crohd")
+        make_badja_tree(np, root / "badja")
+        make_davis_tree(np, root / "davis")
+        # seeded weights, every bias and norm scale moved off 0 and 1 so that
+        # a misplaced leaf shows, written in the reference's layout
+        src = init_params(Pips(), 0)
+        gen = torch.Generator().manual_seed(12)
+        with torch.no_grad():
+            for name, p in src.named_parameters():
+                if name.endswith((".bias", ".scale")):
+                    p.add_(0.02 * torch.randn(p.shape, generator=gen))
+        want_sd = src.state_dict()
+        pth = root / "ckpt" / "model-000200000.pth"
+        pth.parent.mkdir()
+        torch.save({"model_state_dict": reference_state_dict(want_sd, DEPTH),
+                    "optimizer_state_dict": {}}, pth)
+        with contextlib.redirect_stdout(io.StringIO()):
+            got_sd = common.load_params(common.make_pips(dtype="bfloat16"), str(pth)).state_dict()
+        bad = [k for k in want_sd if not torch.equal(got_sd[k].cpu(), want_sd[k])]
+        if sorted(got_sd) != sorted(want_sd) or bad:
+            fail(f"evals: load_params of the reference-format .pth differs at {bad[:5]}")
+        log("evals", f"trees and a reference-format .pth ({len(want_sd)} entries, module. "
+                     f"prefix) in {time.perf_counter() - t:.1f} s; load_params gives the state "
+                     f"dict back bit for bit")
+
+        runs = [
+            ("flt bf16", run_flt.main, dict(dataset_location=str(root / "flt"),
+                                            max_iters=EVAL_FLT_WINDOWS, log_freq=2,
+                                            log_dir=str(root / "out/flt_bf16"),
+                                            dtype="bfloat16"), root / "out/flt_bf16"),
+            ("flt f32", run_flt.main, dict(dataset_location=str(root / "flt"),
+                                           max_iters=EVAL_FLT_WINDOWS, log_freq=2,
+                                           log_dir=str(root / "out/flt_f32")),
+             root / "out/flt_f32"),
+            # media of the first window only: where imageio is absent, PIL
+            # writes the GIFs and takes ~15 s to quantize 8 frames at 1080x1920
+            ("crohd bf16", run_crohd.main, dict(dataset_root=str(root / "crohd"),
+                                                log_freq=EVAL_CROHD_WINDOWS,
+                                                log_dir=str(root / "out/crohd"),
+                                                dtype="bfloat16"), root / "out/crohd"),
+            ("badja bf16", run_badja.main, dict(data_dir=str(root / "badja"),
+                                                out_dir=str(root / "out/badja"),
+                                                dtype="bfloat16"), root / "out/badja")]
+        runs += [(f"davis bf16 chunk {c}", run_davis.main,
+                  dict(davis_dir=str(root / "davis"), chunk=c, dtype="bfloat16",
+                       out_dir=str(root / f"out/davis_{c}")), root / f"out/davis_{c}")
+                 for c in EVAL_DAVIS_CHUNKS]
+        outs = {}
+        for name, main_fn, kw, out_dir in runs:
+            torch.cuda.synchronize()
+            mixer_cuda.launches = 0
+            buf = io.StringIO()
+            t = time.perf_counter()
+            with timed_windows(torch, WindowTracker) as secs, contextlib.redirect_stdout(buf):
+                out = main_fn(init_dir=str(pth), **kw)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t
+            n_ff, bf16 = mixer_cuda.launches, "bf16" in name
+            want_ff = DEPTH * ITERS * len(secs) if bf16 else 0
+            if len(secs) < 2 or n_ff != want_ff:
+                fail(f"evals {name}: {len(secs)} windows, chan_ff_block launched {n_ff} times, "
+                     f"expected {want_ff}")
+            launched["chan_ff_block"] += n_ff
+            files = media_files(out_dir)
+            if not files:
+                fail(f"evals {name}: no media under {out_dir}")
+            if name.startswith("davis"):
+                per_video = len(secs) // EVAL_DAVIS_VIDEOS
+                steady_tps = EVAL_DAVIS_POINTS / sum(secs[-per_video:])
+                finite = (np.isfinite(out["trajs"]).all() and out["mean_tps"] > 0
+                          and out["trajs"].shape == (8, EVAL_DAVIS_POINTS, 2))
+                shown = (f"TPS {steady_tps:.0f} on the last video, the runner's mean "
+                         f"{out['mean_tps']:.0f} (first video cold)")
+                numbers[f"{name} tps"], numbers[f"{name} steady_tps"] = (out["mean_tps"],
+                                                                          steady_tps)
+            elif name.startswith("badja"):
+                finite = math.isfinite(out["avg"])
+                shown = f"PCK {out['avg']:.2f}"
+            else:
+                finite = all(math.isfinite(out[k]) for k in ("ate_all", "ate_vis"))
+                shown = ", ".join(f"{k} {v:.3f}" for k, v in out.items())
+            if not finite:
+                fail(f"evals {name}: non-finite result {out}")
+            outs[name] = out
+            first_ms, med_ms = secs[0] * 1e3, statistics.median(secs[1:]) * 1e3
+            numbers[f"{name} s"], numbers[f"{name} window_ms_median"] = run_s, med_ms
+            numbers[f"{name} first_window_ms"] = first_ms
+            numbers[f"{name} windows"], numbers[f"{name} chan_ff_block"] = len(secs), n_ff
+            log("evals", f"{name}: {shown}; {run_s:.2f} s, {len(secs)} windows (host clock): "
+                         f"the first {first_ms:.1f} ms, then median {med_ms:.1f} ms of "
+                         f"{len(secs) - 1}; {n_ff} chan_ff_block launches; media "
+                         f"{', '.join(files[:3])}{' ...' if len(files) > 3 else ''}")
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # the bf16 trajectories against the plain channel block
+        with contextlib.redirect_stdout(io.StringIO()):
+            with plain_channel_blocks(mixer_module, mixer_cuda.chan_ff_reference):
+                plain = run_davis.main(init_dir=str(pth), davis_dir=str(root / "davis"), chunk=0,
+                                       dtype="bfloat16")["trajs"]
+            ft = FlyingThingsDataset(str(root / "flt"), dset="TEST", N=16, S=8,
+                                     crop_size=(384, 512))
+            first = ft[int(np.random.RandomState(125).permutation(len(ft))[0])][0]
+            ch = prep_sample(CrohdDataset(seqlen=24, dataset_root=str(root / "crohd"))[0],
+                             N_max=16, S_stride=3, req_occlusion=True)[0]
+            samples = [("flt", 8, first["trajs"][None, 0], first["rgbs"][None]),
+                       ("crohd", 4, ch["trajs_g"][:, 0], ch["rgbs"])]
+            pairs = [("davis chunk 0", outs["davis bf16 chunk 0"]["trajs"], plain)]
+            for label, stride, xys, rgbs in samples:
+                track = common.build_pips_tracker(str(pth), S=8, stride=stride, iters=ITERS,
+                                                  dtype="bfloat16")
+                kernel = track(xys, rgbs)
+                with plain_channel_blocks(mixer_module, mixer_cuda.chan_ff_reference):
+                    pairs.append((f"{label} first sample", kernel, track(xys, rgbs)))
+        for label, a, b in pairs:
+            d = np.abs(a - b)
+            six = dict(median=float(np.median(d)), p90=float(np.percentile(d, 90)),
+                       max=float(d.max()))
+            log("evals", f"{label}, bf16 kernel vs plain channel block, 6 iters: traj median "
+                         f"{six['median']:.3g} px, p90 {six['p90']:.3g}, max {six['max']:.3g}")
+            if not (np.isfinite(a).all() and six["median"] < SIX_ITERS["median"]
+                    and six["p90"] < SIX_ITERS["p90"]):
+                fail(f"evals {label}: drift beyond {SIX_ITERS}: {six}")
+            numbers[f"{label} drift"] = six
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return dict(launched=launched, **numbers)
@@ -2934,6 +3256,21 @@ def main() -> int:
     for k, n in data.pop("launched").items():
         main_path[k] += n
 
+    # 12. slice: the eval runners, bf16 (the channel-block kernel) and f32, on
+    # a reference-format checkpoint
+    zero_counts()
+    evals = phase_evals(torch, np, mixer_cuda, mixer_module, build_dir)
+    for k, n in evals.pop("launched").items():
+        main_path[k] += n
+    log("evals", f"{smi}: " + "; ".join(
+        f"{name} {evals[f'{name} s']:.2f} s, window first {evals[f'{name} first_window_ms']:.1f}"
+        f" ms, then {evals[f'{name} window_ms_median']:.1f}"
+        for name in ("flt bf16", "flt f32", "crohd bf16", "badja bf16", "davis bf16 chunk 0",
+                     "davis bf16 chunk 256"))
+        + "; DAVIS TPS steady (runner's mean) " + ", ".join(
+            f"{evals[f'davis bf16 chunk {c} steady_tps']:.0f} "
+            f"({evals[f'davis bf16 chunk {c} tps']:.0f}) at chunk {c}" for c in EVAL_DAVIS_CHUNKS))
+
     log("slice", f"main-path launches: {main_path}")
     if min(main_path.values()) == 0:
         fail(f"a kernel of the path never launched on it: {main_path}")
@@ -2984,7 +3321,7 @@ def main() -> int:
     log("done", f"all phases passed in {time.perf_counter() - T0:.1f} s "
                 f"(chained video {chain_s:.2f} s; windows {json.dumps(window_ms)}; "
                 f"training default {json.dumps(train_default)}; f32 {json.dumps(train_f32)}; "
-                f"Pips2 {json.dumps(pips2)}; data {json.dumps(data)})")
+                f"Pips2 {json.dumps(pips2)}; data {json.dumps(data)}; evals {json.dumps(evals)})")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -1,7 +1,8 @@
-"""Utilities of the train loop (counterpart of ``pips_tpu/utils``): metric
-pools, checkpoints, the metric writer and the media summaries."""
+"""Utilities (counterpart of ``pips_tpu/utils``): metric pools, checkpoints,
+the metric writer, the media summaries and the formatting helpers."""
 
 from pips_tpu_torch.utils import saverloader
+from pips_tpu_torch.utils.format import print_stats, strnum
 from pips_tpu_torch.utils.pools import MovingAverage, SimplePool
 
-__all__ = ["MovingAverage", "SimplePool", "saverloader"]
+__all__ = ["MovingAverage", "SimplePool", "print_stats", "saverloader", "strnum"]

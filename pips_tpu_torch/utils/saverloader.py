@@ -63,6 +63,17 @@ def save(ckpt_dir: str, tree: Mapping[str, Any], step: int, keep_latest: int = 1
     return path
 
 
+def load_raw(ckpt_dir: str, step: Optional[int] = None) -> tuple[Any, int]:
+    """The payload at the largest (or the given) step, whatever its layout:
+    a train-loop payload (``{"model": ..., "optimizer": ...}``) or a bare
+    state dict. Returns (payload, step); raises if no checkpoint exists."""
+    steps = list_steps(ckpt_dir)
+    if not steps:
+        raise FileNotFoundError(f"no checkpoint found in {ckpt_dir}")
+    step = step if step is not None else steps[-1]
+    return torch.load(_ckpt_path(ckpt_dir, step), map_location="cpu", weights_only=True), step
+
+
 def load(ckpt_dir: str, target: Mapping[str, Any], step: Optional[int] = None,
          ignore_load: Optional[Sequence[str] | str] = None) -> tuple[dict, int]:
     """Restore the entries of ``target`` (e.g. ``{"model": ..., "optimizer":

@@ -42,7 +42,9 @@ def test_port_imports_no_jax_and_nothing_of_pips_tpu():
                  "tools.debug_mixer_kernel", "tools.debug_pallas7", "tools.probe_mosaic_ops",
                  "data.flyingthings", "data.pointodyssey", "data.badja", "data.crohd",
                  "data.augs", "data.pfm", "native.lib", "ops.fps", "utils.cli", "datagen.run",
-                 "datagen.trajs", "datagen.occluders"):
+                 "datagen.trajs", "datagen.occluders", "evals", "evals.common", "evals.metrics",
+                 "evals.run_flt", "evals.run_badja", "evals.run_crohd", "evals.run_davis",
+                 "torchport", "torchport.convert", "utils.format", "utils.improc", "ops.embed"):
         assert f"pips_tpu_torch.{name}" in res["modules"]
     assert res["banned"] == []
 
@@ -78,6 +80,48 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
         WindowTracker(model)
     assert WindowTracker(model, device="cpu").device.type == "cpu"
     assert isinstance(model, Pips)
+
+
+EVAL_RUNNERS = {"run_flt": "dataset_location", "run_badja": "data_dir",
+                "run_crohd": "dataset_root", "run_davis": "davis_dir"}
+
+
+@pytest.mark.parametrize("runner", sorted(EVAL_RUNNERS))
+def test_eval_runners_need_cuda_before_reading_data(monkeypatch, tmp_path, runner):
+    """Without a card each runner's ``main`` (the CUDA default) and the eval
+    model factory raise before any data or weights are read."""
+    import importlib
+
+    from pips_tpu_torch.evals import common
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    read = []
+    mod = importlib.import_module(f"pips_tpu_torch.evals.{runner}")
+    for holder in (common, mod):  # run_badja and run_davis bind the name at import
+        if hasattr(holder, "load_params"):
+            monkeypatch.setattr(holder, "load_params", lambda *a, **k: read.append(a))
+    missing = str(tmp_path / "no_such_set")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(init_dir=str(tmp_path / "no_such_ckpt"), **{EVAL_RUNNERS[runner]: missing})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        common.make_pips(S=8, stride=4, dtype="bfloat16")
+    assert read == [] and not (tmp_path / "no_such_set").exists()
+
+
+@pytest.mark.parametrize("runner,kw,names", [
+    ("run_flt", dict(modeltype="raft"), "ROADMAP A8"),
+    ("run_crohd", dict(modeltype="dino"), "ROADMAP A8"),
+    ("run_badja", dict(modeltype="raft"), "ROADMAP A8"),
+    ("run_davis", dict(mesh="1,8"), "ROADMAP A7")])
+def test_unported_eval_options_raise(tmp_path, runner, kw, names):
+    """The baselines (A8) and multi-device serving (A7) are not ported: they
+    raise ``NotImplementedError`` naming their ROADMAP item, on the CPU too."""
+    import importlib
+
+    mod = importlib.import_module(f"pips_tpu_torch.evals.{runner}")
+    with pytest.raises(NotImplementedError, match=names):
+        mod.main(init_dir=str(tmp_path / "ckpt"), device="cpu",
+                 **{EVAL_RUNNERS[runner]: str(tmp_path / "data")}, **kw)
 
 
 def test_chip_smoke_fails_without_cuda():
