@@ -114,6 +114,21 @@ Phases, each printing a progress line with the elapsed seconds:
      drift bounds (DAVIS's dense ``trajs``, ``build_pips_tracker`` on the
      first FlyingThings++ and CroHD samples); each runner's seconds, median
      window ms and DAVIS's TPS printed.
+ 13. slice, the RAFT and DINO baselines (f32, no kernel of the port): (a)
+     seeded full-width weights written as the release files (RAFT in
+     ``raft-things.pth``'s layout: fnet 256, cnet 128+128, 4 levels of
+     radius 4, ``module.`` prefixes; DINO ViT-S/8: dim 384, depth 12, 6
+     heads, ``pos_embed`` on a 28x28 grid), which the port's loaders must
+     put into its modules bit for bit; (b) one 8-frame window at 256x384,
+     N=16, through ``build_baseline_tracker`` on the card and on the CPU:
+     RAFT at 4 iterations and DINO within 1e-2 px, RAFT at 32 within the
+     six-iteration drift bounds; (c) ``run_flt``, ``run_badja`` and
+     ``run_crohd`` with ``--modeltype raft`` (32 iterations) and ``dino`` on
+     phase 12's trees (FlyingThings++ 540x960 crop 384x512, BADJA's
+     20-frame video at 320x512, CroHD 1080x1920 windows of S=8): finite
+     metrics and media where the runner writes them; (d) none of the
+     port's kernels launched; (e) each runner's seconds, first window,
+     median of the rest and peak memory printed.
 Phase 3 also holds (3d) ``conv3x3_same`` (the encoder's stage-1 3x3 conv)
 against its plain version, forward and dx, at a window's, the training
 default's and the bench train shape's stage 1 in bf16 and a small ragged
@@ -321,6 +336,15 @@ EVAL_CROHD_HW, EVAL_CROHD_WINDOWS, EVAL_CROHD_HEADS, EVAL_CROHD_OCCLUDED = (1080
 EVAL_BADJA_HW, EVAL_BADJA_T = (480, 854), 20
 EVAL_DAVIS_HW, EVAL_DAVIS_VIDEOS, EVAL_DAVIS_CHUNKS = (1080, 1920), 2, (0, 256)
 EVAL_DAVIS_POINTS = (480 // 8) * (1024 // 8)  # run_davis's dense grid at its defaults
+# phase 13, the RAFT and DINO baselines: the card against the CPU on one
+# 8-frame window (BASE_HW, BASE_N points), RAFT at these iterations (JAX's
+# one-iteration bound for the first, the six-iteration drift bounds for the
+# runners' default 32), DINO at BASE_PX; then the runners on phase 12's trees
+# with CroHD cut to BASE_CROHD_WINDOWS of its 4 windows (a 1080x1920 window
+# takes ~1.2 s with RAFT, ~8 s with DINO, whose f32 ViT attends over 32,400
+# tokens)
+BASE_HW, BASE_N, BASE_RAFT_ITERS, BASE_PX = (256, 384), 16, (4, 32), 1e-2
+BASE_CROHD_WINDOWS = 2
 CHUNK_FCS = (512, 1024)  # phase 3h times these: tools/profile_chanff_chunk.py's chunk widths
 # phase 3h's rows: the tool's, a ragged R and one ragged 64-row tile; and the
 # chunk width it also times at the training default's R=24,576
@@ -2387,7 +2411,7 @@ def media_files(root: Path) -> list:
     return sorted(str(p.relative_to(root)) for p in root.rglob("*") if p.suffix in (".png", ".gif"))
 
 
-def phase_evals(torch, np, mixer_cuda, mixer_module, build_dir: Path) -> dict:
+def phase_evals(torch, np, mixer_cuda, mixer_module, root: Path) -> dict:
     """12: the eval runners (``pips_tpu_torch.evals.run_{flt,crohd,badja,
     davis}.main``, as the CLI calls them) at the sets' frame sizes on the
     flagship's width: seeded weights written as a reference-format ``.pth``
@@ -2396,7 +2420,8 @@ def phase_evals(torch, np, mixer_cuda, mixer_module, build_dir: Path) -> dict:
     window; ``run_flt`` also in f32 (the default: no kernel). The bf16
     trajectories against the plain channel block within ``SIX_ITERS``:
     DAVIS's dense ``trajs``, and ``build_pips_tracker`` on the first
-    FlyingThings++ and CroHD samples. Returns the launches and the numbers."""
+    FlyingThings++ and CroHD samples. The trees stay under ``root`` for phase
+    13. Returns the launches and the numbers."""
     from pips_tpu_torch import init_params
     from pips_tpu_torch.data import CrohdDataset, FlyingThingsDataset
     from pips_tpu_torch.data.crohd import prep_sample
@@ -2404,138 +2429,459 @@ def phase_evals(torch, np, mixer_cuda, mixer_module, build_dir: Path) -> dict:
     from pips_tpu_torch.inference.window import WindowTracker
     from pips_tpu_torch.models.pips import Pips
 
-    root = Path(tempfile.mkdtemp(prefix="chip_smoke_evals_", dir=build_dir))
     launched, numbers = {"chan_ff_block": 0}, {}
-    try:
+    t = time.perf_counter()
+    make_flyingthings_tree(np, root / "flt", {"TEST": DATA_VIDEOS["TEST"]})
+    make_crohd_tree(np, root / "crohd")
+    make_badja_tree(np, root / "badja")
+    make_davis_tree(np, root / "davis")
+    # seeded weights, every bias and norm scale moved off 0 and 1 so that
+    # a misplaced leaf shows, written in the reference's layout
+    src = init_params(Pips(), 0)
+    gen = torch.Generator().manual_seed(12)
+    with torch.no_grad():
+        for name, p in src.named_parameters():
+            if name.endswith((".bias", ".scale")):
+                p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    want_sd = src.state_dict()
+    pth = root / "ckpt" / "model-000200000.pth"
+    pth.parent.mkdir()
+    torch.save({"model_state_dict": reference_state_dict(want_sd, DEPTH),
+                "optimizer_state_dict": {}}, pth)
+    with contextlib.redirect_stdout(io.StringIO()):
+        got_sd = common.load_params(common.make_pips(dtype="bfloat16"), str(pth)).state_dict()
+    bad = [k for k in want_sd if not torch.equal(got_sd[k].cpu(), want_sd[k])]
+    if sorted(got_sd) != sorted(want_sd) or bad:
+        fail(f"evals: load_params of the reference-format .pth differs at {bad[:5]}")
+    log("evals", f"trees and a reference-format .pth ({len(want_sd)} entries, module. "
+                 f"prefix) in {time.perf_counter() - t:.1f} s; load_params gives the state "
+                 f"dict back bit for bit")
+
+    runs = [
+        ("flt bf16", run_flt.main, dict(dataset_location=str(root / "flt"),
+                                        max_iters=EVAL_FLT_WINDOWS, log_freq=2,
+                                        log_dir=str(root / "out/flt_bf16"),
+                                        dtype="bfloat16"), root / "out/flt_bf16"),
+        ("flt f32", run_flt.main, dict(dataset_location=str(root / "flt"),
+                                       max_iters=EVAL_FLT_WINDOWS, log_freq=2,
+                                       log_dir=str(root / "out/flt_f32")),
+         root / "out/flt_f32"),
+        # media of the first window only: where imageio is absent, PIL
+        # writes the GIFs and takes ~15 s to quantize 8 frames at 1080x1920
+        ("crohd bf16", run_crohd.main, dict(dataset_root=str(root / "crohd"),
+                                            log_freq=EVAL_CROHD_WINDOWS,
+                                            log_dir=str(root / "out/crohd"),
+                                            dtype="bfloat16"), root / "out/crohd"),
+        ("badja bf16", run_badja.main, dict(data_dir=str(root / "badja"),
+                                            out_dir=str(root / "out/badja"),
+                                            dtype="bfloat16"), root / "out/badja")]
+    runs += [(f"davis bf16 chunk {c}", run_davis.main,
+              dict(davis_dir=str(root / "davis"), chunk=c, dtype="bfloat16",
+                   out_dir=str(root / f"out/davis_{c}")), root / f"out/davis_{c}")
+             for c in EVAL_DAVIS_CHUNKS]
+    outs = {}
+    for name, main_fn, kw, out_dir in runs:
+        torch.cuda.synchronize()
+        mixer_cuda.launches = 0
+        buf = io.StringIO()
         t = time.perf_counter()
-        make_flyingthings_tree(np, root / "flt", {"TEST": DATA_VIDEOS["TEST"]})
-        make_crohd_tree(np, root / "crohd")
-        make_badja_tree(np, root / "badja")
-        make_davis_tree(np, root / "davis")
-        # seeded weights, every bias and norm scale moved off 0 and 1 so that
-        # a misplaced leaf shows, written in the reference's layout
-        src = init_params(Pips(), 0)
-        gen = torch.Generator().manual_seed(12)
-        with torch.no_grad():
-            for name, p in src.named_parameters():
-                if name.endswith((".bias", ".scale")):
-                    p.add_(0.02 * torch.randn(p.shape, generator=gen))
-        want_sd = src.state_dict()
-        pth = root / "ckpt" / "model-000200000.pth"
-        pth.parent.mkdir()
-        torch.save({"model_state_dict": reference_state_dict(want_sd, DEPTH),
-                    "optimizer_state_dict": {}}, pth)
-        with contextlib.redirect_stdout(io.StringIO()):
-            got_sd = common.load_params(common.make_pips(dtype="bfloat16"), str(pth)).state_dict()
-        bad = [k for k in want_sd if not torch.equal(got_sd[k].cpu(), want_sd[k])]
-        if sorted(got_sd) != sorted(want_sd) or bad:
-            fail(f"evals: load_params of the reference-format .pth differs at {bad[:5]}")
-        log("evals", f"trees and a reference-format .pth ({len(want_sd)} entries, module. "
-                     f"prefix) in {time.perf_counter() - t:.1f} s; load_params gives the state "
-                     f"dict back bit for bit")
+        with timed_windows(torch, WindowTracker) as secs, contextlib.redirect_stdout(buf):
+            out = main_fn(init_dir=str(pth), **kw)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        n_ff, bf16 = mixer_cuda.launches, "bf16" in name
+        want_ff = DEPTH * ITERS * len(secs) if bf16 else 0
+        if len(secs) < 2 or n_ff != want_ff:
+            fail(f"evals {name}: {len(secs)} windows, chan_ff_block launched {n_ff} times, "
+                 f"expected {want_ff}")
+        launched["chan_ff_block"] += n_ff
+        files = media_files(out_dir)
+        if not files:
+            fail(f"evals {name}: no media under {out_dir}")
+        if name.startswith("davis"):
+            per_video = len(secs) // EVAL_DAVIS_VIDEOS
+            steady_tps = EVAL_DAVIS_POINTS / sum(secs[-per_video:])
+            finite = (np.isfinite(out["trajs"]).all() and out["mean_tps"] > 0
+                      and out["trajs"].shape == (8, EVAL_DAVIS_POINTS, 2))
+            shown = (f"TPS {steady_tps:.0f} on the last video, the runner's mean "
+                     f"{out['mean_tps']:.0f} (first video cold)")
+            numbers[f"{name} tps"], numbers[f"{name} steady_tps"] = (out["mean_tps"],
+                                                                      steady_tps)
+        elif name.startswith("badja"):
+            finite = math.isfinite(out["avg"])
+            shown = f"PCK {out['avg']:.2f}"
+        else:
+            finite = all(math.isfinite(out[k]) for k in ("ate_all", "ate_vis"))
+            shown = ", ".join(f"{k} {v:.3f}" for k, v in out.items())
+        if not finite:
+            fail(f"evals {name}: non-finite result {out}")
+        outs[name] = out
+        first_ms, med_ms = secs[0] * 1e3, statistics.median(secs[1:]) * 1e3
+        numbers[f"{name} s"], numbers[f"{name} window_ms_median"] = run_s, med_ms
+        numbers[f"{name} first_window_ms"] = first_ms
+        numbers[f"{name} windows"], numbers[f"{name} chan_ff_block"] = len(secs), n_ff
+        log("evals", f"{name}: {shown}; {run_s:.2f} s, {len(secs)} windows (host clock): "
+                     f"the first {first_ms:.1f} ms, then median {med_ms:.1f} ms of "
+                     f"{len(secs) - 1}; {n_ff} chan_ff_block launches; media "
+                     f"{', '.join(files[:3])}{' ...' if len(files) > 3 else ''}")
+        gc.collect()
+        torch.cuda.empty_cache()
 
-        runs = [
-            ("flt bf16", run_flt.main, dict(dataset_location=str(root / "flt"),
-                                            max_iters=EVAL_FLT_WINDOWS, log_freq=2,
-                                            log_dir=str(root / "out/flt_bf16"),
-                                            dtype="bfloat16"), root / "out/flt_bf16"),
-            ("flt f32", run_flt.main, dict(dataset_location=str(root / "flt"),
-                                           max_iters=EVAL_FLT_WINDOWS, log_freq=2,
-                                           log_dir=str(root / "out/flt_f32")),
-             root / "out/flt_f32"),
-            # media of the first window only: where imageio is absent, PIL
-            # writes the GIFs and takes ~15 s to quantize 8 frames at 1080x1920
-            ("crohd bf16", run_crohd.main, dict(dataset_root=str(root / "crohd"),
-                                                log_freq=EVAL_CROHD_WINDOWS,
-                                                log_dir=str(root / "out/crohd"),
-                                                dtype="bfloat16"), root / "out/crohd"),
-            ("badja bf16", run_badja.main, dict(data_dir=str(root / "badja"),
-                                                out_dir=str(root / "out/badja"),
-                                                dtype="bfloat16"), root / "out/badja")]
-        runs += [(f"davis bf16 chunk {c}", run_davis.main,
-                  dict(davis_dir=str(root / "davis"), chunk=c, dtype="bfloat16",
-                       out_dir=str(root / f"out/davis_{c}")), root / f"out/davis_{c}")
-                 for c in EVAL_DAVIS_CHUNKS]
-        outs = {}
-        for name, main_fn, kw, out_dir in runs:
-            torch.cuda.synchronize()
-            mixer_cuda.launches = 0
-            buf = io.StringIO()
-            t = time.perf_counter()
-            with timed_windows(torch, WindowTracker) as secs, contextlib.redirect_stdout(buf):
-                out = main_fn(init_dir=str(pth), **kw)
-            torch.cuda.synchronize()
-            run_s = time.perf_counter() - t
-            n_ff, bf16 = mixer_cuda.launches, "bf16" in name
-            want_ff = DEPTH * ITERS * len(secs) if bf16 else 0
-            if len(secs) < 2 or n_ff != want_ff:
-                fail(f"evals {name}: {len(secs)} windows, chan_ff_block launched {n_ff} times, "
-                     f"expected {want_ff}")
-            launched["chan_ff_block"] += n_ff
-            files = media_files(out_dir)
-            if not files:
-                fail(f"evals {name}: no media under {out_dir}")
-            if name.startswith("davis"):
-                per_video = len(secs) // EVAL_DAVIS_VIDEOS
-                steady_tps = EVAL_DAVIS_POINTS / sum(secs[-per_video:])
-                finite = (np.isfinite(out["trajs"]).all() and out["mean_tps"] > 0
-                          and out["trajs"].shape == (8, EVAL_DAVIS_POINTS, 2))
-                shown = (f"TPS {steady_tps:.0f} on the last video, the runner's mean "
-                         f"{out['mean_tps']:.0f} (first video cold)")
-                numbers[f"{name} tps"], numbers[f"{name} steady_tps"] = (out["mean_tps"],
-                                                                          steady_tps)
-            elif name.startswith("badja"):
-                finite = math.isfinite(out["avg"])
-                shown = f"PCK {out['avg']:.2f}"
-            else:
-                finite = all(math.isfinite(out[k]) for k in ("ate_all", "ate_vis"))
-                shown = ", ".join(f"{k} {v:.3f}" for k, v in out.items())
-            if not finite:
-                fail(f"evals {name}: non-finite result {out}")
-            outs[name] = out
-            first_ms, med_ms = secs[0] * 1e3, statistics.median(secs[1:]) * 1e3
-            numbers[f"{name} s"], numbers[f"{name} window_ms_median"] = run_s, med_ms
-            numbers[f"{name} first_window_ms"] = first_ms
-            numbers[f"{name} windows"], numbers[f"{name} chan_ff_block"] = len(secs), n_ff
-            log("evals", f"{name}: {shown}; {run_s:.2f} s, {len(secs)} windows (host clock): "
-                         f"the first {first_ms:.1f} ms, then median {med_ms:.1f} ms of "
-                         f"{len(secs) - 1}; {n_ff} chan_ff_block launches; media "
-                         f"{', '.join(files[:3])}{' ...' if len(files) > 3 else ''}")
-            gc.collect()
-            torch.cuda.empty_cache()
-
-        # the bf16 trajectories against the plain channel block
-        with contextlib.redirect_stdout(io.StringIO()):
+    # the bf16 trajectories against the plain channel block
+    with contextlib.redirect_stdout(io.StringIO()):
+        with plain_channel_blocks(mixer_module, mixer_cuda.chan_ff_reference):
+            plain = run_davis.main(init_dir=str(pth), davis_dir=str(root / "davis"), chunk=0,
+                                   dtype="bfloat16")["trajs"]
+        ft = FlyingThingsDataset(str(root / "flt"), dset="TEST", N=16, S=8,
+                                 crop_size=(384, 512))
+        first = ft[int(np.random.RandomState(125).permutation(len(ft))[0])][0]
+        ch = prep_sample(CrohdDataset(seqlen=24, dataset_root=str(root / "crohd"))[0],
+                         N_max=16, S_stride=3, req_occlusion=True)[0]
+        samples = [("flt", 8, first["trajs"][None, 0], first["rgbs"][None]),
+                   ("crohd", 4, ch["trajs_g"][:, 0], ch["rgbs"])]
+        pairs = [("davis chunk 0", outs["davis bf16 chunk 0"]["trajs"], plain)]
+        for label, stride, xys, rgbs in samples:
+            track = common.build_pips_tracker(str(pth), S=8, stride=stride, iters=ITERS,
+                                              dtype="bfloat16")
+            kernel = track(xys, rgbs)
             with plain_channel_blocks(mixer_module, mixer_cuda.chan_ff_reference):
-                plain = run_davis.main(init_dir=str(pth), davis_dir=str(root / "davis"), chunk=0,
-                                       dtype="bfloat16")["trajs"]
-            ft = FlyingThingsDataset(str(root / "flt"), dset="TEST", N=16, S=8,
-                                     crop_size=(384, 512))
-            first = ft[int(np.random.RandomState(125).permutation(len(ft))[0])][0]
-            ch = prep_sample(CrohdDataset(seqlen=24, dataset_root=str(root / "crohd"))[0],
-                             N_max=16, S_stride=3, req_occlusion=True)[0]
-            samples = [("flt", 8, first["trajs"][None, 0], first["rgbs"][None]),
-                       ("crohd", 4, ch["trajs_g"][:, 0], ch["rgbs"])]
-            pairs = [("davis chunk 0", outs["davis bf16 chunk 0"]["trajs"], plain)]
-            for label, stride, xys, rgbs in samples:
-                track = common.build_pips_tracker(str(pth), S=8, stride=stride, iters=ITERS,
-                                                  dtype="bfloat16")
-                kernel = track(xys, rgbs)
-                with plain_channel_blocks(mixer_module, mixer_cuda.chan_ff_reference):
-                    pairs.append((f"{label} first sample", kernel, track(xys, rgbs)))
-        for label, a, b in pairs:
-            d = np.abs(a - b)
-            six = dict(median=float(np.median(d)), p90=float(np.percentile(d, 90)),
-                       max=float(d.max()))
-            log("evals", f"{label}, bf16 kernel vs plain channel block, 6 iters: traj median "
-                         f"{six['median']:.3g} px, p90 {six['p90']:.3g}, max {six['max']:.3g}")
-            if not (np.isfinite(a).all() and six["median"] < SIX_ITERS["median"]
-                    and six["p90"] < SIX_ITERS["p90"]):
-                fail(f"evals {label}: drift beyond {SIX_ITERS}: {six}")
-            numbers[f"{label} drift"] = six
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+                pairs.append((f"{label} first sample", kernel, track(xys, rgbs)))
+    for label, a, b in pairs:
+        d = np.abs(a - b)
+        six = dict(median=float(np.median(d)), p90=float(np.percentile(d, 90)),
+                   max=float(d.max()))
+        log("evals", f"{label}, bf16 kernel vs plain channel block, 6 iters: traj median "
+                     f"{six['median']:.3g} px, p90 {six['p90']:.3g}, max {six['max']:.3g}")
+        if not (np.isfinite(a).all() and six["median"] < SIX_ITERS["median"]
+                and six["p90"] < SIX_ITERS["p90"]):
+            fail(f"evals {label}: drift beyond {SIX_ITERS}: {six}")
+        numbers[f"{label} drift"] = six
     return dict(launched=launched, **numbers)
+
+
+def raft_things_state_dict(torch, seed: int) -> dict:
+    """Seeded RAFT weights in the layout of the published ``raft-things.pth``
+    (fnet 256, cnet 128+128 with batch norms, 4 levels of radius 4, the
+    ``module.`` prefix of a DataParallel model, ``num_batches_tracked`` and
+    the ``downsample.1`` aliases of ``norm3``): convs He-normal over their
+    fan-in (the flow head's last at a tenth of it: He-scaled updates move
+    points ~25 px an iteration, off the frame within a few), biases and norm
+    parameters and statistics moved off 0 and 1."""
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen)
+
+    def conv(name, o, i, kh, kw):
+        sd[f"{name}.weight"] = randn(o, i, kh, kw) * math.sqrt(2.0 / (i * kh * kw))
+        sd[f"{name}.bias"] = 0.05 * randn(o)
+
+    def bn(name, c):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = 1 + 0.1 * randn(c), 0.05 * randn(c)
+        sd[f"{name}.running_mean"] = 0.1 * randn(c)
+        sd[f"{name}.running_var"] = 0.5 + torch.rand(c, generator=gen)
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(100000)
+
+    for enc, batch in (("fnet", False), ("cnet", True)):
+        conv(f"{enc}.conv1", 64, 3, 7, 7)
+        if batch:
+            bn(f"{enc}.norm1", 64)
+        c_in = 64
+        for stage, (dim, stride) in enumerate([(64, 1), (96, 2), (128, 2)], 1):
+            for blk in (0, 1):
+                s, ci = (stride, c_in) if blk == 0 else (1, dim)
+                p = f"{enc}.layer{stage}.{blk}"
+                conv(f"{p}.conv1", dim, ci, 3, 3)
+                conv(f"{p}.conv2", dim, dim, 3, 3)
+                if batch:
+                    bn(f"{p}.norm1", dim)
+                    bn(f"{p}.norm2", dim)
+                if s != 1:
+                    conv(f"{p}.downsample.0", dim, ci, 1, 1)
+                    if batch:
+                        bn(f"{p}.norm3", dim)
+                        for k in [k for k in sd if k.startswith(f"{p}.norm3.")]:
+                            sd[k.replace(".norm3.", ".downsample.1.")] = sd[k]
+            c_in = dim
+        conv(f"{enc}.conv2", 256, 128, 1, 1)
+    u = "update_block"
+    conv(f"{u}.encoder.convc1", 256, 4 * 81, 1, 1)
+    conv(f"{u}.encoder.convc2", 192, 256, 3, 3)
+    conv(f"{u}.encoder.convf1", 128, 2, 7, 7)
+    conv(f"{u}.encoder.convf2", 64, 128, 3, 3)
+    conv(f"{u}.encoder.conv", 126, 256, 3, 3)
+    for gate in "zrq":
+        conv(f"{u}.gru.conv{gate}1", 128, 384, 1, 5)
+        conv(f"{u}.gru.conv{gate}2", 128, 384, 5, 1)
+    conv(f"{u}.flow_head.conv1", 256, 128, 3, 3)
+    conv(f"{u}.flow_head.conv2", 2, 256, 3, 3)
+    sd[f"{u}.flow_head.conv2.weight"] *= 0.1  # updates of a few px, as trained weights make
+    conv(f"{u}.mask.0", 256, 128, 3, 3)
+    conv(f"{u}.mask.2", 64 * 9, 256, 1, 1)
+    return {f"module.{k}": v for k, v in sd.items()}
+
+
+def raft_port_state(sd: dict) -> dict:
+    """What the port's ``RAFT`` must hold after loading ``sd`` (a
+    ``raft_things_state_dict``), by the reference's names: the module tree's
+    renames, norm weights as scales, running statistics as the ``mean`` and
+    ``var`` buffers, the GRU's bare convs in flax's (kh, kw, I, O) layout;
+    ``num_batches_tracked`` and the ``downsample.1`` aliases dropped."""
+    out = {}
+    for key, a in sd.items():
+        k = key.removeprefix("module.")
+        if k.endswith("num_batches_tracked") or ".downsample.1." in k:
+            continue
+        k = re.sub(r"layer(\d)\.(\d)\.", r"layer\1_\2.", k)
+        for old, new in (("downsample.0.", "downsample."), ("mask.0.", "mask1."),
+                         ("mask.2.", "mask2."), (".running_mean", ".mean"),
+                         (".running_var", ".var")):
+            k = k.replace(old, new)
+        k = re.sub(r"(norm\d)\.weight$", r"\1.scale", k)
+        if ".gru." in k and k.endswith(".weight"):
+            k, a = k.removesuffix("weight") + "kernel", a.permute(2, 3, 1, 0)
+        out[k] = a.contiguous()
+    return out
+
+
+def dino_release_state_dict(torch, seed: int, dim: int = 384, depth: int = 12,
+                            grid: int = 28) -> dict:
+    """Seeded ViT-S/8 weights in the layout of DINO's released
+    ``dino_deitsmall8_pretrain.pth`` (``pos_embed`` on its 28x28 training
+    grid): linear layers and embeddings normal(0.02), norm scales 1 +
+    normal(0.1), biases normal(0.02)."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def randn(*shape, std=0.02, mean=0.0):
+        return mean + std * torch.randn(*shape, generator=gen)
+
+    sd = {"patch_embed.proj.weight": randn(dim, 3, 8, 8), "patch_embed.proj.bias": randn(dim),
+          "cls_token": randn(1, 1, dim), "pos_embed": randn(1, 1 + grid * grid, dim),
+          "norm.weight": randn(dim, std=0.1, mean=1.0), "norm.bias": randn(dim)}
+    for d in range(depth):
+        p = f"blocks.{d}"
+        for n in ("norm1", "norm2"):
+            sd[f"{p}.{n}.weight"], sd[f"{p}.{n}.bias"] = randn(dim, std=0.1, mean=1.0), randn(dim)
+        for name, o, i in (("attn.qkv", 3 * dim, dim), ("attn.proj", dim, dim),
+                           ("mlp.fc1", 4 * dim, dim), ("mlp.fc2", dim, 4 * dim)):
+            sd[f"{p}.{name}.weight"], sd[f"{p}.{name}.bias"] = randn(o, i), randn(o)
+    return sd
+
+
+def dino_port_state(sd: dict, heads: int = 6) -> dict:
+    """What the port's ``ViT`` must hold after loading ``sd`` at its own
+    grid: flax's layouts (the patch kernel (8, 8, 3, dim), q/k/v (dim,
+    heads, head_dim), the out projection (heads, head_dim, dim), dense
+    kernels (in, out)), norm weights as scales."""
+    dim = sd["cls_token"].shape[-1]
+    hd = dim // heads
+    out = {"patch_embed.kernel": sd["patch_embed.proj.weight"].permute(2, 3, 1, 0),
+           "patch_embed.bias": sd["patch_embed.proj.bias"], "cls_token": sd["cls_token"],
+           "pos_embed": sd["pos_embed"], "norm.scale": sd["norm.weight"],
+           "norm.bias": sd["norm.bias"]}
+    for key in sd:
+        m = re.fullmatch(r"blocks\.(\d+)\.(norm1|norm2)\.weight", key)
+        if not m:
+            continue
+        d, p = m[1], f"blocks.{m[1]}"
+        out[f"block{d}.{m[2]}.scale"] = sd[key]
+        out[f"block{d}.{m[2]}.bias"] = sd[f"{p}.{m[2]}.bias"]
+        if m[2] == "norm2":
+            continue
+        for name, w, b in zip(("query", "key", "value"), sd[f"{p}.attn.qkv.weight"].chunk(3),
+                              sd[f"{p}.attn.qkv.bias"].chunk(3)):
+            out[f"block{d}.attn.{name}.kernel"] = w.t().reshape(dim, heads, hd)
+            out[f"block{d}.attn.{name}.bias"] = b.reshape(heads, hd)
+        out[f"block{d}.attn.out.kernel"] = sd[f"{p}.attn.proj.weight"].t().reshape(heads, hd, dim)
+        out[f"block{d}.attn.out.bias"] = sd[f"{p}.attn.proj.bias"]
+        for fc in ("fc1", "fc2"):
+            out[f"block{d}.{fc}.kernel"] = sd[f"{p}.mlp.{fc}.weight"].t()
+            out[f"block{d}.{fc}.bias"] = sd[f"{p}.mlp.{fc}.bias"]
+    return {k: v.contiguous() for k, v in out.items()}
+
+
+@contextlib.contextmanager
+def timed_baseline_windows(torch, common):
+    """Time every call of the trackers ``common.build_baseline_tracker``
+    builds (the runners look the builder up at call time) on the host clock,
+    ending in a device sync. Yields the list the seconds go to."""
+    secs, build = [], common.build_baseline_tracker
+
+    def timed_build(*args, **kw):
+        track = build(*args, **kw)
+
+        def run(*targs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = track(*targs)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            return out
+        return run
+
+    common.build_baseline_tracker = timed_build
+    try:
+        yield secs
+    finally:
+        common.build_baseline_tracker = build
+
+
+@contextlib.contextmanager
+def torch_tf32_defaults(torch):
+    """PyTorch's defaults inside (cuDNN convs may use TF32, matmuls may
+    not); the smoke's settings (TF32 off) are restored after."""
+    old = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def phase_baselines(torch, np, root: Path, zero_counts, kernel_counts) -> dict:
+    """13: the RAFT and DINO baselines, f32, on the card: (a) seeded weights
+    in the release files' layouts, which the port's loaders put into its
+    modules bit for bit; (b) one window through ``build_baseline_tracker`` on
+    the card and on the CPU with TF32 off (RAFT at ``BASE_RAFT_ITERS``,
+    DINO); (c) ``run_flt``, ``run_badja`` and ``run_crohd`` with each
+    baseline on phase 12's trees under ``root``, at PyTorch's TF32
+    defaults: finite metrics, media; (d)
+    no kernel of the port launched in any of these runs. Returns the
+    numbers."""
+    from pips_tpu_torch.convert import load_flax_params
+    from pips_tpu_torch.evals import common, run_badja, run_crohd, run_flt
+    from pips_tpu_torch.models.dino import ViT
+    from pips_tpu_torch.models.raft import RAFT
+    from pips_tpu_torch.torchport import convert_dino_vit_state_dict, convert_raft_state_dict
+
+    require_full_f32(torch)
+    numbers = {}
+    t = time.perf_counter()
+    ckpt = root / "baselines"
+    ckpt.mkdir()
+    pths = {"raft": ckpt / "raft-things.pth", "dino": ckpt / "dino_deitsmall8_pretrain.pth"}
+    raft_sd, dino_sd = raft_things_state_dict(torch, 13), dino_release_state_dict(torch, 14)
+    torch.save(raft_sd, pths["raft"])
+    torch.save(dino_sd, pths["dino"])
+    # (a) the loaders' path: the file, the converter, the bridge into the module
+    raw = common.load_raft_state_dict(str(pths["raft"]))
+    loaded = {"raft": load_flax_params(RAFT(), convert_raft_state_dict(raw)).state_dict()}
+    sd = common.load_dino_state_dict(str(pths["dino"]))
+    dim, depth, heads, patch = common.infer_dino_arch(sd)
+    if (dim, depth, heads, patch) != (384, 12, 6, 8):
+        fail(f"baselines: infer_dino_arch gives {(dim, depth, heads, patch)} for ViT-S/8")
+    loaded["dino"] = load_flax_params(
+        ViT(patch, dim, depth, heads, grid_hw=(28, 28)),
+        convert_dino_vit_state_dict(sd, grid_hw=(28, 28), dim=dim, heads=heads,
+                                    depth=depth)).state_dict()
+    for name, want in (("raft", raft_port_state(raft_sd)), ("dino", dino_port_state(dino_sd))):
+        got = loaded[name]
+        bad = [k for k in want if k not in got or not torch.equal(got[k], want[k])]
+        if sorted(got) != sorted(want) or bad:
+            fail(f"baselines: the {name} loader does not give the file back bit for bit: "
+                 f"{bad[:5]}, {sorted(set(got) ^ set(want))[:5]}")
+    log("baselines", f"raft-things layout ({len(raft_sd)} entries) and ViT-S/8 ({len(dino_sd)} "
+                     f"entries, pos_embed 1+28*28) written in {time.perf_counter() - t:.1f} s; "
+                     f"the port's modules hold them bit for bit ({len(loaded['raft'])} and "
+                     f"{len(loaded['dino'])} tensors)")
+    del loaded, raw, sd
+
+    # (b) one window on the card and on the CPU, the same port code
+    H, W = BASE_HW
+    rng = np.random.RandomState(15)
+    base = data_frame(np, rng, H, W)
+    rgbs = np.stack([np.roll(base, (s, 2 * s), axis=(0, 1)) for s in range(8)])[None]
+    rgbs = rgbs.astype(np.float32)
+    xys = (rng.rand(1, BASE_N, 2) * [W - 1, H - 1]).astype(np.float32)
+    cases = [(f"raft {it} iters", "raft", it) for it in BASE_RAFT_ITERS] + [("dino", "dino", 0)]
+    for label, model, iters in cases:
+        trajs, secs = {}, {}
+        for where, device in (("card", "cuda"), ("cpu", "cpu")):
+            track = common.build_baseline_tracker(model, str(pths[model]), raft_iters=iters,
+                                                  device=device)
+            zero_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            trajs[where] = track(xys, rgbs)
+            torch.cuda.synchronize()
+            secs[where] = time.perf_counter() - t
+            if sum(kernel_counts().values()):
+                fail(f"baselines {label} on {where}: port kernels launched {kernel_counts()}")
+        a, b = trajs["card"], trajs["cpu"]
+        if not (a.shape == b.shape == (1, 8, BASE_N, 2) and np.isfinite(a).all()
+                and np.array_equal(a[:, 0], xys)):
+            fail(f"baselines {label}: trajectories {a.shape}, finite {np.isfinite(a).all()}")
+        d = np.abs(a - b)
+        six = dict(median=float(np.median(d)), p90=float(np.percentile(d, 90)), max=float(d.max()))
+        moved = float(np.abs(a - a[:, :1]).max())
+        ok = (six["median"] < SIX_ITERS["median"] and six["p90"] < SIX_ITERS["p90"]
+              if iters == BASE_RAFT_ITERS[-1] else six["max"] <= BASE_PX)
+        log("baselines", f"{label}, {H}x{W} N={BASE_N}, card vs CPU (TF32 off): median "
+                         f"{six['median']:.3g} px, p90 {six['p90']:.3g}, max {six['max']:.3g} "
+                         f"(points moved up to {moved:.1f} px); card {secs['card']:.2f} s, CPU "
+                         f"{secs['cpu']:.2f} s")
+        if not ok:
+            bound = SIX_ITERS if iters == BASE_RAFT_ITERS[-1] else f"max {BASE_PX}"
+            fail(f"baselines {label}: the card and the CPU differ beyond {bound}: {six}")
+        numbers[f"{label} card vs cpu"] = six
+        numbers[f"{label} card_s"], numbers[f"{label} cpu_s"] = secs["card"], secs["cpu"]
+
+    # (c) the runners on phase 12's trees at PyTorch's defaults, as a user runs
+    # them (cuDNN convs in TF32, matmuls in full f32), (d) with no port kernel
+    # launched
+    out = root / "out_baselines"
+    runs = []
+    for m in ("raft", "dino"):
+        runs += [(f"flt {m}", run_flt.main, dict(dataset_location=str(root / "flt"),
+                                                 max_iters=EVAL_FLT_WINDOWS, log_freq=2,
+                                                 log_dir=str(out / f"flt_{m}")), out / f"flt_{m}"),
+                 (f"badja {m}", run_badja.main, dict(data_dir=str(root / "badja"),
+                                                     out_dir=str(out / f"badja_{m}")),
+                  out / f"badja_{m}"),
+                 (f"crohd {m}", run_crohd.main, dict(dataset_root=str(root / "crohd"),
+                                                     max_iters=BASE_CROHD_WINDOWS,
+                                                     log_freq=BASE_CROHD_WINDOWS,
+                                                     log_dir=str(out / f"crohd_{m}")),
+                  out / f"crohd_{m}")]
+    for name, main_fn, kw, out_dir in runs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with (timed_baseline_windows(torch, common) as secs, contextlib.redirect_stdout(buf),
+              torch_tf32_defaults(torch)):
+            res = main_fn(init_dir=str(pths[name.split()[1]]), modeltype=name.split()[1], **kw)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launched = {k: n for k, n in kernel_counts().items() if n}
+        if launched:
+            fail(f"baselines {name}: the port's kernels launched {launched}")
+        files = media_files(out_dir)
+        if not secs or not files:
+            fail(f"baselines {name}: {len(secs)} windows, media {files}")
+        if name.startswith("badja"):
+            finite, shown = math.isfinite(res["avg"]), f"PCK {res['avg']:.2f}"
+        else:
+            finite = all(math.isfinite(res[k]) for k in ("ate_all", "ate_vis"))
+            shown = ", ".join(f"{k} {v:.3f}" for k, v in res.items())
+        if not finite:
+            fail(f"baselines {name}: non-finite result {res}")
+        rest = statistics.median(secs[1:]) * 1e3 if len(secs) > 1 else float("nan")
+        numbers[f"{name} s"], numbers[f"{name} windows"] = run_s, len(secs)
+        numbers[f"{name} first_window_ms"], numbers[f"{name} window_ms_median"] = (
+            secs[0] * 1e3, rest)
+        numbers[f"{name} peak_gb"] = peak_gb
+        log("baselines", f"{name}: {shown}; {run_s:.2f} s, {len(secs)} windows (host clock): "
+                         f"the first {secs[0] * 1e3:.1f} ms, then median {rest:.1f} ms of "
+                         f"{len(secs) - 1}; peak {peak_gb:.2f} GB; no port kernel launched; "
+                         f"media {', '.join(files[:2])}{' ...' if len(files) > 2 else ''}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return numbers
 
 
 def check_window(np, name, trajs, vis, xys, S: int = 8) -> None:
@@ -2600,6 +2946,18 @@ def main() -> int:
 
     def counts():
         return mixer_cuda.launches, corr_cuda.launches
+
+    def kernel_counts():
+        """Every kernel's launch count, as zero_counts zeroes them."""
+        return {"chan_ff_block": mixer_cuda.launches, "chan_ff_bwd": mixer_cuda.bwd_launches,
+                "chan_ff_bwd_f32": mixer_cuda.bwd_f32_launches,
+                "chan_ff_chunked_fwd": chanff_chunk_cuda.launches,
+                "chan_ff_chunked_bwd": chanff_chunk_cuda.bwd_launches,
+                "corr_sample": corr_cuda.launches, "conv3x3_same": conv_cuda.launches,
+                "res_block64": block_cuda.launches, "stem_wgrad": stem_wgrad_cuda.launches,
+                "mixer_probes": sum(mixer_probes_cuda.launches.values()),
+                "corr_rows": corr_rows_cuda.launches,
+                "row_contract": sum(row_contract_cuda.launches.values())}
 
     # launches summed over main-path runs
     main_path = {"chan_ff_block": 0, "corr_sample": 0, "chan_ff_bwd": 0, "conv3x3_same": 0,
@@ -3257,11 +3615,19 @@ def main() -> int:
         main_path[k] += n
 
     # 12. slice: the eval runners, bf16 (the channel-block kernel) and f32, on
-    # a reference-format checkpoint
-    zero_counts()
-    evals = phase_evals(torch, np, mixer_cuda, mixer_module, build_dir)
-    for k, n in evals.pop("launched").items():
-        main_path[k] += n
+    # a reference-format checkpoint; 13. the RAFT and DINO baselines through
+    # the same runners on the same trees, which launch no kernel of the port
+    eval_root = Path(tempfile.mkdtemp(prefix="chip_smoke_evals_", dir=build_dir))
+    try:
+        zero_counts()
+        evals = phase_evals(torch, np, mixer_cuda, mixer_module, eval_root)
+        for k, n in evals.pop("launched").items():
+            main_path[k] += n
+        t13 = time.perf_counter()
+        baselines = phase_baselines(torch, np, eval_root, zero_counts, kernel_counts)
+        baselines["phase_s"] = time.perf_counter() - t13
+    finally:
+        shutil.rmtree(eval_root, ignore_errors=True)
     log("evals", f"{smi}: " + "; ".join(
         f"{name} {evals[f'{name} s']:.2f} s, window first {evals[f'{name} first_window_ms']:.1f}"
         f" ms, then {evals[f'{name} window_ms_median']:.1f}"
@@ -3270,6 +3636,12 @@ def main() -> int:
         + "; DAVIS TPS steady (runner's mean) " + ", ".join(
             f"{evals[f'davis bf16 chunk {c} steady_tps']:.0f} "
             f"({evals[f'davis bf16 chunk {c} tps']:.0f}) at chunk {c}" for c in EVAL_DAVIS_CHUNKS))
+
+    log("baselines", f"{smi}: phase 13 {baselines['phase_s']:.1f} s; " + "; ".join(
+        f"{name} {baselines[f'{name} s']:.2f} s, window first "
+        f"{baselines[f'{name} first_window_ms']:.1f} ms, then "
+        f"{baselines[f'{name} window_ms_median']:.1f}, peak {baselines[f'{name} peak_gb']:.2f} GB"
+        for name in (f"{r} {m}" for m in ("raft", "dino") for r in ("flt", "badja", "crohd"))))
 
     log("slice", f"main-path launches: {main_path}")
     if min(main_path.values()) == 0:
@@ -3321,7 +3693,8 @@ def main() -> int:
     log("done", f"all phases passed in {time.perf_counter() - T0:.1f} s "
                 f"(chained video {chain_s:.2f} s; windows {json.dumps(window_ms)}; "
                 f"training default {json.dumps(train_default)}; f32 {json.dumps(train_f32)}; "
-                f"Pips2 {json.dumps(pips2)}; data {json.dumps(data)}; evals {json.dumps(evals)})")
+                f"Pips2 {json.dumps(pips2)}; data {json.dumps(data)}; evals {json.dumps(evals)}; "
+                f"baselines {json.dumps(baselines)})")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

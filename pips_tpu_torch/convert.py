@@ -1,13 +1,19 @@
-"""Parameter bridge between the JAX ``Pips`` and ``Pips2`` param trees and the
-port's ``state_dict`` (counterpart of ``pips_tpu/torchport/convert.py``).
+"""Parameter bridge between the JAX package's flax variables (``Pips``,
+``Pips2``, the RAFT and DINO baselines) and the port's ``state_dict``
+(counterpart of ``pips_tpu/torchport/convert.py``).
 
 The port names its modules after the flax tree, so a leaf maps by path:
 
 * ``.../<conv>/Conv_0/kernel`` (kH, kW, I, O) <-> ``<conv>.weight`` (O, I, kH, kW)
 * ``.../<conv>/Conv_0/bias`` <-> ``<conv>.bias``
-* dense ``kernel`` (I, O), Pips2's depthwise temporal conv ``tconv/kernel``
-  (3, 1, D) (``models.pips2.TemporalConv`` keeps flax's layout), LayerNorm
-  ``scale`` and every other ``bias`` keep their name and layout.
+* every other ``kernel`` keeps its name and flax's layout: dense (I, O),
+  Pips2's depthwise temporal conv (3, 1, D) (``models.pips2.TemporalConv``),
+  bare ``nn.Conv`` layers (kH, kW, I, O) (RAFT's GRU, the ViT's patch
+  embedding), the attention's (dim, heads, head_dim) and (heads, head_dim,
+  dim) projections (``models.dino``); so do LayerNorm ``scale``, every other
+  ``bias`` and the ViT's ``cls_token`` and ``pos_embed``.
+* ``batch_stats`` ``mean`` and ``var`` (RAFT's batch norms) <-> the buffers
+  ``<norm>.mean`` and ``<norm>.var``.
 
 The tree is the same with and without ``fuse_chanff`` (the fused blocks'
 ``_LNParams``/``_ChanFFParams`` mirror ``LN``/``ChannelMixFF``), so one bridge
@@ -32,49 +38,61 @@ def _flatten(tree: Mapping[str, Any], prefix: tuple = ()):
             yield prefix + (k,), np.asarray(v)
 
 
+_PARAM_LEAVES = ("kernel", "bias", "scale", "cls_token", "pos_embed")
+_STAT_LEAVES = ("mean", "var")
+
+
 def state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, np.ndarray]:
-    """``{"params": tree}`` of the JAX ``Pips`` or ``Pips2`` -> the port's state_dict (numpy)."""
-    if set(variables) != {"params"}:
-        raise ValueError(f"expected {{'params': ...}}, got keys {sorted(variables)}")
+    """``{"params": tree}``, with ``"batch_stats"`` where the model has
+    batch norms -> the port's state_dict (numpy)."""
+    if "params" not in variables or not set(variables) <= {"params", "batch_stats"}:
+        raise ValueError(f"expected {{'params': ...[, 'batch_stats': ...]}}, got keys "
+                         f"{sorted(variables)}")
     sd = {}
-    for path, a in _flatten(variables["params"]):
-        *mods, leaf = path
-        if mods and mods[-1] == _CONV:
-            mods = mods[:-1]
-            if leaf == "kernel":
-                if a.ndim != 4:
-                    raise ValueError(f"conv kernel {'/'.join(path)} has shape {a.shape}")
-                leaf, a = "weight", a.transpose(3, 2, 0, 1)
-            elif leaf != "bias":
-                raise ValueError(f"unknown conv leaf {'/'.join(path)}")
-        elif leaf not in ("kernel", "bias", "scale"):
-            raise ValueError(f"unknown leaf {'/'.join(path)}")
-        key = ".".join([*mods, leaf])
-        if key in sd:
-            raise ValueError(f"two leaves map to {key}")
-        sd[key] = np.array(a, order="C")
+    for collection, allowed in (("params", _PARAM_LEAVES), ("batch_stats", _STAT_LEAVES)):
+        for path, a in _flatten(variables.get(collection, {})):
+            *mods, leaf = path
+            if collection == "params" and mods and mods[-1] == _CONV:
+                mods = mods[:-1]
+                if leaf == "kernel":
+                    if a.ndim != 4:
+                        raise ValueError(f"conv kernel {'/'.join(path)} has shape {a.shape}")
+                    leaf, a = "weight", a.transpose(3, 2, 0, 1)
+                elif leaf != "bias":
+                    raise ValueError(f"unknown conv leaf {'/'.join(path)}")
+            elif leaf not in allowed:
+                raise ValueError(f"unknown {collection} leaf {'/'.join(path)}")
+            key = ".".join([*mods, leaf])
+            if key in sd:
+                raise ValueError(f"two leaves map to {key}")
+            sd[key] = np.array(a, order="C")
     return sd
 
 
 def flax_from_state_dict(sd: Mapping[str, Any]) -> dict[str, Any]:
-    """Inverse of ``state_dict_from_flax``: the port's state_dict -> ``{"params": tree}``."""
-    tree: dict[str, Any] = {}
+    """Inverse of ``state_dict_from_flax``: the port's state_dict ->
+    ``{"params": tree}``, with ``"batch_stats"`` where it holds ``mean`` and
+    ``var`` buffers."""
+    out: dict[str, Any] = {"params": {}}
     for key, v in sd.items():
         a = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
         *mods, leaf = key.split(".")
+        collection = "params"
         if leaf == "weight":
             if a.ndim != 4:
                 raise ValueError(f"{key} is not a conv weight: shape {a.shape}")
             mods, leaf, a = [*mods, _CONV], "kernel", a.transpose(2, 3, 1, 0)
         elif leaf == "bias" and key[: -len("bias")] + "weight" in sd:
             mods = [*mods, _CONV]
-        elif leaf not in ("kernel", "bias", "scale"):
+        elif leaf in _STAT_LEAVES:
+            collection = "batch_stats"
+        elif leaf not in _PARAM_LEAVES:
             raise ValueError(f"unknown state_dict entry {key}")
-        node = tree
+        node = out.setdefault(collection, {})
         for m in mods:
             node = node.setdefault(m, {})
         node[leaf] = np.array(a, order="C")
-    return {"params": tree}
+    return out
 
 
 def load_flax_params(model: torch.nn.Module, variables: Mapping[str, Any]) -> torch.nn.Module:

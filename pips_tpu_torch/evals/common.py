@@ -1,7 +1,8 @@
 """Shared eval-runner utilities (counterpart of ``pips_tpu/evals/common.py``):
 the eval model factory, weight loading (the port's checkpoints or the
-reference's ``model-*.pth``), host-side resizing that matches the JAX
-runners' preprocessing, the shared PIPs window tracker and the eval media.
+reference's ``model-*.pth``), the RAFT and DINO baseline trackers, host-side
+resizing that matches the JAX runners' preprocessing, the shared PIPs window
+tracker and the eval media.
 
 Every entry point runs on CUDA unless the caller passes ``device="cpu"``;
 without a card it raises (``models.pips.resolve_device``) and never falls
@@ -73,13 +74,96 @@ def load_params(model: Pips, init_dir: str) -> Pips:
         f"no checkpoint found at {init_dir} (expected model-*.pt or model-*.pth){hint}")
 
 
-def build_baseline_tracker(modeltype: str, init_dir: str, raft_iters: int = 32):
-    """The raft and dino baselines of the FLT/BADJA/CroHD runners are not
-    ported yet: they raise ``NotImplementedError`` naming ROADMAP A8."""
-    if modeltype in ("raft", "dino"):
-        raise NotImplementedError(
-            f"the {modeltype} baseline is not ported to pips_tpu_torch yet (ROADMAP A8); "
-            f"run it with pips_tpu.evals")
+DINO_RELEASE_FILE = "dino_deitsmall8_pretrain.pth"
+
+
+def _numpy_state_dict(sd: Mapping) -> dict:
+    return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+            for k, v in sd.items()}
+
+
+def load_raft_state_dict(init_dir: str) -> dict:
+    """RAFT state_dict as numpy arrays from a local ``.pth`` (the published
+    ``raft-things.pth``, or a file holding it under ``"model_state_dict"``),
+    read with ``weights_only=True``."""
+    sd = torch.load(init_dir, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "model_state_dict" in sd:
+        sd = sd["model_state_dict"]
+    return _numpy_state_dict(sd)
+
+
+def load_dino_state_dict(init_dir: str) -> dict:
+    """DINO ViT state_dict as numpy arrays, from a local ``.pth`` (the DINO
+    release's ``dino_deitsmall8_pretrain.pth``, or a file holding it under
+    ``"state_dict"``), read with ``weights_only=True``. The port never
+    fetches weights: a missing file raises ``FileNotFoundError``."""
+    if not init_dir or not os.path.isfile(init_dir):
+        raise FileNotFoundError(
+            f"dino checkpoint {init_dir!r} not found; the port reads DINO weights only from "
+            f"a local file: download {DINO_RELEASE_FILE} from the DINO release and pass "
+            f"--init_dir <path>")
+    sd = torch.load(init_dir, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return _numpy_state_dict(sd)
+
+
+def infer_dino_arch(sd: dict) -> tuple[int, int, int, int]:
+    """(dim, depth, heads, patch) from a DINO ViT state dict (heads via the
+    64-dim-per-head ViT convention: S/8 -> 6, B/8 -> 12)."""
+    dim = int(sd["cls_token"].shape[-1])
+    depth = 1 + max(int(k.split(".")[1]) for k in sd if k.startswith("blocks."))
+    patch = int(sd["patch_embed.proj.weight"].shape[-1])
+    return dim, depth, max(dim // 64, 1), patch
+
+
+def build_baseline_tracker(modeltype: str, init_dir: str, raft_iters: int = 32, device="cuda"):
+    """Baseline tracker shared by the FLT/BADJA/CroHD eval runners
+    (reference runs raft and dino on every benchmark: ``test_on_flt.py:123-161``,
+    ``test_on_badja.py:161-539``, ``test_on_crohd.py:65-222``), in f32 on
+    ``device`` (CUDA unless ``device="cpu"``).
+
+    ``init_dir`` is the checkpoint file: RAFT's ``raft-things.pth`` layout
+    (``module.`` prefixes stripped) or DINO's release file. Returns
+    ``fn(xys (1,N,2), rgbs (1,T,H,W,3) [0,255]) -> trajs_e (1,T,N,2)`` numpy,
+    for any T (full-video for BADJA, S-frame windows for FLT/CroHD).
+    """
+    from pips_tpu_torch.convert import load_flax_params
+    from pips_tpu_torch.torchport import convert_dino_vit_state_dict, convert_raft_state_dict
+
+    device = resolve_device(device)
+    if modeltype == "raft":
+        from pips_tpu_torch.inference.flow_chain import FlowChainTracker
+        from pips_tpu_torch.models.raft import RAFT, Raftnet
+
+        model = load_flax_params(RAFT(), convert_raft_state_dict(load_raft_state_dict(init_dir)))
+        tracker = FlowChainTracker(Raftnet(model, iters=raft_iters, device=device).forward,
+                                   device=device)
+        return lambda xys, rgbs: tracker.track(np.asarray(rgbs), np.asarray(xys, np.float32))
+
+    if modeltype == "dino":
+        from pips_tpu_torch.models.dino import DinoTracker
+
+        sd = load_dino_state_dict(init_dir)
+        dim, depth, heads, patch = infer_dino_arch(sd)
+        trackers: dict = {}  # the pos-embed's resize is per patch-grid shape
+
+        def track(xys, rgbs):
+            H, W = rgbs.shape[2:4]
+            if H % patch or W % patch:
+                raise ValueError(f"dino needs H,W divisible by {patch}, got {(H, W)}")
+            key = (H // patch, W // patch)
+            if key not in trackers:
+                variables = convert_dino_vit_state_dict(sd, grid_hw=key, dim=dim, heads=heads,
+                                                        depth=depth)
+                trackers[key] = DinoTracker(
+                    DinoTracker.make_vit_feat_fn(variables, patch, dim=dim, depth=depth,
+                                                 heads=heads, device=device),
+                    patch_size=patch, device=device)
+            return trackers[key].track(np.asarray(rgbs[0]), np.asarray(xys[0], np.float32))[None]
+
+        return track
+
     raise ValueError(f"unknown baseline modeltype {modeltype!r}")
 
 

@@ -3,8 +3,8 @@
 ``test_on_badja.py``): resize to 320x512, chain 8-frame windows per keypoint
 (batched through ``ChainTracker``, where the reference loops points one by
 one), report per-video PCK@0.2*sqrt(seg area). Runs on CUDA unless
-``--device cpu``; ``--modeltype raft|dino`` raises until the baselines are
-ported (ROADMAP A8).
+``--device cpu``; ``--modeltype raft|dino`` tracks each video whole with the
+RAFT flow chain or DINO label propagation (``--init_dir`` their weights file).
 
     python -m pips_tpu_torch.evals.run_badja --init_dir <ckpt> --data_dir <badja>
 """
@@ -64,7 +64,8 @@ def main(init_dir: str = "checkpoints/ref", data_dir: str = "/data/badja_data",
         track = lambda xy0, rgbs: chain.track_video(rgbs, xy0)[0]  # noqa: E731
     else:
         from pips_tpu_torch.evals.common import build_baseline_tracker
-        baseline = build_baseline_tracker(modeltype, init_dir, raft_iters=raft_iters)
+        baseline = build_baseline_tracker(modeltype, init_dir, raft_iters=raft_iters,
+                                          device=device)
         track = lambda xy0, rgbs: baseline(xy0[None], rgbs[None])[0]  # noqa: E731
 
     dataset = BadjaDataset(data_dir)

@@ -4,8 +4,9 @@ capability parity: reference ``test_on_crohd.py``).
 Runs the S=8 (of 24, stride-3) windows through the model and reports pooled
 ATE over the visible and occluded head subsets (reference expected values:
 ate_vis 4.57, ate_occ 7.71 — ``test_on_crohd.py:245-246``). Runs on CUDA
-unless ``--device cpu``; ``--modeltype raft|dino`` raises until the
-baselines are ported (ROADMAP A8).
+unless ``--device cpu``; ``--modeltype raft|dino`` runs the RAFT flow chain
+or DINO label propagation over each window (``--init_dir`` their weights
+file).
 
     python -m pips_tpu_torch.evals.run_crohd --init_dir <ckpt> --dataset_root <ht21>
 """
@@ -34,7 +35,8 @@ def main(init_dir: str = "checkpoints/ref", dataset_root: str = "/data/head_trac
                                    dtype=dtype, device=device)
     else:
         from pips_tpu_torch.evals.common import build_baseline_tracker
-        track = build_baseline_tracker(modeltype, init_dir, raft_iters=raft_iters)
+        track = build_baseline_tracker(modeltype, init_dir, raft_iters=raft_iters,
+                                       device=device)
 
     dataset = CrohdDataset(seqlen=S * 3, dset=dset, dataset_root=dataset_root)
     max_iters = max_iters or len(dataset)

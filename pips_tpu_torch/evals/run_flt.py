@@ -4,7 +4,8 @@ capability parity: reference ``test_on_flt.py``).
 Reports pooled ate_all / ate_vis / ate_occ with the per-sequence visibility
 relabeling ("visible in >= 4 frames"). Runs on CUDA unless ``--device cpu``;
 ``--dtype bfloat16`` serves every window through the fused channel-block
-kernel. Usage:
+kernel; ``--modeltype raft|dino`` runs a baseline instead (f32, ``--init_dir``
+its weights file). Usage:
 
     python -m pips_tpu_torch.evals.run_flt --init_dir <ckpt> --dataset_location <flt>
 """
@@ -31,7 +32,7 @@ def _build_tracker(modeltype: str, init_dir: str, S: int, stride: int, iters: in
                                   dtype=dtype, device=device)
 
     from pips_tpu_torch.evals.common import build_baseline_tracker
-    return build_baseline_tracker(modeltype, init_dir, raft_iters=raft_iters)
+    return build_baseline_tracker(modeltype, init_dir, raft_iters=raft_iters, device=device)
 
 
 def main(init_dir: str = "checkpoints/ref", dataset_location: str = "/data/flyingthings",

@@ -1,5 +1,6 @@
 """Align-corners bilinear resize and 2x2 average pooling
-(counterpart of ``pips_tpu/ops/resize.py``).
+(counterpart of ``pips_tpu/ops/resize.py``), and the half-pixel linear and
+cubic resizes of ``jax.image.resize`` that the DINO baseline uses.
 
 The resize is two small matmuls, out = A_y @ img @ A_x^T, with the
 interpolation matrices cast to the image's dtype as the JAX version does, so
@@ -38,6 +39,52 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_hw: tuple[int, int]) -> t
         return x
     Ay = torch.from_numpy(_interp_matrix(H, out_hw[0])).to(x.device, x.dtype)
     Ax = torch.from_numpy(_interp_matrix(W, out_hw[1])).to(x.device, x.dtype)
+    return torch.matmul(torch.matmul(Ay, x), Ax.t())
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic kernel with a = -0.5 (``jax.image``'s "cubic")."""
+    x = np.abs(x)
+    out = ((np.float32(1.5) * x - np.float32(2.5)) * x) * x + np.float32(1.0)
+    out = np.where(x >= 1.0, ((np.float32(-0.5) * x + np.float32(2.5)) * x - np.float32(4.0)) * x
+                   + np.float32(2.0), out)
+    return np.where(x >= 2.0, np.float32(0.0), out).astype(np.float32)
+
+
+def _triangle(x: np.ndarray) -> np.ndarray:
+    return np.maximum(np.float32(0.0), np.float32(1.0) - np.abs(x)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=128)
+def resize_matrix(n_in: int, n_out: int, method: str) -> np.ndarray:
+    """(n_out, n_in) f32 weights of ``jax.image.resize(..., method)`` along
+    one axis ("linear" or "cubic"): half-pixel centers; where it shrinks
+    the kernel widens by the scale (antialiasing); taps off the input are
+    dropped and each output's weights renormalised to sum to 1. Computed in
+    f32 as JAX computes it (``jax/_src/image/scale.py:compute_weight_mat``)."""
+    kernel = {"linear": _triangle, "cubic": _keys_cubic}[method]
+    if n_in == n_out:
+        return np.eye(n_out, dtype=np.float32)
+    inv_scale = np.float32(1.0 / (n_out / n_in))
+    kernel_scale = max(inv_scale, np.float32(1.0))
+    sample = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv_scale - np.float32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) / kernel_scale
+    w = kernel(x.astype(np.float32))
+    total = w.sum(axis=0, keepdims=True, dtype=np.float32)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, np.float32(1.0)), np.float32(0.0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.ascontiguousarray(np.where(inside[None, :], w, 0.0).T.astype(np.float32))
+
+
+def resize_half_pixel(x: torch.Tensor, out_hw: tuple[int, int], method: str = "linear"
+                      ) -> torch.Tensor:
+    """x: (..., H, W) -> (..., H_out, W_out), ``jax.image.resize``'s
+    half-pixel "linear" or "cubic" resize of the last two axes, as two
+    matmuls with ``resize_matrix``'s weights in x's dtype."""
+    H, W = x.shape[-2:]
+    Ay = torch.from_numpy(resize_matrix(H, out_hw[0], method)).to(x.device, x.dtype)
+    Ax = torch.from_numpy(resize_matrix(W, out_hw[1], method)).to(x.device, x.dtype)
     return torch.matmul(torch.matmul(Ay, x), Ax.t())
 
 

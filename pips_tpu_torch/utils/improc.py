@@ -8,8 +8,8 @@ reference's ``save_this`` and scalar-frequency gating, backed by the JSONL
 ``MetricWriter`` plus GIF/PNG files on disk. ``cv2`` and ``imageio`` stay
 optional, as in the JAX package: without cv2 the frames are written without
 the drawn trajectories and no PNG is written; without imageio the GIF goes
-through PIL. ``flow2color`` and ``Summ_writer.summ_flow(s)`` belong to the
-RAFT baseline and are not ported (ROADMAP A8)."""
+through PIL. ``flow2color`` and ``Summ_writer.summ_flow(s)`` draw the RAFT
+baseline's flow fields."""
 
 from __future__ import annotations
 
@@ -169,6 +169,44 @@ def write_gif(path: str, frames: Sequence[np.ndarray], fps: int = 8) -> None:
                      duration=int(1000 / fps), loop=0)
 
 
+def flow2color(flow: np.ndarray, clip: float = 50.0) -> np.ndarray:
+    """Optical-flow color wheel (reference ``utils/improc.py:433-470``).
+
+    flow: (..., H, W, 2) xy displacement -> (..., H, W, 3) uint8. Hue encodes
+    direction (atan2), value encodes clipped magnitude, saturation fixed at
+    0.75. ``clip > 0`` normalizes by the clip radius; ``clip == 0`` uses the
+    per-image perceived max (mean + 2*std of |flow|, floored at 1).
+    """
+    f = np.asarray(flow, np.float32)
+    if clip:
+        f = np.clip(f, -clip, clip) / clip
+    else:
+        mag = np.abs(f)
+        axes = tuple(range(f.ndim - 3, f.ndim))  # (H, W, 2)
+        fmax = mag.mean(axis=axes) + 2.0 * mag.std(axis=axes) + 1e-10
+        fmax_c = np.maximum(fmax, 1.0)
+        fmax = fmax.reshape(fmax.shape + (1, 1, 1))
+        fmax_c = fmax_c.reshape(fmax_c.shape + (1, 1, 1))
+        f = np.clip(f, -fmax, fmax) / fmax_c
+    radius = np.clip(np.sqrt(np.sum(f ** 2, axis=-1)), 0.0, 1.0)
+    angle = np.arctan2(f[..., 1], f[..., 0]) / np.pi  # [-1, 1]
+    hue = np.clip((angle + 1.0) / 2.0, 0.0, 1.0)
+    sat = np.full_like(hue, 0.75)
+    val = radius
+    # HSV -> RGB (vectorized standard conversion, h in [0,1))
+    h6 = np.minimum(hue, 1.0 - 1e-7) * 6.0
+    i = np.floor(h6).astype(np.int32)
+    ffrac = h6 - i
+    p = val * (1.0 - sat)
+    q = val * (1.0 - sat * ffrac)
+    t = val * (1.0 - sat * (1.0 - ffrac))
+    r = np.choose(i % 6, [val, q, p, p, t, val])
+    g = np.choose(i % 6, [t, val, val, q, p, p])
+    b = np.choose(i % 6, [p, p, t, val, val, q])
+    rgb = np.stack([r, g, b], axis=-1)
+    return (rgb * 255.0).astype(np.uint8)
+
+
 def oned_to_rgb(x: np.ndarray, norm: bool = True) -> np.ndarray:
     """(H, W) scalar map -> (H, W, 3) uint8 heatmap."""
     if norm:
@@ -246,6 +284,19 @@ class Summ_writer:
     def summ_feats(self, name: str, feats: Sequence[np.ndarray],
                    only_return: bool = False):
         frames = [pca_feat_vis(f) for f in feats]
+        if not only_return and self.save_this:
+            write_gif(self._media_path(name, "gif"), frames, fps=self.fps)
+        return np.stack(frames)
+
+    def summ_flow(self, name: str, flow: np.ndarray, clip: float = 0.0,
+                  only_return: bool = False, frame_id=None):
+        """flow: (H, W, 2) xy displacement."""
+        return self.summ_rgb(name, flow2color(flow, clip=clip),
+                             only_return=only_return, frame_id=frame_id)
+
+    def summ_flows(self, name: str, flows: Sequence[np.ndarray],
+                   clip: float = 0.0, only_return: bool = False):
+        frames = [flow2color(f, clip=clip) for f in flows]
         if not only_return and self.save_this:
             write_gif(self._media_path(name, "gif"), frames, fps=self.fps)
         return np.stack(frames)

@@ -10,6 +10,11 @@ keypoint's share of it, DAVIS's dense trajectories within 1e-3 px, and the
 same media files (names, frame counts and sizes). One iteration differs by
 at most ~4.4e-4 px, from the time steps' linspace (see
 ``tests/test_torch_evals.py``).
+
+The RAFT and DINO baselines (``--modeltype raft|dino``) run in both packages
+from the same seeded weights in the release files' layouts, RAFT at one
+iteration: pooled ATEs within ``BASELINE_ATE_PX`` = 1e-3 px, BADJA's PCK
+within one keypoint's share, the same media.
 """
 
 import numpy as np
@@ -137,3 +142,81 @@ def test_run_davis_matches_jax(pth, tmp_path_factory, chunk):
     assert np.abs(want["trajs"] - want["trajs"][:1]).max() > 0.5  # the points moved
     assert media(out / "port") == media(out / "jax") == {"video0.gif": (8, 48, 96),
                                                         "video1.gif": (8, 48, 96)}
+
+
+# --- the RAFT and DINO baselines (--modeltype raft|dino) -----------------------
+
+BASELINE_ATE_PX = 1e-3
+
+
+@pytest.fixture(scope="module")
+def baseline_ckpts(tmp_path_factory):
+    """Seeded weights in the release files' layouts: RAFT as
+    ``raft-things.pth`` (``module.`` prefixes), DINO's ViT as
+    ``dino_deitsmall8_pretrain.pth`` at dim 128 (two heads by the 64-a-head
+    rule), depth 2, its pos_embed on a 4x4 grid."""
+    from test_torch_raft import raft_reference_state_dict
+    from test_vit_convert import make_dino_sd
+
+    d = tmp_path_factory.mktemp("baselines")
+    out = {}
+    for name, sd in (("raft", raft_reference_state_dict(9)),
+                     ("dino", make_dino_sd(np.random.RandomState(7), dim=128, heads=2, depth=2,
+                                           patch=8, grid=4))):
+        out[name] = str(d / f"{name}.pth")
+        torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, out[name])
+    return out
+
+
+@pytest.mark.parametrize("modeltype", ["raft", "dino"])
+def test_run_flt_baselines_match_jax(baseline_ckpts, tmp_path_factory, modeltype):
+    """RAFT (one iteration) and DINO on 96x128 crops: pooled ATEs within
+    ``BASELINE_ATE_PX`` of JAX's, the same media."""
+    root = make_flyingthings_tree(tmp_path_factory.mktemp("flt"), dset="TEST")
+    logs = tmp_path_factory.mktemp("flt_logs")
+    kw = dict(init_dir=baseline_ckpts[modeltype], dataset_location=root, N=8,
+              crop_size=(96, 128), max_iters=2, modeltype=modeltype, raft_iters=1, log_freq=1)
+    want = jax_flt.main(**kw, log_dir=str(logs / "jax"))
+    got = run_flt.main(**kw, log_dir=str(logs / "port"), device="cpu")
+    assert sorted(got) == sorted(want) == ["ate_all", "ate_occ", "ate_vis"]
+    for k in want:
+        assert np.isfinite(want[k]) == np.isfinite(got[k]), k
+        if np.isfinite(want[k]):
+            assert abs(got[k] - want[k]) <= BASELINE_ATE_PX, (k, got[k], want[k])
+    assert np.isfinite(want["ate_all"]) and want["ate_all"] > 0
+    assert media(logs / "port") == media(logs / "jax") != {}
+
+
+@pytest.mark.parametrize("modeltype", ["raft", "dino"])
+def test_run_crohd_baselines_match_jax(baseline_ckpts, tmp_path_factory, modeltype):
+    root = make_crohd_tree(tmp_path_factory.mktemp("ht21"))
+    logs = tmp_path_factory.mktemp("crohd_logs")
+    kw = dict(init_dir=baseline_ckpts[modeltype], dataset_root=root, S=8, N=4, max_iters=2,
+              req_occlusion=False, modeltype=modeltype, raft_iters=1, log_freq=1)
+    want = jax_crohd.main(**kw, log_dir=str(logs / "jax"))
+    got = run_crohd.main(**kw, log_dir=str(logs / "port"), device="cpu")
+    assert sorted(got) == sorted(want) == ["ate_all", "ate_occ", "ate_vis"]
+    assert np.isfinite(want["ate_all"]) and want["ate_all"] > 0
+    for k in want:
+        if np.isnan(want[k]):
+            assert np.isnan(got[k]), k
+        else:
+            assert abs(got[k] - want[k]) <= BASELINE_ATE_PX, (k, got[k], want[k])
+    assert media(logs / "port") == media(logs / "jax") != {}
+
+
+@pytest.mark.parametrize("modeltype", ["raft", "dino"])
+def test_run_badja_baselines_match_jax(baseline_ckpts, tmp_path_factory, modeltype):
+    """The whole 6-frame video at 64x96 through the flow chain (one RAFT
+    iteration) or label propagation: PCK within one keypoint's share."""
+    root = make_badja_tree(tmp_path_factory.mktemp("badja"), T=6)
+    out = tmp_path_factory.mktemp("badja_out")
+    kw = dict(init_dir=baseline_ckpts[modeltype], data_dir=root, max_iters=1,
+              resize_hw=(64, 96), modeltype=modeltype, raft_iters=1)
+    want = jax_badja.main(**kw, out_dir=str(out / "jax"))
+    got = run_badja.main(**kw, out_dir=str(out / "port"), device="cpu")
+    assert sorted(got) == sorted(want) == ["avg", "bear"]
+    share = 100.0 / (5 * 20)  # one of the visible keypoints of frames 1..5
+    assert np.isfinite(want["avg"])
+    assert abs(got["avg"] - want["avg"]) <= share + 1e-9, (got, want)
+    assert media(out / "port") == media(out / "jax") == {"bear_kp_vis.gif": (6, 64, 96)}

@@ -330,7 +330,9 @@ def _media_inputs():
         traj_g=(rng.rand(2, 2) * [60, 44]).astype(np.float32),
         u=rng.rand(H, W).astype(np.float32), v=rng.rand(H, W).astype(np.float32),
         seq=rng.rand(S, 12, 16).astype(np.float32),
-        xys=(rng.rand(N, 2) * [W, H]).astype(np.float32))
+        xys=(rng.rand(N, 2) * [W, H]).astype(np.float32),
+        flow=(rng.randn(H, W, 2) * 20).astype(np.float32),
+        flows=(rng.randn(3, H, W, 2) * 20).astype(np.float32))
 
 
 IMPROC_CASES = {
@@ -347,6 +349,8 @@ IMPROC_CASES = {
     "render_fcp_vis": lambda m, d: m.render_fcp_vis(d["fcps"], d["coords"], d["traj_g"]),
     "colormap_2d": lambda m, d: m.colormap_2d(d["u"], d["v"]),
     "seq2color": lambda m, d: m.seq2color(d["seq"]),
+    "flow2color": lambda m, d: m.flow2color(d["flows"]),
+    "flow2color clip 0": lambda m, d: m.flow2color(d["flows"], clip=0.0),
 }
 
 SUMM_CASES = {
@@ -373,6 +377,9 @@ SUMM_CASES = {
     "summ_soft_seg_thr default colors": lambda sw, d: sw.summ_soft_seg_thr(
         "a/seg", d["seg"], thr=0.3, only_return=True),
     "summ_gif": lambda sw, d: sw.summ_gif("a/gif", d["rgbsf"], only_return=True),
+    "summ_flow": lambda sw, d: sw.summ_flow("a/flow", d["flow"], only_return=True, frame_id=2),
+    "summ_flows": lambda sw, d: sw.summ_flows("a/flows", list(d["flows"]), clip=30.0,
+                                              only_return=True),
 }
 
 

@@ -1,6 +1,7 @@
 """The port stands alone: importing every pips_tpu_torch module and
-chip_smoke.py loads nothing of JAX and nothing of the JAX package, and its
-entry points refuse to fall back to the CPU when CUDA is absent."""
+chip_smoke.py loads nothing of JAX and nothing of the JAX package, nothing
+fetches weights from the hub, and its entry points refuse to fall back to
+the CPU when CUDA is absent."""
 
 import json
 import os
@@ -44,9 +45,20 @@ def test_port_imports_no_jax_and_nothing_of_pips_tpu():
                  "data.augs", "data.pfm", "native.lib", "ops.fps", "utils.cli", "datagen.run",
                  "datagen.trajs", "datagen.occluders", "evals", "evals.common", "evals.metrics",
                  "evals.run_flt", "evals.run_badja", "evals.run_crohd", "evals.run_davis",
-                 "torchport", "torchport.convert", "utils.format", "utils.improc", "ops.embed"):
+                 "torchport", "torchport.convert", "utils.format", "utils.improc", "ops.embed",
+                 "models.raft", "models.dino", "inference.flow_chain"):
         assert f"pips_tpu_torch.{name}" in res["modules"]
     assert res["banned"] == []
+
+
+def test_port_never_reaches_torch_hub():
+    """The port takes baseline weights only from local files: no source of
+    the package, and not chip_smoke.py, names the hub."""
+    sources = [*sorted((REPO / "pips_tpu_torch").rglob("*.py")), REPO / "chip_smoke.py"]
+    assert len(sources) > 50
+    for path in sources:
+        text = path.read_text()
+        assert "torch.hub" not in text and "hub.load" not in text, path
 
 
 def test_host_library_is_the_ports_own():
@@ -109,19 +121,39 @@ def test_eval_runners_need_cuda_before_reading_data(monkeypatch, tmp_path, runne
 
 
 @pytest.mark.parametrize("runner,kw,names", [
-    ("run_flt", dict(modeltype="raft"), "ROADMAP A8"),
-    ("run_crohd", dict(modeltype="dino"), "ROADMAP A8"),
-    ("run_badja", dict(modeltype="raft"), "ROADMAP A8"),
     ("run_davis", dict(mesh="1,8"), "ROADMAP A7")])
 def test_unported_eval_options_raise(tmp_path, runner, kw, names):
-    """The baselines (A8) and multi-device serving (A7) are not ported: they
-    raise ``NotImplementedError`` naming their ROADMAP item, on the CPU too."""
+    """Multi-device serving (A7) is not ported: it raises
+    ``NotImplementedError`` naming its ROADMAP item, on the CPU too."""
     import importlib
 
     mod = importlib.import_module(f"pips_tpu_torch.evals.{runner}")
     with pytest.raises(NotImplementedError, match=names):
         mod.main(init_dir=str(tmp_path / "ckpt"), device="cpu",
                  **{EVAL_RUNNERS[runner]: str(tmp_path / "data")}, **kw)
+
+
+@pytest.mark.parametrize("modeltype", ["raft", "dino"])
+def test_baselines_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path, modeltype):
+    """The baseline builder and its trackers raise without a card before
+    reading weights; on the CPU a missing weights file raises, nothing is
+    fetched."""
+    from pips_tpu_torch.evals import common
+    from pips_tpu_torch.inference import FlowChainTracker
+    from pips_tpu_torch.models.dino import DinoTracker
+    from pips_tpu_torch.models.raft import RAFT, Raftnet
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = str(tmp_path / f"{modeltype}.pth")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        common.build_baseline_tracker(modeltype, missing)
+    with pytest.raises(FileNotFoundError):
+        common.build_baseline_tracker(modeltype, missing, device="cpu")
+    for make in (lambda: Raftnet(RAFT()), lambda: FlowChainTracker(lambda a, b: a),
+                 lambda: DinoTracker(lambda x: x)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    assert not (tmp_path / f"{modeltype}.pth").exists()
 
 
 def test_chip_smoke_fails_without_cuda():
