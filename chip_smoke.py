@@ -68,9 +68,10 @@ Phases, each printing a progress line with the elapsed seconds:
      12*I f32 backward launches per step;
   9. slice, the profiling tools: ``pips_tpu_torch.tools.profile_block_kernel``,
      ``profile_stem_wgrad`` and ``profile_chanff_chunk``'s ``main`` at their
-     full-width shapes (the stage-1 residual block at 8x64x192x256 bf16; the
-     stem weight gradient at B=1 and B=8, 384x512 bf16; a chain of 12 channel
-     blocks at R=1024, chunk widths 512 and 1024); ``res_block64`` must
+     full-width shapes (the stage-1 residual block at 8x64x192x256 bf16, and
+     in f32: the f32 conv pass's path; the stem weight gradient at B=1 and
+     B=8, 384x512 bf16; a chain of 12 channel blocks at R=1024, chunk widths
+     512 and 1024); ``res_block64`` must
      launch the conv-pass kernel 2 times per forward and 4 per
      forward+backward, ``stem_wgrad`` its kernel once per weight gradient,
      and the chunked chain 12 forward launches per chain forward and 12
@@ -131,18 +132,22 @@ Phases, each printing a progress line with the elapsed seconds:
      median of the rest and peak memory printed.
 Phase 3 also holds (3d) ``conv3x3_same`` (the encoder's stage-1 3x3 conv)
 against its plain version, forward and dx, at a window's, the training
-default's and the bench train shape's stage 1 in bf16 and a small ragged
-shape in bf16 and f32, all channels_last, with dW and db through its autograd Function, timed in turns with
-``F.conv2d``; two calls bit-identical, and one forward and one dx call each
-captured in a CUDA graph: one kernel, the one ``conv_cuda.launch_plan``
-names (C = O = 64 bf16 the wgmma kernel); and at ``CONV_WIDTHS`` (other
-widths, the mma.sync kernel) the same checks and times; and phase 4 (4b)
+default's and the bench train shape's stage 1 in bf16 and in f32 and a small
+ragged shape in bf16 and f32, all channels_last, with dW and db through its
+autograd Function, timed in turns with ``F.conv2d`` (full f32: TF32 off),
+each f32 time beside the SIMT kernel's before the register-tiled redesign
+(``F32_BEFORE_MS``); two calls bit-identical, and one forward and one dx call
+each captured in a CUDA graph: one kernel, the one ``conv_cuda.launch_plan``
+names (C = O = 64 bf16 the wgmma kernel, f32 ``conv3x3_f32``); and at
+``CONV_WIDTHS`` (other widths, the mma.sync kernel) the same checks and
+times; and phase 4 (4b)
 serves the N=256 window with ``fuse_conv3``
-against the same weights without it, 4 conv launches per window. 3e holds
+against the same weights without it, 4 conv launches per window, in bf16
+and in f32 (4 ``conv3x3_f32`` launches). 3e holds
 ``conv_pass`` (the residual block's conv with the norm statistics in its
 epilogue), with and without its prologue, against its plain version and
 against itself (two calls, the same bits) at the block's bench shape in bf16
-and at a ragged shape in bf16 and f32, and the whole
+and f32 and at a ragged shape in bf16 and f32, and the whole
 ``res_block64``, forward and five grads, against ``res_block64_reference``;
 timed in turns with ``F.conv2d`` and the modular ``ResidualBlock``. 3f holds
 ``stem_wgrad`` against its plain version, and two calls against each other
@@ -246,13 +251,17 @@ TRAIN_RUN_STEPS = 20
 PARITY = dict(loss_rel=0.02, global_cos=0.995, encoder_cos=0.99, mixer_cos=0.98)
 # the encoder's stage-1 input (B*S, 64, H/2, W/2) of a 480x1024 window, of
 # the training default (4 flips x 8 frames at 368x496) and of the bench train
-# shape (8 frames at 384x512); and a small shape with ragged tiles in bf16 and
-# f32. All channels_last, as the encoder holds them and the kernel reads them.
+# shape (8 frames at 384x512), in bf16 and in f32 (``--dtype float32
+# --fuse_conv3 1``); and a small shape with ragged tiles in bf16 and f32. All
+# channels_last, as the encoder holds them and the kernel reads them.
 CONV_SHAPES = [("window", 8, 240, 512, "bfloat16"),
                ("train default", 32, 184, 248, "bfloat16"),
                ("bench train", 8, 192, 256, "bfloat16"),
                ("small", 2, 31, 70, "bfloat16"),
-               ("small f32", 2, 31, 70, "float32")]
+               ("small f32", 2, 31, 70, "float32"),
+               ("window f32", 8, 240, 512, "float32"),
+               ("train default f32", 32, 184, 248, "float32"),
+               ("bench train f32", 8, 192, 256, "float32")]
 # widths other than 64 -> 64, which the earlier mma.sync kernel takes: the
 # window's shape at 32 outputs, and a small ragged one at 24 -> 40
 CONV_WIDTHS = [("window C=64 O=32", 8, 240, 512, 64, 32), ("small C=24 O=40", 2, 31, 70, 24, 40)]
@@ -264,7 +273,16 @@ LOOP_STEPS, LOOP_EVERY, LOOP_MORE = 12, 6, 6  # phase 8: steps, val/save/media p
 # bf16, 8 x 32 f32: the last tiles hang over the border) in bf16 and f32; the
 # whole block at the first
 PASS_CASES = [("bench", 8, 192, 256, "bfloat16"), ("ragged bf16", 2, 31, 70, "bfloat16"),
-              ("small f32", 2, 31, 70, "float32")]
+              ("small f32", 2, 31, 70, "float32"), ("bench f32", 8, 192, 256, "float32")]
+# the f32 kernels' times before the register-tiled redesign
+# (csrc/conv3x3_f32_tiles.cuh), printed beside theirs: the earlier
+# one-pixel-a-thread SIMT kernels (8 x 32 tiles, all 64 outputs a thread) at
+# these cases, timed in turns with this design by
+# ``python3 -m pips_tpu_torch.tools.profile_conv_f32 --against <that tree>``
+# on an NVIDIA H100 80GB HBM3 at 700 W (ms; conv_pass with the prologue on)
+F32_BEFORE_MS = {"conv3x3_f32": {"small f32": 0.1388, "window f32": 4.2631,
+                                 "train default f32": 6.3482, "bench train f32": 1.7871},
+                 "conv3x3_stats_f32": {"small f32": 0.1468, "bench f32": 1.8449}}
 # phase 3i: row_contract off the probes' shapes: rows that fill no whole block
 # (G=1, R=1000), b repeated over the batches (batch stride 0, G=3, R=100), and
 # lanes off the fast path (CA=20, CB=24: the general branch)
@@ -395,9 +413,10 @@ PTXAS_REPORT = [("stem_wgrad", "stem_wgrad_tc"), ("mixer_probes", "probe_stream_
                 ("chanff_fwd", "chanff_fwd_out"), ("chanff_fwd", "chanff_fwd_act_f32"),
                 ("chanff_fwd", "chanff_fwd_out_f32"), ("chanff_chunk", "chanff_chunk_fwd"),
                 ("chanff_chunk", "chanff_chunk_bwd_rows"), ("conv3x3_fwd", "conv3x3_wgmma"),
-                ("corr_sample_fwd", "corr_sample_points")]
+                ("corr_sample_fwd", "corr_sample_points"), ("conv3x3_fwd", "conv3x3_f32"),
+                ("conv3x3_stats", "conv3x3_stats_f32")]
 # of those, the kernels whose report must show no spills
-NO_SPILLS = ("conv3x3_wgmma", "corr_sample_points")
+NO_SPILLS = ("conv3x3_wgmma", "corr_sample_points", "conv3x3_f32", "conv3x3_stats_f32")
 
 
 def ptxas_report(log_path: Path, kernel: str) -> str:
@@ -799,10 +818,12 @@ def phase_block(torch, np, F, block_cuda) -> dict:
         k0 = median_ms(torch, block_cuda.conv_pass, (x, wk, b, aff, False))
         plain_ms = median_ms(torch, block_cuda.conv_pass_reference, args, launches=5)
         bound_ms, bound_by = pass_bound(B, H, W, dtype)
+        before = F32_BEFORE_MS["conv3x3_stats_f32"].get(case)
         log("kernels", f"conv_pass {case} {B}x64x{H}x{W} {dtype} channels_last: "
                        + "; ".join(parts) + f"; prologue on {k1:.4f}/{k2:.4f} ms, F.conv2d "
                        f"{l1:.4f}/{l2:.4f} ms (in turns), prologue off {k0:.4f} ms, plain "
-                       f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+                       f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
+                       + (f", the SIMT kernel before {before:.4f} ms" if before else ""))
         out[case] = dict(max_abs_err=max(errs), ms=(k1 + k2) / 2, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by, library_ms=(l1 + l2) / 2)
         del x, w, b, aff, y, st, y_ref, st_ref, tol_acc, tol_st, err
@@ -1480,6 +1501,14 @@ def phase_tools(torch, block_cuda, stem_cuda, chunk_cuda) -> dict:
                  f"{json.dumps(res)}; {n_block} conv_pass launches (expected {want})")
     if n_block != want or not all(math.isfinite(v) and v > 0 for v in res.values()):
         fail(f"profile_block_kernel: {n_block} launches, expected {want}; {res}")
+    block_cuda.launches = 0  # the f32 block: the f32 conv pass (csrc/conv3x3_stats.cu)
+    t = time.perf_counter()
+    res = profile_block_kernel.main(dtype="float32")
+    n_block32 = block_cuda.launches
+    log("tools", f"profile_block_kernel.main(dtype='float32') in {time.perf_counter() - t:.1f} s: "
+                 f"{json.dumps(res)}; {n_block32} f32 conv_pass launches (expected {want})")
+    if n_block32 != want or not all(math.isfinite(v) and v > 0 for v in res.values()):
+        fail(f"profile_block_kernel f32: {n_block32} launches, expected {want}; {res}")
     stem_cuda.launches = 0
     t = time.perf_counter()
     res_s = profile_stem_wgrad.main()
@@ -1510,8 +1539,8 @@ def phase_tools(torch, block_cuda, stem_cuda, chunk_cuda) -> dict:
     if max(res_c["parity"].values()) > bound:
         fail(f"profile_chanff_chunk: a chunked chain differs from the base chain by more than "
              f"{bound}: {res_c['parity']}")
-    return {"res_block64": n_block, "stem_wgrad": n_stem, "chan_ff_chunked_fwd": got[0],
-            "chan_ff_chunked_bwd": got[1]}
+    return {"res_block64": n_block, "res_block64_f32": n_block32, "stem_wgrad": n_stem,
+            "chan_ff_chunked_fwd": got[0], "chan_ff_chunked_bwd": got[1]}
 
 
 def train_batch(torch, np, cfg: dict, seed: int) -> dict:
@@ -2961,7 +2990,8 @@ def main() -> int:
 
     # launches summed over main-path runs
     main_path = {"chan_ff_block": 0, "corr_sample": 0, "chan_ff_bwd": 0, "conv3x3_same": 0,
-                 "res_block64": 0, "stem_wgrad": 0, "chan_ff_bwd_f32": 0,
+                 "conv3x3_f32": 0, "res_block64": 0, "res_block64_f32": 0, "stem_wgrad": 0,
+                 "chan_ff_bwd_f32": 0,
                  "chan_ff_chunked_fwd": 0, "chan_ff_chunked_bwd": 0, "gelu": 0, "ln_slice": 0,
                  "stream_accum": 0, "corr_rows": 0, "row_contract_a": 0, "row_contract_a2": 0,
                  "row_contract_b": 0, "row_contract_c": 0}
@@ -3188,10 +3218,12 @@ def main() -> int:
         plain_ms = median_ms(torch, conv_cuda.conv3x3_reference, args)
         bound_ms, bound_by = conv_bound(B, H, W, dtype)
         ms, lib_ms = (k1 + k2) / 2, (l1 + l2) / 2
+        before = F32_BEFORE_MS["conv3x3_f32"].get(case)
         log("kernels", f"conv3x3_same {case} {B}x64x{H}x{W} {dtype} channels_last: max_abs_err "
                        + "; ".join(parts) + f"; {k1:.4f}/{k2:.4f} ms, F.conv2d {l1:.4f}/{l2:.4f} "
                        f"ms (in turns), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                       f"({bound_by})")
+                       f"({bound_by})" + (f", the SIMT kernel before {before:.4f} ms"
+                                          if before else ""))
         conv[case] = dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
         del x, w, b, dy, w_rot, outs, refs
@@ -3333,6 +3365,42 @@ def main() -> int:
     check_drift(f"fuse_conv3 {name}", one, six)
     window_ms["fuse_conv3 " + name] = med
     del model_c, tracker_c
+    torch.cuda.empty_cache()
+
+    # the same window in f32 (``--dtype float32 --fuse_conv3 1``): the four
+    # stage-1 convs through the f32 kernel, against the same f32 weights
+    # without it (cuDNN in full f32), held to the same drift bounds
+    if conv_cuda.launch_plan(8, 64, 64, H // 2, W // 2, torch.float32).kernel != "conv3x3_f32":
+        fail("the f32 window's stage-1 conv does not plan the f32 kernel")
+    model32 = make_pips(device="cuda", seed=0, dtype=torch.float32, fuse_chanff=True)
+    model32_c = make_pips(device="cuda", seed=0, dtype=torch.float32, fuse_chanff=True,
+                          fuse_conv3=True)
+    trackers32 = {k: {n: WindowTracker(m, iters=n, corr_mode="onehot") for n in (1, ITERS)}
+                  for k, m in (("plain convs", model32), ("fuse_conv3", model32_c))}
+    plain6 = trackers32["plain convs"][ITERS](xys, rgbs)
+    zero_counts()
+    c_trajs, c_vis = trackers32["fuse_conv3"][ITERS](xys, rgbs)
+    n_conv, n_ff = conv_cuda.launches, mixer_cuda.launches
+    check_window(np, f"f32 fuse_conv3 {name}", c_trajs, c_vis, xys)
+    if n_conv != CONV_PER_ENCODE or n_ff != DEPTH * ITERS:
+        fail(f"f32 fuse_conv3 {name}: conv3x3_f32 launched {n_conv} and chan_ff_block {n_ff} "
+             f"times, expected {CONV_PER_ENCODE} and {DEPTH * ITERS}")
+    main_path["conv3x3_f32"] += n_conv
+    one = drift(np, *trackers32["fuse_conv3"][1](xys, rgbs),
+                *trackers32["plain convs"][1](xys, rgbs))
+    six = drift(np, c_trajs, c_vis, *plain6)
+    times = {"plain convs": [], "fuse_conv3": []}
+    for _ in range(7):
+        for k in times:
+            times[k].append(window_seconds(torch, trackers32[k][ITERS], xys, rgbs))
+    med = {k: sorted(v)[len(v) // 2] * 1e3 for k, v in times.items()}
+    log("slice", f"f32 fuse_conv3 {name}: {n_conv} conv3x3_f32 + {n_ff} chan_ff launches; vs "
+                 f"plain convs: 1 iter traj max {one['max']:.3g} px, vis max {one['vis_max']:.3g}; "
+                 f"6 iters {fmt(six)}; median window over 7, in turns: plain convs "
+                 f"{med['plain convs']:.2f} ms, fuse_conv3 {med['fuse_conv3']:.2f} ms (host clock)")
+    check_drift(f"f32 fuse_conv3 {name}", one, six)
+    window_ms["f32 fuse_conv3 " + name] = med
+    del model32, model32_c, trackers32
     torch.cuda.empty_cache()
 
     # 5. slice: the served windows, pallas (the corr kernel), and the dense probe
@@ -3664,9 +3732,16 @@ def main() -> int:
         {"name": "conv3x3_same", "route": "cuda", "source": "pips_tpu_torch/csrc/conv3x3_fwd.cu",
          "replaces": "pips_tpu/kernels/conv_pallas.py:148",
          "launches": main_path["conv3x3_same"], **conv["window"]},
+        {"name": "conv3x3_f32", "route": "cuda", "source": "pips_tpu_torch/csrc/conv3x3_fwd.cu",
+         "replaces": "pips_tpu/kernels/conv_pallas.py:148",
+         "launches": main_path["conv3x3_f32"], **conv["window f32"]},
         {"name": "res_block64", "route": "cuda", "source": "pips_tpu_torch/csrc/conv3x3_stats.cu",
          "replaces": "pips_tpu/kernels/block_pallas.py:110",
          "launches": main_path["res_block64"], **block["bench"]},
+        {"name": "res_block64_f32", "route": "cuda",
+         "source": "pips_tpu_torch/csrc/conv3x3_stats.cu",
+         "replaces": "pips_tpu/kernels/block_pallas.py:110",
+         "launches": main_path["res_block64_f32"], **block["bench f32"]},
         {"name": "stem_wgrad", "route": "cuda", "source": "pips_tpu_torch/csrc/stem_wgrad.cu",
          "replaces": "pips_tpu/kernels/stem_wgrad_pallas.py:97",
          "launches": main_path["stem_wgrad"],

@@ -43,9 +43,15 @@
 //     2 x 64 tiles, synchronous 16-byte loads into XOR-swizzled rows, four
 //     warps on mma.sync m16n8k16 with ldmatrix, an epilogue staged through
 //     the input tile.
-//   * f32 (conv3x3_f32): a SIMT kernel with f32 FMAs (mma.sync in f32 would
-//     be TF32, which keeps 10 mantissa bits and would fail the f32
-//     reference), one output pixel a thread in 8 x 32 tiles.
+//   * f32 (conv3x3_f32): f32 FMAs (mma.sync in f32 would be TF32, which
+//     keeps 10 mantissa bits and would fail the f32 reference), bound by
+//     the FMA rate: 2*576 FLOP per (pixel, output) at 67 TFLOP/s, 1.08 ms at
+//     8x64x240x512, where x and y take 0.08 ms. conv3x3_f32_tiles.cuh's
+//     mainloop, which conv3x3_stats.cu shares: 256 threads on an 8 x 32
+//     pixel tile times 64, 32, 16 or 8 outputs (the plan splits the outputs
+//     where the tiles alone would not fill the card), a run of 8, 4, 2 or 1
+//     pixels x 8 outputs a thread, each input row loaded once for its three
+//     column taps, channels in chunks of 8 through three cp.async stages.
 //
 // Plain C ABI (loaded with ctypes): pips_conv3x3_fwd returns
 // cudaGetLastError() after the launch; 0 means launched.
@@ -55,6 +61,7 @@
 #include <stdint.h>
 
 #include "async_copy.cuh"
+#include "conv3x3_f32_tiles.cuh"
 #include "conv3x3_tiles.cuh"
 #include "mma_bf16.cuh"
 
@@ -350,77 +357,47 @@ conv3x3_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
 }
 }  // namespace tc
 
-// ------------------------------------------------------------------ f32 (SIMT)
-namespace simt {
-constexpr int kThreads = 256;  // one output pixel per thread, all 64 outputs in registers
-constexpr int TH = 8, TW = 32;
-constexpr int CC = 8;          // input channels staged per step
-constexpr int HR = TH + 2, HC = TW + 2;
-constexpr size_t kXBytes = (size_t)CC * HR * HC * 4;  // 10,880
-constexpr size_t kWBytes = (size_t)CC * 9 * kC * 4;   // 18,432
-constexpr size_t kSmem = kXBytes + kWBytes;
-static_assert(TH * TW == kThreads && kXBytes % 16 == 0, "thread map / alignment");
-
-__global__ void __launch_bounds__(kThreads)
+// ------------------------------------------- f32 (SIMT, register tiles)
+namespace f32 {
+// a block: an 8 x 32 pixel tile times OG outputs, on conv3x3_f32_tiles.cuh's
+// mainloop; the f32 bias added to the f32 sums, each thread writing its
+// pixels' 8 outputs as two float4 each (a 32-byte sector)
+template <int OG>
+__global__ void __launch_bounds__(conv3f::kThreads, 2)
 conv3x3_f32(const float* __restrict__ x, const float* __restrict__ w,
             const float* __restrict__ bias, float* __restrict__ y, int B, int Cin, int H, int W,
-            int Cout) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* xs = reinterpret_cast<float*>(smem);            // [CC][HR][HC]
-  float* ws = reinterpret_cast<float*>(smem + kXBytes);  // [CC][tap][kC], zeros past Cout
+            int Cout, int groups) {
+  constexpr int PX = conv3f::run(OG);
+  extern __shared__ __align__(16) float smem_f[];
+  const conv3f::Tile t = conv3f::tile_of(H, W, OG, groups);
+  const conv3f::Thread<OG> th;
+  float acc[PX][conv3f::OT];
+  conv3f::mainloop<OG>(acc, th, smem_f, x, w, t, H, W, Cin, Cout, [](float*, int) {});
 
-  const int tiles_h = (H + TH - 1) / TH, tiles_w = (W + TW - 1) / TW;
-  const int t = blockIdx.x;
-  const int b = t / (tiles_h * tiles_w);
-  const int h0 = (t / tiles_w) % tiles_h * TH, w0 = (t % tiles_w) * TW;
-  const int ty = threadIdx.x / TW, tx = threadIdx.x % TW;
-  const size_t plane = (size_t)H * W;
-  const float* xb = x + (size_t)b * plane * Cin;
-
-  float acc[kC];
+  const int o = t.o0 + th.o, h = t.h0 + th.r, c = t.w0 + th.c;
+  if (o >= Cout || h >= H) return;  // Cout is a multiple of 8: a thread's outputs are all in or out
+  const float4 b0 = *reinterpret_cast<const float4*>(bias + o);
+  const float4 b1 = *reinterpret_cast<const float4*>(bias + o + 4);
+  float* yr = y + (((size_t)t.b * H + h) * W + c) * Cout + o;
 #pragma unroll
-  for (int o = 0; o < kC; ++o) acc[o] = 0.0f;
-
-  for (int c0 = 0; c0 < Cin; c0 += CC) {
-    __syncthreads();  // the previous chunk is consumed
-    // channel fastest, so eight threads read one pixel's 32 contiguous bytes
-    for (int i = threadIdx.x; i < CC * HR * HC; i += kThreads) {
-      const int k = i % CC, p = i / CC, r = p / HC, cc = p % HC;
-      const int c = c0 + k, h = h0 - 1 + r, col = w0 - 1 + cc;
-      xs[k * HR * HC + p] = (c < Cin && h >= 0 && h < H && col >= 0 && col < W)
-                                ? xb[((size_t)h * W + col) * Cin + c]
-                                : 0.0f;
-    }
-    for (int i = threadIdx.x; i < CC * 9 * kC; i += kThreads) {
-      const int c = c0 + i / (9 * kC), tap = (i / kC) % 9, o = i % kC;
-      ws[i] = (c < Cin && o < Cout) ? w[((size_t)o * Cin + c) * 9 + tap] : 0.0f;
-    }
-    __syncthreads();
-    for (int c = 0; c < CC; ++c) {
-      for (int tap = 0; tap < 9; ++tap) {
-        const float v = xs[(c * HR + ty + tap / 3) * HC + tx + tap % 3];
-        const float4* wq = reinterpret_cast<const float4*>(ws + (c * 9 + tap) * kC);
-#pragma unroll
-        for (int o4 = 0; o4 < kC / 4; ++o4) {
-          const float4 q = wq[o4];  // the same address for every thread: a broadcast
-          acc[4 * o4 + 0] = fmaf(v, q.x, acc[4 * o4 + 0]);
-          acc[4 * o4 + 1] = fmaf(v, q.y, acc[4 * o4 + 1]);
-          acc[4 * o4 + 2] = fmaf(v, q.z, acc[4 * o4 + 2]);
-          acc[4 * o4 + 3] = fmaf(v, q.w, acc[4 * o4 + 3]);
-        }
-      }
-    }
-  }
-
-  const int h = h0 + ty, col = w0 + tx;
-  if (h < H && col < W) {
-    float* yb = y + ((size_t)b * plane + (size_t)h * W + col) * Cout;
-#pragma unroll
-    for (int o = 0; o < kC; ++o)
-      if (o < Cout) yb[o] = acc[o] + bias[o];
+  for (int p = 0; p < PX; ++p) {
+    if (c + p >= W) break;
+    float4* yp = reinterpret_cast<float4*>(yr + (size_t)p * Cout);
+    yp[0] = make_float4(acc[p][0] + b0.x, acc[p][1] + b0.y, acc[p][2] + b0.z, acc[p][3] + b0.w);
+    yp[1] = make_float4(acc[p][4] + b1.x, acc[p][5] + b1.y, acc[p][6] + b1.z, acc[p][7] + b1.w);
   }
 }
-}  // namespace simt
+
+template <int OG>
+cudaError_t launch(const float* x, const float* w, const float* bias, float* y, int B, int Cin,
+                   int H, int W, int Cout, int groups, int grid, cudaStream_t s) {
+  cudaError_t err = set_smem(conv3x3_f32<OG>, conv3f::smem_bytes(OG));
+  if (err != cudaSuccess) return err;
+  conv3x3_f32<OG><<<dim3((unsigned)grid), conv3f::kThreads, conv3f::smem_bytes(OG), s>>>(
+      x, w, bias, y, B, Cin, H, W, Cout, groups);
+  return cudaSuccess;
+}
+}  // namespace f32
 
 }  // namespace
 
@@ -434,21 +411,26 @@ extern "C" {
 // The launch, as kernels/conv_cuda.py:launch_plan lays it out: path 0 =
 // conv3x3_f32 (float32), 1 = conv3x3_bf16 (bfloat16, other widths), 2 =
 // conv3x3_wgmma (bfloat16, Cin = Cout = 64); tile_rows, the path's output
-// tile rows (8, 2, 4); grid, the blocks: every tile's own block on path 0,
-// 1 .. tiles persistent blocks on paths 1 and 2. A plan that differs from
-// what the kernels are compiled for is refused.
+// tile rows (8, 2, 4); tile_outputs, the outputs a block takes (path 0: 64,
+// 32, 16 or 8, in ceil(Cout / tile_outputs) groups; paths 1 and 2: 64);
+// grid, the blocks: on path 0 one a (tile, output group), on paths 1 and 2
+// 1 .. tiles persistent blocks. A plan that differs from what the kernels are
+// compiled for is refused.
 int pips_conv3x3_fwd(const void* x, const void* w, const void* bias, void* y, int B, int Cin,
-                     int H, int W, int Cout, int dtype_code, int path, int tile_rows, int grid,
-                     int device, void* stream) {
+                     int H, int W, int Cout, int dtype_code, int path, int tile_rows,
+                     int tile_outputs, int grid, int device, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cin > kC || Cin % 8 || Cout <= 0 ||
       Cout > kC || Cout % 8 || (dtype_code != 0 && dtype_code != 1))
     return (int)cudaErrorInvalidValue;
   const int want = dtype_code == 0 ? 0 : (Cin == kC && Cout == kC ? 2 : 1);
-  const int rows = path == 0 ? simt::TH : path == 1 ? tc::TH : wg::TH;
-  const int cols = path == 0 ? simt::TW : path == 1 ? tc::TW : wg::TW;
+  const int rows = path == 0 ? conv3f::TH : path == 1 ? tc::TH : wg::TH;
+  const int cols = path == 0 ? conv3f::TW : path == 1 ? tc::TW : wg::TW;
   const long ntiles = (long)B * ((H + rows - 1) / rows) * ((W + cols - 1) / cols);
-  if (path != want || tile_rows != rows || grid < 1 || grid > ntiles ||
-      (path == 0 && grid != ntiles))
+  const bool og_ok = path == 0 ? (tile_outputs == 64 || tile_outputs == 32 ||
+                                  tile_outputs == 16 || tile_outputs == 8)
+                               : tile_outputs == kC;
+  if (path != want || tile_rows != rows || !og_ok || grid < 1 ||
+      (path == 0 ? grid != ntiles * ((Cout + tile_outputs - 1) / tile_outputs) : grid > ntiles))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -476,11 +458,14 @@ int pips_conv3x3_fwd(const void* x, const void* w, const void* bias, void* y, in
         static_cast<const bf16*>(x), static_cast<const bf16*>(w), bb, static_cast<bf16*>(y), B,
         Cin, H, W, Cout);
   } else {
-    err = set_smem(simt::conv3x3_f32, simt::kSmem);
+    const float *xf = static_cast<const float*>(x), *wf = static_cast<const float*>(w);
+    float* yf = static_cast<float*>(y);
+    const int g = (Cout + tile_outputs - 1) / tile_outputs;
+    err = tile_outputs == 64   ? f32::launch<64>(xf, wf, bb, yf, B, Cin, H, W, Cout, g, grid, s)
+          : tile_outputs == 32 ? f32::launch<32>(xf, wf, bb, yf, B, Cin, H, W, Cout, g, grid, s)
+          : tile_outputs == 16 ? f32::launch<16>(xf, wf, bb, yf, B, Cin, H, W, Cout, g, grid, s)
+                               : f32::launch<8>(xf, wf, bb, yf, B, Cin, H, W, Cout, g, grid, s);
     if (err != cudaSuccess) return (int)err;
-    simt::conv3x3_f32<<<dim3((unsigned)grid), simt::kThreads, simt::kSmem, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), bb, static_cast<float*>(y),
-        B, Cin, H, W, Cout);
   }
   return (int)cudaGetLastError();
 }

@@ -66,9 +66,15 @@
 // at the image's edge); the slot takes its next box once the store has read
 // it. Rows never share a writer: no atomics, the same bits every call; the
 // wrapper sums the rows (B, 2, 64, T) -> (B, 2, 64), as JAX sums its grid
-// steps outside the kernel. f32 runs a SIMT kernel with f32 FMAs (mma.sync in
-// f32 would be TF32), one output pixel per thread in 8 x 32 tiles, its
-// statistics reduced by a shuffle reduce-scatter over the warp.
+// steps outside the kernel. f32 (conv3x3_stats_f32) runs f32 FMAs (mma.sync
+// in f32 would be TF32), bound by the FMA rate (2*576 FLOP per (pixel,
+// output) at 67 TFLOP/s): conv3x3_f32_tiles.cuh's mainloop, which
+// conv3x3_fwd.cu's conv3x3_f32 shares (256 threads on an 8 x 32 pixel tile
+// times 64, 32, 16 or 8 outputs, a run of 8, 4, 2 or 1 pixels x 8 outputs
+// a thread, three cp.async stages of 8 channels), the prologue applied in
+// place to each thread's own copies once they have landed; a tile's
+// statistics are a tree over a thread's run, a butterfly over its warp and,
+// for runs under 8 pixels, the group's warps in order.
 //
 // Plain C ABI (loaded with ctypes): pips_conv3x3_stats returns
 // cudaGetLastError() after the launch; 0 means launched.
@@ -78,6 +84,7 @@
 #include <stdint.h>
 
 #include "async_copy.cuh"
+#include "conv3x3_f32_tiles.cuh"
 #include "conv3x3_tiles.cuh"
 #include "mma_bf16.cuh"
 
@@ -350,130 +357,125 @@ conv3x3_stats_bf16(__grid_constant__ const CUtensorMap x_map,
 }
 }  // namespace tc
 
-// ------------------------------------------------------------------ f32 (SIMT)
-namespace simt {
-constexpr int kThreads = 256;  // one output pixel per thread, all 64 outputs in registers
-constexpr int kWarps = kThreads / 32;
-constexpr int TH = 8, TW = 32;
-constexpr int CC = 8;          // input channels staged per step
-constexpr int HR = TH + 2, HC = TW + 2;
-constexpr size_t kXBytes = (size_t)CC * HR * HC * 4;  // 10,880
-constexpr size_t kWBytes = (size_t)CC * 9 * kC * 4;   // 18,432
-constexpr size_t kSBytes = (size_t)kWarps * 2 * kC * 4;  // 4,096
-constexpr size_t kSmem = kXBytes + kWBytes + kSBytes;
-static_assert(TH * TW == kThreads && kXBytes % 16 == 0 && kWBytes % 16 == 0, "thread map");
-
-__host__ __device__ constexpr int tiles(int H, int W) {
-  return ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
-}
-
-__global__ void __launch_bounds__(kThreads)
+// ------------------------------------------- f32 (SIMT, register tiles)
+namespace f32 {
+// a block: an 8 x 32 pixel tile times OG outputs, on conv3x3_f32_tiles.cuh's
+// mainloop, with the prologue applied to each thread's own copies of a chunk
+// once they have landed. Epilogue: the f32 bias added to the f32 sums, each
+// thread writing its pixels' 8 outputs as two float4 each; the statistics of
+// a thread's 8 outputs a tree over its in-image pixels, then a butterfly
+// over the warp's 32 lanes, then (where a run is shorter than 8 pixels and
+// an output group spans 8 / run warps) those warps' sums added in warp order
+// through shared memory. One writer a row, fixed orders: the same bits every
+// call.
+template <int OG>
+__global__ void __launch_bounds__(conv3f::kThreads, 2)
 conv3x3_stats_f32(const float* __restrict__ x, const float* __restrict__ w,
                   const float* __restrict__ bias, const float* __restrict__ aff,
                   float* __restrict__ y, float* __restrict__ part, int B, int H, int W,
-                  int prologue) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* xs = reinterpret_cast<float*>(smem);                       // [CC][HR][HC]
-  float* ws = reinterpret_cast<float*>(smem + kXBytes);             // [CC][tap][kC]
-  float* ss = reinterpret_cast<float*>(smem + kXBytes + kWBytes);   // [warp][2][o]
+                  int prologue, int groups) {
+  constexpr int PX = conv3f::run(OG), OT = conv3f::OT;
+  constexpr int kWarps = conv3f::Thread<OG>::kWarpsPerGroup;  // warps sharing 8 outputs
+  extern __shared__ __align__(16) float smem_f[];
+  const conv3f::Tile t = conv3f::tile_of(H, W, OG, groups);
+  const conv3f::Thread<OG> th;
+  float acc[PX][OT];
+  conv3f::mainloop<OG>(acc, th, smem_f, x, w, t, H, W, kC, kC, [&](float* xs, int c0) {
+    if (!prologue) return;
+    // this thread's copies all hold the same 4 channels: their scale and
+    // shift once a chunk (from the kernel's parameter: no pointer held
+    // across the loop, which spilled)
+    const float* sp = aff + (size_t)t.b * 2 * kC + c0 + 4 * (threadIdx.x % (conv3f::CC / 4));
+    const float4 sc = __ldg(reinterpret_cast<const float4*>(sp));
+    const float4 sh = __ldg(reinterpret_cast<const float4*>(sp + kC));
+    conv3f::for_box(t, H, W, kC, c0, [&](int dst, size_t, bool in, int) {
+      if (!in) return;
+      float4* v = reinterpret_cast<float4*>(xs + dst);
+      const float4 a = *v;
+      *v = make_float4(affine_relu(a.x, sc.x, sh.x), affine_relu(a.y, sc.y, sh.y),
+                       affine_relu(a.z, sc.z, sh.z), affine_relu(a.w, sc.w, sh.w));
+    });
+  });
 
-  const int tiles_w = (W + TW - 1) / TW;
-  const int per_image = tiles(H, W);
-  const int t = blockIdx.x;
-  const int b = t / per_image, ti = t % per_image;
-  const int h0 = ti / tiles_w * TH, w0 = (ti % tiles_w) * TW;
-  const int ty = threadIdx.x / TW, tx = threadIdx.x % TW;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t plane = (size_t)H * W;
-  const float* xb = x + (size_t)b * plane * kC;
-  const float* scale = aff + (size_t)b * 2 * kC;
-  const float* shift = scale + kC;
-
-  float acc[kC];
+  const int lane = threadIdx.x % 32, o = t.o0 + th.o;
+  const int h = t.h0 + th.r, c = t.w0 + th.c;
+  const float4 b0 = *reinterpret_cast<const float4*>(bias + o);
+  const float4 b1 = *reinterpret_cast<const float4*>(bias + o + 4);
+  const float bv[OT] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+  float* yr = y + (((size_t)t.b * H + h) * W + c) * kC + o;
+  float v[PX][OT];
 #pragma unroll
-  for (int o = 0; o < kC; ++o) acc[o] = 0.0f;
-
-  for (int c0 = 0; c0 < kC; c0 += CC) {
-    __syncthreads();  // the previous chunk is consumed
-    for (int i = threadIdx.x; i < CC * HR * HC; i += kThreads) {
-      const int k = i % CC, p = i / CC, r = p / HC, cc = p % HC;
-      const int c = c0 + k, h = h0 - 1 + r, col = w0 - 1 + cc;
-      float v = 0.0f;  // the SAME padding, with or without the prologue
-      if (h >= 0 && h < H && col >= 0 && col < W) {
-        v = xb[((size_t)h * W + col) * kC + c];
-        if (prologue) v = affine_relu(v, scale[c], shift[c]);
+  for (int p = 0; p < PX; ++p) {
+    const bool in = h < H && c + p < W;
+#pragma unroll
+    for (int k = 0; k < OT; ++k) v[p][k] = in ? acc[p][k] + bv[k] : 0.0f;
+    if (in) {
+      float4* yp = reinterpret_cast<float4*>(yr + (size_t)p * kC);
+      yp[0] = make_float4(v[p][0], v[p][1], v[p][2], v[p][3]);
+      yp[1] = make_float4(v[p][4], v[p][5], v[p][6], v[p][7]);
+    }
+  }
+  float st[2][OT];  // [sum, sumsq][output o + k]: a pairwise tree over the run
+#pragma unroll
+  for (int k = 0; k < OT; ++k) {
+    float s[PX], q[PX];
+#pragma unroll
+    for (int p = 0; p < PX; ++p) {
+      s[p] = v[p][k];
+      q[p] = v[p][k] * v[p][k];
+    }
+#pragma unroll
+    for (int n = PX / 2; n >= 1; n /= 2)
+#pragma unroll
+      for (int p = 0; p < n; ++p) {
+        s[p] = s[2 * p] + s[2 * p + 1];
+        q[p] = q[2 * p] + q[2 * p + 1];
       }
-      xs[k * HR * HC + p] = v;
-    }
-    for (int i = threadIdx.x; i < CC * 9 * kC; i += kThreads) {
-      const int c = c0 + i / (9 * kC), tap = (i / kC) % 9, o = i % kC;
-      ws[i] = w[((size_t)o * kC + c) * 9 + tap];
-    }
-    __syncthreads();
-    for (int c = 0; c < CC; ++c) {
-      for (int tap = 0; tap < 9; ++tap) {
-        const float v = xs[(c * HR + ty + tap / 3) * HC + tx + tap % 3];
-        const float4* wq = reinterpret_cast<const float4*>(ws + (c * 9 + tap) * kC);
-#pragma unroll
-        for (int o4 = 0; o4 < kC / 4; ++o4) {
-          const float4 q = wq[o4];  // the same address for every thread: a broadcast
-          acc[4 * o4 + 0] = fmaf(v, q.x, acc[4 * o4 + 0]);
-          acc[4 * o4 + 1] = fmaf(v, q.y, acc[4 * o4 + 1]);
-          acc[4 * o4 + 2] = fmaf(v, q.z, acc[4 * o4 + 2]);
-          acc[4 * o4 + 3] = fmaf(v, q.w, acc[4 * o4 + 3]);
-        }
-      }
-    }
-  }
-
-  const int h = h0 + ty, col = w0 + tx;
-  const bool in = h < H && col < W;
-#pragma unroll
-  for (int o = 0; o < kC; ++o) acc[o] += bias[o];
-  if (in) {
-    float* yb = y + ((size_t)b * plane + (size_t)h * W + col) * kC;
-#pragma unroll
-    for (int o = 0; o < kC; o += 4)
-      *reinterpret_cast<float4*>(yb + o) = make_float4(acc[o], acc[o + 1], acc[o + 2], acc[o + 3]);
-  }
-
-  // statistics: a reduce-scatter over the warp's lanes. Each step halves
-  // the values a lane holds: it keeps the half its lane bit selects and adds
-  // the partner's copy of that half, so lane l ends with the warp's sums for
-  // outputs 2l and 2l+1
-  float* s = acc;  // the pixel's values, zero outside the image
-  float q[kC];
-#pragma unroll
-  for (int o = 0; o < kC; ++o) {
-    s[o] = in ? acc[o] : 0.0f;
-    q[o] = s[o] * s[o];
+    st[0][k] = s[0];
+    st[1][k] = q[0];
   }
 #pragma unroll
-  for (int half = kC / 2; half >= 2; half /= 2) {
-    const int off = half / 2;  // lane bit 16 for half 32, ..., bit 1 for half 2
-    const bool upper = lane & off;
+  for (int off = 1; off < 32; off *= 2)
 #pragma unroll
-    for (int i = 0; i < half; ++i) {
-      const float ks = upper ? s[i + half] : s[i], gs = upper ? s[i] : s[i + half];
-      const float kq = upper ? q[i + half] : q[i], gq = upper ? q[i] : q[i + half];
-      s[i] = ks + __shfl_xor_sync(0xffffffffu, gs, off);
-      q[i] = kq + __shfl_xor_sync(0xffffffffu, gq, off);
-    }
-  }
+    for (int k = 0; k < 2 * OT; ++k)
+      st[k / OT][k % OT] += __shfl_xor_sync(0xffffffffu, st[k / OT][k % OT], off);
+  const int T = conv3f::tiles(H, W);
+  float* pt = part + ((size_t)t.b * 2 * kC + t.o0) * T + t.ti;  // row (stat, ol): + (stat 64 + ol) T
+  if (kWarps == 1) {
+    if (lane == 0)
 #pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    ss[(warp * 2 + 0) * kC + 2 * lane + k] = s[k];
-    ss[(warp * 2 + 1) * kC + 2 * lane + k] = q[k];
+      for (int k = 0; k < 2 * OT; ++k)
+        pt[((k / OT) * kC + th.o + k % OT) * (size_t)T] = st[k / OT][k % OT];
+    return;
   }
+  // the warps of a group in order, through the stage buffers (free once every
+  // warp is past its last products)
+  float* red = smem_f;  // [warp][stat][8]
   __syncthreads();
-  if (threadIdx.x < 2 * kC) {
-    float v = 0.0f;
+  if (lane == 0)
 #pragma unroll
-    for (int k = 0; k < kWarps; ++k) v += ss[(k * 2 + threadIdx.x / kC) * kC + threadIdx.x % kC];
-    part[((size_t)b * 2 * kC + threadIdx.x) * per_image + ti] = v;
+    for (int k = 0; k < 2 * OT; ++k) red[threadIdx.x / 32 * 2 * OT + k] = st[k / OT][k % OT];
+  __syncthreads();
+  if (threadIdx.x < 2 * OG) {
+    const int stat = threadIdx.x / OG, ol = threadIdx.x % OG;
+    const float* r0 = red + (ol / OT * kWarps * 2 + stat) * OT + ol % OT;
+    float sum = r0[0];
+#pragma unroll
+    for (int j = 1; j < kWarps; ++j) sum += r0[j * 2 * OT];
+    pt[(stat * kC + ol) * (size_t)T] = sum;
   }
 }
-}  // namespace simt
+
+template <int OG>
+cudaError_t launch(const float* x, const float* w, const float* bias, const float* aff, float* y,
+                   float* part, int B, int H, int W, int prologue, int grid, cudaStream_t s) {
+  cudaError_t err = set_smem(conv3x3_stats_f32<OG>, conv3f::smem_bytes(OG));
+  if (err != cudaSuccess) return err;
+  conv3x3_stats_f32<OG><<<dim3((unsigned)grid), conv3f::kThreads, conv3f::smem_bytes(OG), s>>>(
+      x, w, bias, aff, y, part, B, H, W, prologue, kC / OG);
+  return cudaSuccess;
+}
+}  // namespace f32
 
 }  // namespace
 
@@ -487,11 +489,21 @@ extern "C" {
 // ceil(W / 30), for float32 ceil(H / 8) * ceil(W / 32); a T that differs is
 // refused. Pointers 16-byte aligned.
 // dtype_code 0 = float32, 1 = bfloat16 (x, w, y).
+// The launch, as kernels/block_cuda.py:pass_plan lays it out: tile_outputs,
+// the outputs a block takes (bf16 64; float32 64, 32, 16 or 8, in 64 /
+// tile_outputs groups); grid, the blocks (bf16 1 .. B * T persistent blocks,
+// float32 one a (tile, output group)). Any other plan is refused.
 int pips_conv3x3_stats(const void* x, const void* w, const void* bias, const void* aff, void* y,
                        void* part, int B, int H, int W, int T, int prologue, int dtype_code,
-                       int device, void* stream) {
+                       int tile_outputs, int grid, int device, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || (dtype_code != 0 && dtype_code != 1) ||
-      T != (dtype_code == 1 ? tc::tiles(H, W) : simt::tiles(H, W)))
+      T != (dtype_code == 1 ? tc::tiles(H, W) : conv3f::tiles(H, W)))
+    return (int)cudaErrorInvalidValue;
+  const long ntiles = (long)B * T;
+  if (dtype_code == 1 ? (tile_outputs != kC || grid < 1 || grid > ntiles)
+                      : ((tile_outputs != 64 && tile_outputs != 32 && tile_outputs != 16 &&
+                          tile_outputs != 8) ||
+                         grid != ntiles * (kC / tile_outputs)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -512,24 +524,16 @@ int pips_conv3x3_stats(const void* x, const void* w, const void* bias, const voi
     if (err != cudaSuccess) return (int)err;
     err = set_smem(tc::conv3x3_stats_bf16, tc::kSmem);
     if (err != cudaSuccess) return (int)err;
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tc::conv3x3_stats_bf16,
-                                                        tc::kThreads, tc::kSmem);
-    if (err != cudaSuccess) return (int)err;
-    const long ntiles = (long)B * tc::tiles(H, W);
-    const long resident = (long)(per_sm > 0 ? per_sm : 1) * sms;
-    const dim3 grid((unsigned)(ntiles < resident ? ntiles : resident));
-    tc::conv3x3_stats_bf16<<<grid, tc::kThreads, tc::kSmem, s>>>(
+    tc::conv3x3_stats_bf16<<<dim3((unsigned)grid), tc::kThreads, tc::kSmem, s>>>(
         x_map, y_map, static_cast<const bf16*>(w), bb, af, pt, B, H, W, prologue);
   } else {
-    err = set_smem(simt::conv3x3_stats_f32, simt::kSmem);
+    const float *xf = static_cast<const float*>(x), *wf = static_cast<const float*>(w);
+    float* yf = static_cast<float*>(y);
+    err = tile_outputs == 64   ? f32::launch<64>(xf, wf, bb, af, yf, pt, B, H, W, prologue, grid, s)
+          : tile_outputs == 32 ? f32::launch<32>(xf, wf, bb, af, yf, pt, B, H, W, prologue, grid, s)
+          : tile_outputs == 16 ? f32::launch<16>(xf, wf, bb, af, yf, pt, B, H, W, prologue, grid, s)
+                               : f32::launch<8>(xf, wf, bb, af, yf, pt, B, H, W, prologue, grid, s);
     if (err != cudaSuccess) return (int)err;
-    const long ntiles = (long)B * simt::tiles(H, W);
-    simt::conv3x3_stats_f32<<<dim3((unsigned)ntiles), simt::kThreads, simt::kSmem, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), bb, af,
-        static_cast<float*>(y), pt, B, H, W, prologue);
   }
   return (int)cudaGetLastError();
 }

@@ -14,7 +14,8 @@ to the input's in-image pixels (the first norm, folded into the second conv).
 On a CUDA tensor ``conv_pass`` launches the hand-written kernel in
 ``pips_tpu_torch/csrc/conv3x3_stats.cu``, which replaces the TPU kernel
 ``_conv3x3_stats_kernel`` (the source's header says what bounds it and how
-its design answers that). ``conv_pass_reference`` is its plain version.
+its design answers that), as ``pass_plan`` lays it out.
+``conv_pass_reference`` is its plain version.
 
 The forward is two passes; the backward two more (the dgrad convs: the same
 kernel, prologue off, zero bias, rotated in/out-swapped weights). What JAX
@@ -35,11 +36,12 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 import torch.nn.functional as F
 
-from pips_tpu_torch.kernels import _build
+from pips_tpu_torch.kernels import _build, conv_cuda, mixer_cuda
 
 KERNEL_C = 64  # the kernel takes exactly 64 input and 64 output channels
 EPS = 1e-5
@@ -49,8 +51,9 @@ _fn = None
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the kernels' output tiles (rows, columns), each writing one row of partial
-# statistics: bf16 4 x 30, f32 8 x 32; the CUDA entry refuses any other count
-_TILES = {torch.bfloat16: (4, 30), torch.float32: (8, 32)}
+# statistics: bf16 4 x 30, f32 8 x 32 (the f32 conv's tiles,
+# csrc/conv3x3_f32_tiles.cuh); the CUDA entry refuses any other count
+_TILES = {torch.bfloat16: (4, 30), torch.float32: conv_cuda.F32_TILE}
 
 
 def stats_tiles(H: int, W: int, dtype: torch.dtype) -> int:
@@ -59,6 +62,35 @@ def stats_tiles(H: int, W: int, dtype: torch.dtype) -> int:
     T by the wrapper)."""
     th, tw = _TILES[dtype]
     return -(-H // th) * -(-W // tw)
+
+
+@dataclasses.dataclass(frozen=True)
+class PassPlan:
+    """The one launch of a conv pass: ``T`` tiles an image, each tile's 64
+    outputs in ``groups`` groups of ``tile_outputs``, ``grid`` blocks (f32:
+    one a (tile, group), block i taking tile i // groups of the images' B * T
+    and group i % groups; bf16: persistent blocks, one an SM, walking the
+    tiles)."""
+    T: int
+    tile_outputs: int
+    groups: int
+    grid: int
+
+
+def pass_plan(B: int, H: int, W: int, dtype: torch.dtype,
+              sms: int = mixer_cuda.SMS) -> PassPlan:
+    """The launch of ``conv_pass`` on x (B, 64, H, W) in ``dtype`` on a card
+    of ``sms`` SMs: f32 splits the 64 outputs into groups across blocks where
+    the tiles alone number fewer than ``sms``, as ``conv_cuda.launch_plan``
+    does for the f32 conv."""
+    if not (B > 0 and H > 0 and W > 0 and dtype in _DTYPE_CODE):
+        raise ValueError(f"no conv_pass kernel takes {B}x64x{H}x{W} {dtype}")
+    T = stats_tiles(H, W, dtype)
+    if dtype == torch.float32:
+        outputs = conv_cuda.f32_outputs(B * T, KERNEL_C, sms)
+        groups = KERNEL_C // outputs
+        return PassPlan(T, outputs, groups, B * T * groups)
+    return PassPlan(T, KERNEL_C, 1, min(B * T, sms))
 
 
 def conv_pass_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, aff: torch.Tensor,
@@ -84,7 +116,7 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load("conv3x3_stats").pips_conv3x3_stats
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -117,7 +149,8 @@ def conv_pass(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, aff: torch.Tens
                          f"got strides {x.stride()} for shape {tuple(x.shape)}")
     if B * H * W == 0:
         raise ValueError(f"empty input {tuple(x.shape)}")
-    T = stats_tiles(H, W, x.dtype)
+    plan = pass_plan(B, H, W, x.dtype, sms=mixer_cuda._device_sms(x.device))
+    T = plan.T
     w = w.to(x.dtype).contiguous()
     b = b.float().contiguous()
     aff = aff.float().contiguous()
@@ -127,7 +160,8 @@ def conv_pass(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, aff: torch.Tens
         raise ValueError("conv_pass's CUDA kernel needs 16-byte aligned tensors")
     err = _kernel()(x.data_ptr(), w.data_ptr(), b.data_ptr(), aff.data_ptr(), y.data_ptr(),
                     part.data_ptr(), B, H, W, T, int(prologue), _DTYPE_CODE[x.dtype],
-                    x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+                    plan.tile_outputs, plan.grid, x.device.index,
+                    torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"conv3x3_stats kernel launch failed: CUDA error {err}")
     launches += 1

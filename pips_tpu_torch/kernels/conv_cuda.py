@@ -6,8 +6,9 @@ through. On a CUDA tensor it launches one of the hand-written kernels in
 ``pips_tpu_torch/csrc/conv3x3_fwd.cu`` (which replace the TPU kernel
 ``_conv3x3_pallas_raw``; the source's header says what bounds them and how
 their design answers that), the one ``launch_plan`` names: 64->64 bf16 on
-``wgmma``, other widths on ``mma.sync``, f32 SIMT. ``conv3x3_reference`` is
-their plain PyTorch version.
+``wgmma``, other widths on ``mma.sync``, f32 on the FMA units in register
+tiles (``csrc/conv3x3_f32_tiles.cuh``). ``conv3x3_reference`` is their plain
+PyTorch version.
 
 x is (B, C, H, W) and w (O, C, 3, 3) as ``F.conv2d`` takes them, where JAX
 takes NHWC and HWIO. On the card x must be ``torch.channels_last`` (NHWC in
@@ -48,8 +49,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 @dataclasses.dataclass(frozen=True)
 class Path:
     """One kernel of ``csrc/conv3x3_fwd.cu``: its code in the C entry, output
-    tile (rows, columns), threads and shared memory a block, and blocks an SM
-    (0: one block a tile, not persistent)."""
+    tile (rows, columns), threads and shared memory a block (at 64 outputs a
+    block), and blocks an SM (0: one block a tile, not persistent)."""
     code: int
     tile: tuple
     threads: int
@@ -57,24 +58,53 @@ class Path:
     per_sm: int
 
 
+# the f32 kernels' tiles (csrc/conv3x3_f32_tiles.cuh, shared with
+# block_cuda): 256 threads on 8 x 32 pixels times 64, 32, 16 or 8 outputs a
+# block (a run of 8, 4, 2 or 1 pixels x 8 outputs a thread); three cp.async
+# stages of 8 channels' 10 x 34 box (two planes of 4 channels, 16 bytes a
+# pixel, rows of 35 pixels, planes of 356) and their weights (rows of
+# outputs + 4 floats)
+F32_TILE = (8, 32)
+F32_OUTPUTS = (64, 32, 16, 8)
+
+
+def f32_smem(outputs: int) -> int:
+    """Dynamic shared memory of an f32 block of ``outputs`` outputs: three
+    stages of a box and a weight chunk (72 rows of ``outputs`` + 4 floats)."""
+    return 3 * (2 * 356 * 4 + 8 * 9 * (outputs + 4)) * 4
+
+
 # bf16 C = O = 64: one block an SM, 3 consumer warpgroups and a producer warp;
 # 1024 (alignment) + 6 ring slots of a 6 x 32 box + the weight + a junk row
 # + 12 mbarriers. Other bf16 widths: the weight and a 4 x 66 tile, two blocks
-# an SM. f32: 8 channels of a 10 x 34 tile and their weights.
+# an SM. f32: the 8 x 32 tiles, 64 outputs a block at most, two blocks an SM.
 PATHS = {"conv3x3_wgmma": Path(2, (4, 30), 3 * 128 + 32,
                                1024 + 6 * 6 * 32 * 128 + 9 * 64 * 128 + 128 + 12 * 8, 1),
          "conv3x3_bf16": Path(1, (2, 64), 128, 9 * 64 * 64 * 2 + 4 * 66 * 64 * 2, 2),
-         "conv3x3_f32": Path(0, (8, 32), 256, 8 * 10 * 34 * 4 + 8 * 9 * 64 * 4, 0)}
+         "conv3x3_f32": Path(0, F32_TILE, 256, f32_smem(64), 0)}
+
+
+def f32_outputs(tiles: int, O: int, sms: int) -> int:
+    """Outputs an f32 block takes: 64, halved while the tiles' blocks
+    (``tiles`` times ceil(O / outputs)) number fewer than ``sms``, down to 8."""
+    outputs = F32_OUTPUTS[0]
+    while tiles * -(-O // outputs) < sms and outputs > F32_OUTPUTS[-1]:
+        outputs //= 2
+    return outputs
 
 
 @dataclasses.dataclass(frozen=True)
 class ConvPlan:
     """The one launch of a conv: ``kernel`` (a key of ``PATHS``), the image
-    cut into ``tiles`` output tiles of ``path.tile``, ``grid`` blocks (a
+    cut into ``tiles`` output tiles of ``path.tile``, each tile's outputs in
+    ``groups`` groups of ``tile_outputs``, ``grid`` blocks (f32: one a (tile,
+    group), block i taking tile i // groups and group i % groups; bf16: a
     persistent block takes tiles blockIdx, blockIdx + grid, ...)."""
     kernel: str
     path: Path
     tiles: int
+    tile_outputs: int
+    groups: int
     grid: int
 
 
@@ -82,8 +112,9 @@ def launch_plan(B: int, C: int, O: int, H: int, W: int, dtype: torch.dtype,
                 sms: int = mixer_cuda.SMS) -> ConvPlan:
     """The kernel a conv of x (B, C, H, W) to O outputs in ``dtype`` takes on
     a card of ``sms`` SMs, and its launch: bf16 with C = O = 64 (every model
-    call) the wgmma kernel, other bf16 widths the mma.sync one, f32 the SIMT
-    one."""
+    call) the wgmma kernel, other bf16 widths the mma.sync one, f32 the
+    register-tiled one, with fewer outputs a block where the tiles alone
+    would leave SMs idle."""
     if not (B > 0 and H > 0 and W > 0 and 0 < C <= KERNEL_C and C % 8 == 0
             and 0 < O <= KERNEL_C and O % 8 == 0 and dtype in _DTYPE_CODE):
         raise ValueError(f"no conv3x3 kernel takes C={C}, O={O}, {B}x{H}x{W} {dtype}")
@@ -94,8 +125,11 @@ def launch_plan(B: int, C: int, O: int, H: int, W: int, dtype: torch.dtype,
     path = PATHS[kernel]
     (th, tw) = path.tile
     tiles = B * -(-H // th) * -(-W // tw)
-    grid = tiles if path.per_sm == 0 else min(tiles, path.per_sm * sms)
-    return ConvPlan(kernel, path, tiles, grid)
+    if path.per_sm == 0:
+        outputs = f32_outputs(tiles, O, sms)
+        groups = -(-O // outputs)
+        return ConvPlan(kernel, path, tiles, outputs, groups, tiles * groups)
+    return ConvPlan(kernel, path, tiles, KERNEL_C, 1, min(tiles, path.per_sm * sms))
 
 
 def conv3x3_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -109,7 +143,7 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load("conv3x3_fwd").pips_conv3x3_fwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -153,8 +187,8 @@ def _forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError("conv3x3_same's CUDA kernel needs 16-byte aligned tensors")
     plan = launch_plan(B, C, H=H, W=W, O=O, dtype=x.dtype, sms=mixer_cuda._device_sms(x.device))
     err = _kernel()(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), B, C, H, W, O,
-                    _DTYPE_CODE[x.dtype], plan.path.code, plan.path.tile[0], plan.grid,
-                    x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+                    _DTYPE_CODE[x.dtype], plan.path.code, plan.path.tile[0], plan.tile_outputs,
+                    plan.grid, x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"conv3x3_fwd kernel launch failed: CUDA error {err}")
     launches += 1

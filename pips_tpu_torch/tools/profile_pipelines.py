@@ -64,7 +64,14 @@ dense N=7680 inputs on 60x128 maps, each dtype pair): "kernel";
 reduction" (the shuffles that sum half-pixels or reduce-scatter partial
 dots); "no epilogue" (the 49 outputs not combined); "two blocks an SM" and
 "three blocks an SM" (the launch bounds against the kernel's four); and the
-kernel at one, two and four levels a warp. ``python3 -m pips_tpu_torch.tools.profile_pipelines
+kernel at one, two and four levels a warp. Of the f32 3x3 conv
+(``conv3x3_f32``, whose mainloop ``csrc/conv3x3_f32_tiles.cuh`` the f32
+``conv_pass`` shares; at the window's stage 1, 8x64x240x512, and at
+2x64x31x70, as ``conv_cuda.launch_plan`` lays them out): "kernel", beside
+``F.conv2d`` in f32 with TF32 off; "f32 no copies" (no box or weight copy:
+the products read stale stages); "f32 no box copies"; "f32 no weight
+copies"; "f32 no weight loads" (the products take their weights from the
+loop's indices). ``python3 -m pips_tpu_torch.tools.profile_pipelines
 conv3x3_fwd corr_sample_fwd`` builds and times those sources' variants
 alone. Times: CUDA events around
 ``reps`` calls queued behind a sleep kernel (so the host's cost per call
@@ -203,6 +210,18 @@ def c3_config(th: int, wgs: int, stages: int) -> list:
 
 
 C3_SHAPES = (("window", 8, 240, 512), ("train default", 32, 184, 248), ("bench train", 8, 192, 256))
+# the f32 conv (csrc/conv3x3_f32_tiles.cuh): the box's 16-byte copies, the
+# weights' 4-byte transposing copies, the products' weight loads
+C3F_BOX = ("          [&](int dst, size_t src, bool in, int) { cp_async_16z(xs + dst, x + src, in); });",
+           "          [&](int dst, size_t src, bool in, int) {\n"
+           "            if (c0 < 0) cp_async_16z(xs + dst, x + src, in);\n          });")
+C3F_WCOPY = ("    cp_async_4z(ws + dst, w + (ok ? src : 0), ok);\n",
+             "    if (c0 < 0) cp_async_4z(ws + dst, w + (ok ? src : 0), ok);\n")
+C3F_WLOAD = ("        const float4 w0 = *reinterpret_cast<const float4*>(wq);\n"
+             "        const float4 w1 = *reinterpret_cast<const float4*>(wq + 4);\n",
+             "        const float4 w0 = make_float4(kk + kx, g, kk, kx), w1 = make_float4(g, kk, kx, 1);\n"
+             "        (void)wq;\n")
+C3F_SHAPES = (("window", 8, 240, 512), ("small", 2, 31, 70))
 # the corr sampler (csrc/corr_sample_fwd.cu): no pixel loads (the patch reads
 # as zeros); no products or dots (the loaded words are folded without
 # multiplying); no reduction (the half-pixel sums and the reduce-scatter
@@ -251,7 +270,9 @@ VARIANTS = {
                      "no cluster sum": CCH_SUM},
     "conv3x3_fwd": {"kernel": [], "no input copies": C3_COPY, "no products": [CONV_MMA],
                     "no epilogue": C3_EPI,
-                    **{name: c3_config(*cfg) for name, cfg in C3_TILES.items()}},
+                    **{name: c3_config(*cfg) for name, cfg in C3_TILES.items()},
+                    "f32 no copies": [C3F_BOX, C3F_WCOPY], "f32 no box copies": [C3F_BOX],
+                    "f32 no weight copies": [C3F_WCOPY], "f32 no weight loads": [C3F_WLOAD]},
     "corr_sample_fwd": {"kernel": [], "no pixel loads": CS_COPY, "no products or dots": CS_DOT,
                         "no reduction": CS_RED, "no epilogue": CS_EPI, **CS_BLOCKS},
 }
@@ -396,19 +417,22 @@ def conv_variants(libs: dict, B: int = 8, H: int = 192, W: int = 256) -> dict:
     aff = torch.from_numpy(np.stack([0.5 + rng.rand(B, 64), 0.3 * rng.randn(B, 64)],
                                     axis=1).astype(np.float32)).cuda()
     wk = w.bfloat16().contiguous()
-    T = block_cuda.stats_tiles(H, W, torch.bfloat16)
+    plan = block_cuda.pass_plan(B, H, W, torch.bfloat16,
+                                sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    T = plan.T
     y = torch.empty_like(x)
     part = torch.empty(B, 2, 64, T, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
     out = {}
     for name in VARIANTS["conv3x3_stats"]:
         fn = libs[("conv3x3_stats", name)].pips_conv3x3_stats
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         for prologue in ((1, 0) if name == "kernel" else (1,)):
             def call(fn=fn, prologue=prologue):
                 checked(fn(x.data_ptr(), wk.data_ptr(), b.data_ptr(), aff.data_ptr(),
                            y.data_ptr(), part.data_ptr(), B, H, W, T, prologue, 1,
-                           x.device.index, stream), f"conv_pass {name}")
+                           plan.tile_outputs, plan.grid, x.device.index, stream),
+                        f"conv_pass {name}")
 
             out[name if prologue else "kernel, prologue off"] = device_ms(call)
             if name == "kernel" and prologue:
@@ -653,15 +677,16 @@ def conv3_variants(libs: dict) -> dict:
         ref = conv_cuda.conv3x3_reference(x, w, b).float()
         tol = 2.0 ** (np.ceil(np.log2(ref.abs().max().item())) - 7)
         res = {}
-        for name in VARIANTS["conv3x3_fwd"]:
+        for name in [n for n in VARIANTS["conv3x3_fwd"] if not n.startswith("f32 ")]:
             fn = libs[("conv3x3_fwd", name)].pips_conv3x3_fwd
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
             th = C3_TILES[name][0] if name in C3_TILES else conv_cuda.PATHS["conv3x3_wgmma"].tile[0]
             grid = min(B * -(-H // th) * -(-W // 30), sms)
 
             def call(fn=fn, th=th, grid=grid, name=name):
                 checked(fn(x.data_ptr(), wk.data_ptr(), b.data_ptr(), y.data_ptr(), B, 64, H, W,
-                           64, 1, 2, th, grid, x.device.index, stream), f"conv3x3_fwd {name}")
+                           64, 1, 2, th, 64, grid, x.device.index, stream),
+                        f"conv3x3_fwd {name}")
 
             call()
             err = (y.float() - ref).abs().max().item()
@@ -673,6 +698,45 @@ def conv3_variants(libs: dict) -> dict:
                 res["F.conv2d"] = device_ms(lambda: torch.nn.functional.conv2d(
                     x, wk, b.bfloat16(), padding=1))
                 res["kernel again"] = device_ms(call)
+        out[case] = res
+    return out
+
+
+def conv3_f32_variants(libs: dict) -> dict:
+    """The f32 conv's variants at ``C3F_SHAPES``, each launched as
+    ``conv_cuda.launch_plan`` lays it out; the kernel held to its plain
+    version (TF32 off) and timed beside ``F.conv2d``."""
+    from pips_tpu_torch.kernels import conv_cuda
+
+    torch.backends.cudnn.allow_tf32 = False
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for case, B, H, W in C3F_SHAPES:
+        rng = np.random.RandomState(B + H)
+        x = torch.from_numpy(rng.randn(B, H, W, 64).astype(np.float32)).cuda().permute(0, 3, 1, 2)
+        w = torch.from_numpy((rng.randn(64, 64, 3, 3) / 24).astype(np.float32)).cuda()
+        b = torch.from_numpy((0.1 * rng.randn(64)).astype(np.float32)).cuda()
+        y = torch.empty_like(x)
+        plan = conv_cuda.launch_plan(B, 64, 64, H, W, torch.float32, sms=sms)
+        res = {}
+        for name in ["kernel"] + [n for n in VARIANTS["conv3x3_fwd"] if n.startswith("f32 ")]:
+            fn = libs[("conv3x3_fwd", name)].pips_conv3x3_fwd
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+
+            def call(fn=fn, name=name):
+                checked(fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), B, 64, H, W, 64,
+                           0, plan.path.code, plan.path.tile[0], plan.tile_outputs, plan.grid,
+                           x.device.index, stream), f"conv3x3_f32 {name}")
+
+            call()
+            if name == "kernel":
+                err = (y - conv_cuda.conv3x3_reference(x, w, b)).abs().max().item()
+                if err > 1e-4:
+                    raise RuntimeError(f"conv3x3_f32 {case}: max_abs_err {err} > 1e-4")
+                res["kernel max_abs_err"] = err
+                res["F.conv2d"] = device_ms(lambda: torch.nn.functional.conv2d(x, w, b, padding=1))
+            res[name] = device_ms(call)
         out[case] = res
     return out
 
@@ -776,7 +840,8 @@ def main(sources=None) -> dict:
                                    "chanff_fwd splits": chanff_fwd_splits(libs)},
             "chanff_chunk": lambda: {f"chanff_chunk R={R} fc={fc}": chunk_variants(libs, R, fc)
                                      for R, fc in CCH_CASES},
-            "conv3x3_fwd": lambda: {"conv3x3_same": conv3_variants(libs)},
+            "conv3x3_fwd": lambda: {"conv3x3_same": conv3_variants(libs),
+                                    "conv3x3_f32": conv3_f32_variants(libs)},
             "corr_sample_fwd": lambda: {"corr_sample": corr_variants(libs)}}
     for stem in VARIANTS:
         if sources is None or stem in sources:

@@ -26,7 +26,7 @@ except ImportError:  # pragma: no cover
 from pips_tpu_torch.utils.logging import MetricWriter
 
 EPS = 1e-6
-SCALAR_FREQ = 10  # steps between scalar summaries
+SCALAR_FREQ = 10  # Summ_writer's default steps between scalar summaries, as JAX's
 
 
 def preprocess_color(rgb: np.ndarray) -> np.ndarray:
@@ -217,17 +217,20 @@ def oned_to_rgb(x: np.ndarray, norm: bool = True) -> np.ndarray:
 class Summ_writer:
     """Frequency-gated summary facade (reference ``utils/improc.py:350-440``).
 
-    ``save_this`` is true when global_step hits log_freq; scalars are written
-    every ``SCALAR_FREQ`` steps. Media goes to ``<log_dir>/media/...``;
-    scalars to the MetricWriter (JSONL + optional tensorboard).
+    ``save_this`` is true when global_step hits log_freq; scalars use the
+    finer scalar_freq. Media goes to ``<log_dir>/media/...``; scalars to the
+    MetricWriter (JSONL + optional tensorboard). ``just_gif`` is kept and
+    unused, as in the JAX writer.
     """
 
     def __init__(self, writer: MetricWriter, global_step: int, log_freq: int = 100,
-                 fps: int = 8):
+                 fps: int = 8, scalar_freq: int = SCALAR_FREQ, just_gif: bool = True):
         self.writer = writer
         self.global_step = global_step
         self.log_freq = max(log_freq, 1)
         self.fps = fps
+        self.scalar_freq = max(scalar_freq, 1)
+        self.just_gif = just_gif
         self.save_this = (global_step % self.log_freq == 0)
         self.media_dir = os.path.join(writer.log_dir, "media")
 
@@ -236,7 +239,7 @@ class Summ_writer:
         return os.path.join(self.media_dir, f"{self.global_step:08d}_{safe}.{ext}")
 
     def summ_scalar(self, name: str, value) -> None:
-        if self.global_step % SCALAR_FREQ == 0:
+        if self.global_step % self.scalar_freq == 0:
             self.writer.scalars(self.global_step, {name: float(value)})
 
     def summ_rgb(self, name: str, rgb: np.ndarray, only_return: bool = False,

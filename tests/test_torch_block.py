@@ -36,7 +36,7 @@ import torch
 from pips_tpu.kernels import block_pallas, conv_pallas
 from pips_tpu.kernels.block_pallas import interpret_mode
 from pips_tpu.kernels.block_pallas import res_block64 as jax_res_block64
-from pips_tpu_torch.kernels import block_cuda
+from pips_tpu_torch.kernels import block_cuda, conv_cuda
 from pips_tpu_torch.kernels.block_cuda import (conv_pass, conv_pass_reference, res_block64,
                                                res_block64_reference)
 from pips_tpu_torch.models.encoder import ResidualBlock
@@ -201,8 +201,41 @@ def test_conv_pass_reference_matches_jax(prologue):
     (31, 70, torch.float32, 4 * 3), (192, 256, torch.float32, 24 * 8)])
 def test_stats_tiles(H, W, dtype, T):
     """Rows of partial statistics per image, one per output tile: bf16 4 x 30,
-    f32 8 x 32, the last tiles of ragged H and W counted whole."""
+    f32 8 x 32 (the f32 mainloop's tile, ``csrc/conv3x3_f32_tiles.cuh``),
+    the last tiles of ragged H and W counted whole."""
     assert block_cuda.stats_tiles(H, W, dtype) == T
+
+
+@pytest.mark.parametrize("B, H, W", [(8, 192, 256), (2, 31, 70), (2, 13, 70), (1, 1, 1),
+                                     (4, 31, 70), (8, 31, 70), (32, 184, 248)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_pass_plan(B, H, W, dtype):
+    """``pass_plan``: bf16 persistent blocks, one an SM, at most one a tile,
+    all 64 outputs a block; f32 one block a (tile, output group), the 64
+    outputs split as the f32 conv's plan splits them (2x31x70: 24 tiles, 8
+    outputs a block, 192 blocks). Every (image, tile row, output) of the
+    (B, 2, 64, T) partials is written by exactly one block; the C entry
+    takes the plan."""
+    plan = block_cuda.pass_plan(B, H, W, dtype, sms=132)
+    T = block_cuda.stats_tiles(H, W, dtype)
+    assert plan.T == T
+    if dtype == torch.bfloat16:
+        assert (plan.tile_outputs, plan.groups, plan.grid) == (64, 1, min(B * T, 132))
+        return
+    conv = conv_cuda.launch_plan(B, 64, 64, H, W, torch.float32, sms=132)
+    assert (plan.tile_outputs, plan.groups, plan.grid) == (conv.tile_outputs, conv.groups,
+                                                            conv.grid)
+    assert plan.grid >= 132 or plan.tile_outputs == 8
+    rows = np.zeros((B, 64, T), np.int32)
+    for block in range(plan.grid):
+        tile, o0 = block // plan.groups, block % plan.groups * plan.tile_outputs
+        rows[tile // T, o0:o0 + plan.tile_outputs, tile % T] += 1
+    assert (rows == 1).all()
+    if (B, H, W) == (2, 31, 70):
+        assert (plan.tile_outputs, plan.grid) == (8, 192)
+    src = (block_cuda._build.CSRC / "conv3x3_stats.cu").read_text()
+    assert ("int tile_outputs, int grid, int device, void* stream)") in src
+    assert "#include \"conv3x3_f32_tiles.cuh\"" in src and "simt" not in src
 
 
 @pytest.mark.parametrize("prologue", [False, True])

@@ -272,11 +272,24 @@ def _wg_constexpr(name: str) -> int:
     return int(m.group(1))
 
 
+def _f32_constexpr(name: str) -> int:
+    """``constexpr int <name> = <int>;`` in ``csrc/conv3x3_f32_tiles.cuh``,
+    the f32 kernels' shared mainloop."""
+    m = re.search(rf"constexpr int {name} = (\d+);", _F32_SRC.read_text())
+    assert m, f"conv3x3_f32_tiles.cuh defines no constexpr int {name}"
+    return int(m.group(1))
+
+
+_F32_SRC = conv_cuda._build.CSRC / "conv3x3_f32_tiles.cuh"
+
+
 def test_conv_plan_constants_are_the_kernels():
     """The plan's tiles, threads and shared memory are those the kernels are
     compiled with (the wgmma kernel's box rows, warpgroups and ring; the
-    shared mainloop's 32-pixel box rows), and the C entry takes the plan's
-    path, tile rows and grid."""
+    shared mainloop's 32-pixel box rows; the f32 mainloop's 8 x 32 tiles of
+    256 threads, three stages of 8 channels' boxes and weights),
+    and the C entry takes the plan's path, tile rows, outputs a block and
+    grid."""
     src = _SRC.read_text()
     for walk in ("const int t = blockIdx.x + i * gridDim.x;", "h0 = ti / tiles_w * TH;",
                  "w0 = (ti % tiles_w) * TW;",
@@ -295,22 +308,49 @@ def test_conv_plan_constants_are_the_kernels():
     old = conv_cuda.PATHS["conv3x3_bf16"]
     assert old.tile == (2, 64) and old.threads == 128 and old.smem == 107_520
     assert "constexpr size_t kSmem = kWBytes + kXBytes;             // 107,520" in src
+    # the f32 kernels: conv3x3_f32_tiles.cuh's tile, thread map and ring
     f32 = conv_cuda.PATHS["conv3x3_f32"]
-    assert f32.tile == (8, 32) and f32.threads == 256 and f32.smem == 10_880 + 18_432
-    assert ("int Cout, int dtype_code, int path, int tile_rows, int grid,\n"
-            "                     int device, void* stream)") in src
+    f32_th, f32_tw = _f32_constexpr("TH"), _f32_constexpr("TW")
+    cc, stages32 = _f32_constexpr("CC"), _f32_constexpr("kStages")
+    assert f32.tile == conv_cuda.F32_TILE == (f32_th, f32_tw) == (8, 32) and f32.per_sm == 0
+    # 256 threads, a run of outputs / 8 pixels x 8 outputs each: the tile's pixels once a group
+    assert _f32_constexpr("OT") == 8 and f32_th * f32_tw == 256
+    assert "constexpr int kThreads = TH * TW;" in _F32_SRC.read_text()
+    assert "__host__ __device__ constexpr int run(int og) { return og / OT; }" \
+        in _F32_SRC.read_text()
+    # a box plane of 4 channels: rows of 35 16-byte pixels, 356 in all (4 mod 8)
+    plane = (f32_th + 2) * (f32_tw + 3) + 6
+    assert "constexpr int kPlane = HR * LDX + (12 - HR * LDX % 8) % 8;   // 356" \
+        in _F32_SRC.read_text() and plane == 356
+    assert "constexpr int kXFloats = CC / 4 * kPlane * 4;" in _F32_SRC.read_text()
+    for og in conv_cuda.F32_OUTPUTS:
+        assert conv_cuda.f32_smem(og) == stages32 * (cc * plane + cc * 9 * (og + 4)) * 4
+        assert conv_cuda.f32_smem(og) * 2 <= conv_cuda.SMEM_LIMIT  # two blocks an SM
+    assert f32.threads == 256 and f32.smem == conv_cuda.f32_smem(64) == 92_928
+    assert "constexpr int w_ld(int og) { return og + 4; }" in _F32_SRC.read_text()
+    assert conv_cuda.F32_OUTPUTS == (64, 32, 16, 8)
+    assert "simt" not in src and "namespace f32 {" in src  # the one f32 kernel, on the header
+    assert "#include \"conv3x3_f32_tiles.cuh\"" in src
+    assert ("int Cout, int dtype_code, int path, int tile_rows,\n"
+            "                     int tile_outputs, int grid, int device, void* stream)") in src
     assert sorted(p.code for p in conv_cuda.PATHS.values()) == [0, 1, 2]
 
 
 def _tile_origins(plan, B, H, W, block):
-    """The (image, first row, first column) of each output tile that block
-    ``block`` of ``plan`` writes, as the kernels walk them: tiles blockIdx,
-    blockIdx + grid, ..., row-major over each image's tiles."""
+    """The (image, first row, first column, first output) of each output
+    tile that block ``block`` of ``plan`` writes, as the kernels walk them:
+    f32, tile block // groups and output group block % groups; bf16, tiles
+    blockIdx, blockIdx + grid, ..., all outputs; tiles row-major over each
+    image's tiles."""
     th, tw = plan.path.tile
     tiles_w = -(-W // tw)
     per_image = -(-H // th) * tiles_w
-    return [(t // per_image, t % per_image // tiles_w * th, t % per_image % tiles_w * tw)
-            for t in range(block, plan.tiles, plan.grid)]
+    if plan.path.per_sm == 0:
+        tiles = [(block // plan.groups, block % plan.groups * plan.tile_outputs)]
+    else:
+        tiles = [(t, 0) for t in range(block, plan.tiles, plan.grid)]
+    return [(t // per_image, t % per_image // tiles_w * th, t % per_image % tiles_w * tw, o0)
+            for t, o0 in tiles]
 
 
 @pytest.mark.parametrize("shape", PLAN_SHAPES)
@@ -320,9 +360,10 @@ def _tile_origins(plan, B, H, W, block):
                                               ("float32", 64, 64, "conv3x3_f32")])
 def test_conv_launch_plan(shape, dtype, C, O, kernel):
     """C = O = 64 bf16 (every model call) takes the wgmma kernel, other widths
-    and f32 the earlier ones; the blocks' tiles cover every output pixel
-    once; a block fits an SM; persistent blocks fill the card without
-    exceeding the tiles."""
+    and f32 the earlier ones; the blocks' tiles cover every (output pixel,
+    output) once; a block fits an SM; persistent blocks fill the card without
+    exceeding the tiles; f32 splits the outputs into groups, the fewer the
+    better, until the blocks fill the card."""
     B, H, W = shape
     plan = conv_cuda.launch_plan(B, C, O, H, W, getattr(torch, dtype), sms=132)
     assert plan.kernel == kernel and plan.path is conv_cuda.PATHS[kernel]
@@ -331,14 +372,32 @@ def test_conv_launch_plan(shape, dtype, C, O, kernel):
     assert plan.tiles == B * -(-H // th) * -(-W // tw)
     if plan.path.per_sm:
         assert plan.grid == min(plan.tiles, plan.path.per_sm * 132)
+        assert (plan.tile_outputs, plan.groups) == (64, 1)
     else:
-        assert plan.grid == plan.tiles
-    hits = np.zeros((B, H, W), np.int32)
+        assert plan.tile_outputs in conv_cuda.F32_OUTPUTS
+        assert plan.groups == -(-O // plan.tile_outputs) and plan.grid == plan.tiles * plan.groups
+        assert plan.grid >= 132 or plan.tile_outputs == 8  # the card filled, or no more split
+        assert plan.tile_outputs == 64 or plan.tiles * -(-O // (2 * plan.tile_outputs)) < 132
+    hits = np.zeros((B, H, W, O), np.int32)
     for block in range(plan.grid):
-        for b, h0, w0 in _tile_origins(plan, B, H, W, block):
-            assert 0 <= b < B and 0 <= h0 < H and 0 <= w0 < W
-            hits[b, h0:h0 + th, w0:w0 + tw] += 1
+        for b, h0, w0, o0 in _tile_origins(plan, B, H, W, block):
+            assert 0 <= b < B and 0 <= h0 < H and 0 <= w0 < W and 0 <= o0 < O
+            hits[b, h0:h0 + th, w0:w0 + tw, o0:o0 + plan.tile_outputs] += 1
     assert (hits == 1).all()
+
+
+@pytest.mark.parametrize("B, H, W, O, outputs, blocks", [
+    (2, 31, 70, 64, 8, 192), (8, 240, 512, 64, 64, 3840), (1, 9, 31, 64, 8, 16),
+    (3, 17, 61, 64, 8, 144), (2, 31, 70, 40, 8, 120), (4, 31, 70, 64, 16, 192),
+    (8, 31, 70, 64, 32, 192), (2, 64, 128, 64, 16, 256), (2, 64, 128, 32, 8, 256)])
+def test_conv_f32_plan_fills_the_card(B, H, W, O, outputs, blocks):
+    """The f32 plan at the small ragged shape 2x31x70 has 24 tiles: it takes
+    8 outputs a block, 192 blocks on 132 SMs. Outputs halve only while the
+    blocks are fewer than the SMs (and stop at 8)."""
+    plan = conv_cuda.launch_plan(B, 64, O, H, W, torch.float32, sms=132)
+    assert (plan.tile_outputs, plan.grid) == (outputs, blocks)
+    if (B, H, W, O) == (2, 31, 70, 64):
+        assert plan.grid >= 132
 
 
 @pytest.mark.parametrize("bad", [dict(C=72), dict(O=12), dict(H=0), dict(dtype=torch.float16)])

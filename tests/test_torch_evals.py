@@ -15,6 +15,7 @@ within 1e-6 and every drawing function exactly (the same cv2 draws both).
 import contextlib
 import functools
 import io
+import json
 import re
 
 import jax
@@ -395,8 +396,44 @@ def _writers(tmp_path, step=10, **kw):
     port = improc.Summ_writer(MetricWriter(str(tmp_path / "port"), use_tensorboard=False),
                               step, **kw)
     ref = jax_improc.Summ_writer(JaxMetricWriter(str(tmp_path / "jax"), use_tensorboard=False),
-                                 step, scalar_freq=improc.SCALAR_FREQ, **kw)
+                                 step, **kw)
     return port, ref
+
+
+def _scalar_records(writer) -> list:
+    """The scalars a writer's MetricWriter wrote, without their wall times."""
+    with open(writer.writer.path) as f:
+        return [{k: v for k, v in json.loads(line).items() if k != "time"} for line in f]
+
+
+@pytest.mark.parametrize("step, kw", [(5, dict(scalar_freq=5)), (6, dict(scalar_freq=5)),
+                                      (10, {}), (15, {}), (4, dict(scalar_freq=2)),
+                                      (3, dict(scalar_freq=0))])
+def test_summ_writer_scalar_freq_equals_jax(tmp_path, step, kw):
+    """``summ_scalar`` writes at the writer's own ``scalar_freq`` (JAX's
+    default 10), at JAX's steps: at step 5 with ``scalar_freq=5`` what JAX
+    writes, at step 6 nothing; ``just_gif`` is taken and kept, as JAX keeps it."""
+    port, ref = _writers(tmp_path, step, log_freq=1, just_gif=False, **kw)
+    for sw in (port, ref):
+        sw.summ_scalar("a", 1.0)
+        sw.writer.close()
+    got, want = _scalar_records(port), _scalar_records(ref)
+    assert got == want
+    assert bool(got) == (step % max(kw.get("scalar_freq", 10), 1) == 0)
+    assert (port.scalar_freq, port.just_gif) == (ref.scalar_freq, ref.just_gif)
+
+
+def test_package_exports_equal_jax():
+    """Every name the JAX package exports is an attribute of the port, and
+    the two versions are one string."""
+    import pips_tpu
+    import pips_tpu_torch
+
+    missing = [n for n in pips_tpu.__all__ if not hasattr(pips_tpu_torch, n)]
+    assert not missing, missing
+    assert set(pips_tpu.__all__) <= set(pips_tpu_torch.__all__)
+    assert pips_tpu_torch.__version__ == pips_tpu.__version__ == "0.1.0"
+    assert pips_tpu_torch.FlowChainTracker.__module__ == "pips_tpu_torch.inference.flow_chain"
 
 
 @pytest.mark.parametrize("name", sorted(SUMM_CASES))
