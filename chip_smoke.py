@@ -70,8 +70,8 @@ Phases, each printing a progress line with the elapsed seconds:
      ``profile_stem_wgrad`` and ``profile_chanff_chunk``'s ``main`` at their
      full-width shapes (the stage-1 residual block at 8x64x192x256 bf16, and
      in f32: the f32 conv pass's path; the stem weight gradient at B=1 and
-     B=8, 384x512 bf16; a chain of 12 channel blocks at R=1024, chunk widths
-     512 and 1024); ``res_block64`` must
+     B=8, 384x512 bf16, and in f32: the f32 kernel's path; a chain of 12
+     channel blocks at R=1024, chunk widths 512 and 1024); ``res_block64`` must
      launch the conv-pass kernel 2 times per forward and 4 per
      forward+backward, ``stem_wgrad`` its kernel once per weight gradient,
      and the chunked chain 12 forward launches per chain forward and 12
@@ -151,9 +151,9 @@ and f32 and at a ragged shape in bf16 and f32, and the whole
 ``res_block64``, forward and five grads, against ``res_block64_reference``;
 timed in turns with ``F.conv2d`` and the modular ``ResidualBlock``. 3f holds
 ``stem_wgrad`` against its plain version, and two calls against each other
-(the same bits), at B=1 and B=8, 384x512 bf16, at B=2, 192x328 bf16 (each
-row's last segment of columns partial) and a small f32 shape, timed in turns
-with the library's weight grad of the s2d conv and of the x7 conv. 3g holds
+(the same bits), at B=1 and B=8, 384x512 bf16 and f32, at B=2, 192x328 bf16
+(each row's last segment of columns partial) and a small f32 shape, timed in
+turns with the library's weight grad of the s2d conv and of the x7 conv. 3g holds
 ``chan_ff_bwd`` in f32 (the f32 kernels) at R=1024, 800, 100 and 24,576
 and at D=256, F=1024 at the Pips2 rows against its plain version, all
 seven grads, with matmuls in full f32 (TF32
@@ -169,7 +169,8 @@ block is the f32 monolithic block, so it launches ``chanff_fwd.cu``'s and
 ``chanff_bwd.cu``'s f32 kernels), with 3g's f32 bounds and TF32 off. 3i holds
 the Mosaic probe kernels of the three probe tools against their plain
 versions at the tools' shapes, and each against itself (two calls, the
-same bits), each timed in turns with one library call where there is one,
+same bits), each timed in turns with one library call where there is one
+and with the launch floor (one PyTorch call on a one-element tensor),
 beside its bound: ``gelu``, ``ln_slice`` and ``stream_accum``
 (``tools/debug_mixer_kernel.py``, x (128, 4096) and w1 (12, 512, 2048)
 bf16), ``corr_rows`` (``tools/debug_pallas7.py``, 8 points on a 16x128 map
@@ -288,12 +289,14 @@ F32_BEFORE_MS = {"conv3x3_f32": {"small f32": 0.1388, "window f32": 4.2631,
 # lanes off the fast path (CA=20, CB=24: the general branch)
 CONTRACT_EDGES = [("R=1000", 1, 1000, 6, 64, False), ("G=3 R=100 b_bs=0", 3, 100, 6, 64, True),
                   ("CA=20 CB=24", 1, 1000, 20, 24, False)]
-# phase 3f: the stem weight gradient at tools/profile_stem_wgrad.py's shapes,
-# a bf16 one whose rows end in a partial segment of columns (Wo = 164 = 128 +
-# 36, and 36 is no multiple of the kernel's 16-pixel steps) and a small one in
-# f32 whose rows do too
+# phase 3f: the stem weight gradient at tools/profile_stem_wgrad.py's shapes
+# in both dtypes, a bf16 one whose rows end in a partial segment of columns
+# (Wo = 164 = 128 + 36, and 36 is no multiple of the kernel's 16-pixel steps)
+# and a small one in f32 (Wo = 48: stem_wgrad_cuda.f32_plan cuts each row in
+# two segments of 24 columns, six a pixel group)
 STEM_CASES = [("B=1", 1, 384, 512, "bfloat16"), ("B=8", 8, 384, 512, "bfloat16"),
-              ("ragged", 2, 192, 328, "bfloat16"), ("small f32", 2, 64, 96, "float32")]
+              ("ragged", 2, 192, 328, "bfloat16"), ("small f32", 2, 64, 96, "float32"),
+              ("B=1 f32", 1, 384, 512, "float32"), ("B=8 f32", 8, 384, 512, "float32")]
 U32 = 2.0 ** -24  # unit roundoff of f32
 EDGE_R = 100  # phases 3a, 3c and 3g: rows that fill no whole 128-row tile of the kernels
 # the Pips2 (PIPs++) refiner's channel blocks (pips_tpu/models/pips2.py:111-121:
@@ -414,9 +417,10 @@ PTXAS_REPORT = [("stem_wgrad", "stem_wgrad_tc"), ("mixer_probes", "probe_stream_
                 ("chanff_fwd", "chanff_fwd_out_f32"), ("chanff_chunk", "chanff_chunk_fwd"),
                 ("chanff_chunk", "chanff_chunk_bwd_rows"), ("conv3x3_fwd", "conv3x3_wgmma"),
                 ("corr_sample_fwd", "corr_sample_points"), ("conv3x3_fwd", "conv3x3_f32"),
-                ("conv3x3_stats", "conv3x3_stats_f32")]
+                ("conv3x3_stats", "conv3x3_stats_f32"), ("stem_wgrad", "stem_wgrad_f32")]
 # of those, the kernels whose report must show no spills
-NO_SPILLS = ("conv3x3_wgmma", "corr_sample_points", "conv3x3_f32", "conv3x3_stats_f32")
+NO_SPILLS = ("conv3x3_wgmma", "corr_sample_points", "conv3x3_f32", "conv3x3_stats_f32",
+             "stem_wgrad_f32")
 
 
 def ptxas_report(log_path: Path, kernel: str) -> str:
@@ -945,6 +949,8 @@ def phase_stem(torch, np, stem_cuda) -> dict:
         def library_x7():
             return torch.nn.grad.conv2d_weight(x7, (O, KY * C, 1, KX), dy)
 
+        plan = ("" if dtype != "float32" else
+                f"{stem_cuda.f32_plan(B, dy.shape[2], dy.shape[3], stem_cuda._sms(0))}, ")
         k1 = median_ms(torch, stem_cuda.stem_wgrad, (x2, dy))
         l1 = median_ms(torch, library, ())
         x1 = median_ms(torch, library_x7, ())
@@ -954,7 +960,7 @@ def phase_stem(torch, np, stem_cuda) -> dict:
         plain_ms = median_ms(torch, stem_cuda.stem_wgrad_reference, (x2, dy), launches=3)
         bound_ms, bound_by = stem_bound(x2, dy, dtype)
         log("kernels", f"stem_wgrad {case} x2 {tuple(x2.shape)} dy {tuple(dy.shape)} {dtype} "
-                       f"channels_last: max_abs_err {err:.3g} (tol {tol:.3g}, |dk| <= "
+                       f"channels_last: {plan}max_abs_err {err:.3g} (tol {tol:.3g}, |dk| <= "
                        f"{ref.abs().max().item():.3g}); {k1:.4f}/{k2:.4f} ms, library wgrad "
                        f"{l1:.4f}/{l2:.4f} ms, x7 wgrad {x1:.4f}/{x7_2:.4f} ms (x7 built "
                        f"beforehand; in turns), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
@@ -1355,7 +1361,14 @@ def phase_probes(torch, F) -> dict:
                          "bfloat16")}
     if sorted(meta) != sorted(probes):
         fail(f"3i: probes {sorted(probes)}, expected {sorted(meta)}")
-    out = {}
+    # the launch floor: one PyTorch call on a one-element tensor, timed in
+    # turns with each probe as the probe and its library call are
+    one = torch.zeros(1, device="cuda")
+
+    def floor():
+        return torch.neg(one)
+
+    out, floors = {}, []
     for probe, p in probes.items():
         entry, library, nbytes, ops, dtype = meta[probe]
         got = p.kernel()
@@ -1372,19 +1385,27 @@ def phase_probes(torch, F) -> dict:
         # kernel and library in turns
         k1 = median_ms(torch, p.kernel, ())
         l1 = None if library is None else median_ms(torch, library, ())
+        f1 = median_ms(torch, floor, ())
         k2 = median_ms(torch, p.kernel, ())
         l2 = None if library is None else median_ms(torch, library, ())
+        f2 = median_ms(torch, floor, ())
+        floors += [f1, f2]
         ms, lib_ms = (k1 + k2) / 2, None if library is None else (l1 + l2) / 2
         plain_ms = median_ms(torch, p.plain, ())
         bound_ms, bound_by = probe_bound(nbytes, ops, dtype)
         lib = "none" if library is None else f"{l1:.4f}/{l2:.4f} ms"
         log("kernels", f"{entry} ({probe}): max_abs_err {err:.3g} (worst err/tol {worst:.3g}); "
-                       f"{k1:.4f}/{k2:.4f} ms, library {lib} (in turns), plain "
+                       f"{k1:.4f}/{k2:.4f} ms, library {lib}, launch floor {f1:.4f}/{f2:.4f} "
+                       f"ms (in turns), plain "
                        f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}, "
                        f"{nbytes / 1e6:.3f} MB, {ops / 1e9:.4f} GFLOP)")
         out[entry] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=lib_ms)
-    del x, w1, a_cat, w_cat, fmap, targets, coords, a, b, probes
+    floors.sort()
+    log("kernels", f"launch floor (torch.neg of a one-element tensor, in turns with the probes): "
+                   f"median {floors[len(floors) // 2]:.4f} ms, {floors[0]:.4f}-{floors[-1]:.4f} "
+                   f"over {len(floors)} timings")
+    del x, w1, a_cat, w_cat, fmap, targets, coords, a, b, probes, one
     # stream_accum's tiles at their edges: 100 rows (a ragged row tile), five
     # weight blocks (a quarter of K is 10 stages), x wider than the slice
     g = torch.Generator(device="cuda").manual_seed(11)
@@ -1521,6 +1542,19 @@ def phase_tools(torch, block_cuda, stem_cuda, chunk_cuda) -> dict:
     # the kernel's dk against the library's (rounded to bf16 as the weight's dtype)
     if max(r["rel"] for r in res_s.values()) > 2.0 ** -7:
         fail(f"profile_stem_wgrad: dk differs from the library's beyond a bf16 ulp: {res_s}")
+    stem_cuda.launches = 0  # the f32 kernel (csrc/stem_wgrad.cu: stem_wgrad_f32)
+    t = time.perf_counter()
+    res_s = profile_stem_wgrad.main(dtype="float32")
+    n_stem32 = stem_cuda.launches
+    log("tools", f"profile_stem_wgrad.main(dtype='float32') in {time.perf_counter() - t:.1f} s: "
+                 f"{json.dumps(res_s)}; {n_stem32} f32 stem_wgrad launches (expected {want})")
+    if n_stem32 != want or not all(math.isfinite(v) for r in res_s.values() for v in r.values()):
+        fail(f"profile_stem_wgrad f32: {n_stem32} launches, expected {want}; {res_s}")
+    # against cuDNN's weight grad in full f32 (TF32 off): both sum K products
+    # of magnitude at most 1/4 in their own orders, held to 4 u K m as 3f
+    for (B, H, W), r in zip(profile_stem_wgrad.SHAPES, res_s.values()):
+        if r["err"] > 4 * U32 * B * (H // 2) * (W // 2) * 0.25:
+            fail(f"profile_stem_wgrad f32 B={B}: dk differs from the library's: {r}")
     chunk_cuda.launches = chunk_cuda.bwd_launches = 0
     t = time.perf_counter()
     res_c = profile_chanff_chunk.main()
@@ -1540,6 +1574,7 @@ def phase_tools(torch, block_cuda, stem_cuda, chunk_cuda) -> dict:
         fail(f"profile_chanff_chunk: a chunked chain differs from the base chain by more than "
              f"{bound}: {res_c['parity']}")
     return {"res_block64": n_block, "res_block64_f32": n_block32, "stem_wgrad": n_stem,
+            "stem_wgrad_f32": n_stem32,
             "chan_ff_chunked_fwd": got[0], "chan_ff_chunked_bwd": got[1]}
 
 
@@ -2991,7 +3026,7 @@ def main() -> int:
     # launches summed over main-path runs
     main_path = {"chan_ff_block": 0, "corr_sample": 0, "chan_ff_bwd": 0, "conv3x3_same": 0,
                  "conv3x3_f32": 0, "res_block64": 0, "res_block64_f32": 0, "stem_wgrad": 0,
-                 "chan_ff_bwd_f32": 0,
+                 "stem_wgrad_f32": 0, "chan_ff_bwd_f32": 0,
                  "chan_ff_chunked_fwd": 0, "chan_ff_chunked_bwd": 0, "gelu": 0, "ln_slice": 0,
                  "stream_accum": 0, "corr_rows": 0, "row_contract_a": 0, "row_contract_a2": 0,
                  "row_contract_b": 0, "row_contract_c": 0}
@@ -3746,6 +3781,10 @@ def main() -> int:
          "replaces": "pips_tpu/kernels/stem_wgrad_pallas.py:97",
          "launches": main_path["stem_wgrad"],
          **{k: v for k, v in stem["B=8"].items() if k != "x7_ms"}},
+        {"name": "stem_wgrad_f32", "route": "cuda", "source": "pips_tpu_torch/csrc/stem_wgrad.cu",
+         "replaces": "pips_tpu/kernels/stem_wgrad_pallas.py:97",
+         "launches": main_path["stem_wgrad_f32"],
+         **{k: v for k, v in stem["B=8 f32"].items() if k != "x7_ms"}},
         {"name": "chan_ff_bwd_f32", "route": "cuda", "source": "pips_tpu_torch/csrc/chanff_bwd.cu",
          "replaces": "pips_tpu/kernels/mixer_pallas.py:245",
          "launches": main_path["chan_ff_bwd_f32"], **chanff_f32[(TRAIN_R_DEFAULT, 512)],

@@ -11,7 +11,7 @@
 //   cp.async.bulk ran several times slower. A TMA store writes a box back
 //   from shared memory (clipped at the tensor's edges) in a bulk group;
 //   cp.async.bulk of a contiguous byte range, on an mbarrier the same way;
-//   cp.async of 4 bytes a thread, for rows whose stride fits no TMA box
+//   cp.async of 4 or 8 bytes a thread, for rows whose stride fits no TMA box
 //   (cp_async_arrive_noinc completes them on an mbarrier, cp_async_wait_all
 //   waits for them in the issuing thread); of 4 or 16 bytes zero-filled
 //   where out of range, in commit groups for a thread's double buffering;
@@ -36,6 +36,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 __device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+// 8 bytes (through L1); both addresses 8-byte aligned
+__device__ __forceinline__ void cp_async_8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(dst)), "l"(src)
                : "memory");
 }
 

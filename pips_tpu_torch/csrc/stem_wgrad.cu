@@ -6,9 +6,10 @@
 // F.conv2d's weight layout (64, 6, 7, 4).
 //
 // Replaces the TPU kernel pips_tpu/kernels/stem_wgrad_pallas.py:stem_wgrad
-// (pallas_call of _wgrad_kernel), the weight gradient of stem_conv_s2d.
+// (pallas_call of _wgrad_kernel), the weight gradient of stem_conv_s2d, in
+// both dtypes JAX runs it in.
 //
-// What bounds it on an H100: dk is a (168 x 64) product over K = B*Ho*Wo
+// What bounds it on an H100, bf16: dk is a (168 x 64) product over K = B*Ho*Wo
 // pixels: 2*168*64 operations per pixel against 64 + 3 (x2 is 6 channels at
 // half the rows, read once) bf16 values per pixel. At B=8, 384x512 that is
 // 8.5 GFLOP (0.009 ms at 989 TFLOP/s) against 60 MB (0.018 ms at 3.35 TB/s):
@@ -44,15 +45,39 @@
 // fixed order (block order within 32 runs, then the runs in order), so the
 // result is deterministic without atomics.
 //
-// Design, f32 (stem_wgrad_partial): SIMT. Segments as above; each block stages
-// the seven input rows and the segment's dy in shared memory as f32, then each
-// of its 336 threads owns one (ky, c) and 8 outputs o for all four kx: per
-// column it slides a four-value window of x along the row (one new load) and
-// reads eight dy values, for 32 FMAs. It writes its partial sums directly.
-//
+// Design, f32 (stem_wgrad_f32): exact f32 FMAs on the SIMT cores (TF32 on
+// the tensor cores would change the arithmetic), so bound by operations:
+// 8.46 GFLOP at B=8, 384x512 is 0.126 ms at 67 TFLOP/s against 120 MB of
+// x2, dy and dk (0.036 ms at 3.35 TB/s). The loop must keep the FMA pipes
+// busy: few other instructions per FMA, a whole number of warps on each of
+// an SM's four schedulers, and copies that land while it runs.
+//   * One block an SM: 384 threads, 12 warps (three a scheduler; at 14 one
+//     scheduler would hold four, and ptxas caps a thread at 128 registers),
+//     and a contiguous run of segments of up to 128 columns of an output
+//     row each. The host's plan (kernels/stem_wgrad_cuda.py: f32_plan)
+//     narrows the segments where the rows are too few to give every SM two.
+//   * A segment's dy (nw x 64 floats, contiguous) by 16-byte cp.async and
+//     x2's seven rows 2h .. 2h + 6 (nw + 3 pixels of 24 bytes) by 8-byte
+//     cp.async, in a ring of three stages: the next two segments land while
+//     this one is computed; one __syncthreads a segment. The block walks its
+//     segments with a cursor (no division in the loop).
+//   * The threads are four pixel groups of 96 (three warps), each over a
+//     quarter of the segment's columns and all of dk. A thread owns a
+//     channel pair, one kx, the seven ky and eight outputs: 112
+//     accumulators. Per column: seven LDS.64 of x (its pair at column w + kx
+//     in each row) and two LDS.128 of dy, for 112 FMAs. A warp is one
+//     channel pair: four kx x eight output groups, so its x loads are four
+//     addresses in one 128-byte line and its dy loads one 128-byte row each.
+//   * Each group's sums go to its own slot of shared memory and the block's
+//     partial row is their sum in group order, written whole (16-byte
+//     stores); so the second launch adds one row an SM (132 at most), in
+//     block order. It is queued behind the first as a programmatic dependent
+//     launch, one wave of blocks, and writes dk in its layout.
+
 // Plain C ABI (loaded with ctypes): pips_stem_wgrad_blocks gives the number of
-// partial rows of the scratch; pips_stem_wgrad returns cudaGetLastError()
-// after the launches; 0 means launched.
+// partial rows of the bf16 scratch (the f32 plan is the host's);
+// pips_stem_wgrad returns cudaGetLastError() after the launches; 0 means
+// launched.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -221,110 +246,185 @@ stem_wgrad_tc(__grid_constant__ const CUtensorMap dy_map, const bf16* __restrict
   for (int i = tid; i < kOut / 4; i += kTcThreads) pb[i] = reinterpret_cast<const float4*>(red)[i];
 }
 
-// ---- f32: SIMT ---------------------------------------------------------------------
+// ---- f32: register-tiled SIMT -------------------------------------------------------
 
-constexpr int SW = 128;                  // output columns per segment
-constexpr int XW = SW + KX - 1;          // input columns staged per segment
-constexpr int kRows = KY * C;            // 42 (ky, c) pairs
-constexpr int kOG = 8;                   // outputs per thread
-constexpr int kThreads = kRows * (O / kOG);  // 336
-constexpr size_t kXsBytes = (size_t)KY * XW * C * 4;  // 22,008: [ky][w][c] f32
-constexpr size_t kDsBytes = (size_t)SW * O * 4;       // 32,768: [w][o] f32
-constexpr size_t kSmem = kDsBytes + kXsBytes;         // 54,776
-static_assert(kDsBytes % 16 == 0, "dy stage alignment");
+constexpr int kF32Seg = 128;             // output columns a segment, at most (the host's plan)
+constexpr int kGroups = 4;               // pixel groups: each takes a quarter of a segment's columns
+constexpr int kChT = 2;                  // a thread's channels (a pair: 0-1, 2-3 or 4-5) ...
+constexpr int kOutT = 8;                 // ... its outputs, at one kx and all seven ky
+constexpr int kOG = O / kOutT;           // 8 output groups
+constexpr int kGroupThreads = (C / kChT) * kOG * KX;  // 96: one pixel group, the whole dk
+constexpr int kF32Threads = kGroups * kGroupThreads;  // 384: 12 warps, three a scheduler
+constexpr int kF32Stages = 3;            // cp.async ring depth
+constexpr int kXR = kF32Seg + KX - 1 + 1;             // x's staged pixels a row (even)
+constexpr int kDyFloats = kF32Seg * O;               // [px][o]
+constexpr int kStageFloats = kDyFloats + KY * kXR * C;  // + [ky][px][c]: 13,736 floats
+// the ring, or the groups' sums at the end (172,032 bytes): one block an SM
+constexpr size_t kF32Smem = (size_t)4 * (kF32Stages * kStageFloats > kGroups * kOut
+                                             ? kF32Stages * kStageFloats : kGroups * kOut);
+static_assert(kXR % 2 == 0 && kStageFloats % 4 == 0, "stage alignment");
+static_assert(kOut % 4 == 0, "16-byte rows of sums");
+static_assert(KY * kChT * kOutT * kGroupThreads == kOut, "a group holds all of dk");
 
-__global__ void __launch_bounds__(kThreads, 2)
-stem_wgrad_partial(const float* __restrict__ x2, const float* __restrict__ dy,
-                   float* __restrict__ part, int B, int Hp, int Wp, int Ho, int Wo) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* ds = reinterpret_cast<float*>(smem);             // [SW][O]
-  float* xs = reinterpret_cast<float*>(smem + kDsBytes);  // [KY][XW][C]
+// One pixel column w of a thread: its two channels of x at column w + kx in
+// the seven rows (seven LDS.64), its eight outputs of dy (two LDS.128), 112
+// FMAs. xp: the thread's channel pair at kx in row 0; dp: its outputs 4og..
+// and 32 + 4og.. of column 0.
+__device__ __forceinline__ void f32_pixel(float (&acc)[KY][kChT][kOutT], const float* xp,
+                                          const float* dp, int w) {
+  float2 x[KY];
+#pragma unroll
+  for (int ky = 0; ky < KY; ++ky)
+    x[ky] = *reinterpret_cast<const float2*>(xp + ky * kXR * C + w * C);
+  const float4 d0 = *reinterpret_cast<const float4*>(dp + w * O);
+  const float4 d1 = *reinterpret_cast<const float4*>(dp + w * O + 32);
+  const float d[kOutT] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+  for (int ky = 0; ky < KY; ++ky)
+#pragma unroll
+    for (int j = 0; j < kOutT; ++j) {
+      acc[ky][0][j] = fmaf(x[ky].x, d[j], acc[ky][0][j]);
+      acc[ky][1][j] = fmaf(x[ky].y, d[j], acc[ky][1][j]);
+    }
+}
 
+// x2 (B, Hp, Wp, 6) and dy (B, Ho, Wo, 64) f32 in memory; segments of `seg`
+// columns of an output row, a block a contiguous run of them (the host's
+// f32_plan); part (gridDim.x, 10752): each block's sums, laid out as
+// f32_dk_index reads them
+__global__ void __launch_bounds__(kF32Threads, 1)
+stem_wgrad_f32(const float* __restrict__ x2, const float* __restrict__ dy,
+               float* __restrict__ part, int B, int Hp, int Wp, int Ho, int Wo, int seg) {
+  extern __shared__ __align__(16) float sm[];
   const int tid = threadIdx.x;
-  const int og = tid % (O / kOG), rc = tid / (O / kOG);  // outputs og*8.., row (ky, c)
-  const int ky = rc / C, c = rc % C;
-  const int segs_w = (Wo + SW - 1) / SW;
-  const long nseg = (long)B * Ho * segs_w;
-  const long s0 = nseg * blockIdx.x / gridDim.x, s1 = nseg * (blockIdx.x + 1) / gridDim.x;
+  const int g = tid / kGroupThreads, u = tid % kGroupThreads;
+  const int cp = u / 32, og = u % kOG, kx = (u % 32) / kOG;  // a warp: one channel pair
+  asm volatile("griddepcontrol.launch_dependents;");  // the sums may launch (they wait for this)
+  const int segs_w = (Wo + seg - 1) / seg;
+  const int nseg = B * Ho * segs_w;
+  const int s0 = (int)((long)nseg * blockIdx.x / gridDim.x);
+  const int s1 = (int)((long)nseg * (blockIdx.x + 1) / gridDim.x);
+  const int nsegs = s1 - s0;
 
-  float acc[KX][kOG];
-#pragma unroll
-  for (int kx = 0; kx < KX; ++kx)
-#pragma unroll
-    for (int j = 0; j < kOG; ++j) acc[kx][j] = 0.0f;
-
-  for (long sg = s0; sg < s1; ++sg) {
-    const int w0 = (int)(sg % segs_w) * SW;
-    const long bh = sg / segs_w;
-    const int h = (int)(bh % Ho), b = (int)(bh / Ho);
-    const int nw = min(SW, Wo - w0);  // output columns of this segment
-    __syncthreads();  // the previous segment is consumed
-
-    // dy row (b, h), columns w0 .. w0+SW-1: 8 channels per item, zeros past Wo
-    const float* dyr = dy + (((size_t)b * Ho + h) * Wo + w0) * O;
-    for (int i = tid; i < SW * (O / 8); i += kThreads) {
-      const int w = i / (O / 8), k = (i % (O / 8)) * 8;
-      float4 v0 = make_float4(0.f, 0.f, 0.f, 0.f), v1 = v0;
-      if (w < nw) {
-        v0 = *reinterpret_cast<const float4*>(dyr + (size_t)w * O + k);
-        v1 = *reinterpret_cast<const float4*>(dyr + (size_t)w * O + k + 4);
-      }
-      float4* d = reinterpret_cast<float4*>(ds + w * O + k);
-      d[0] = v0;
-      d[1] = v1;
+  // segment j of the block (j = 0, 1, ... in turn: the cursor lc, lh, lb
+  // steps along, no division) into ring slot j % kF32Stages: dy's nw x 64
+  // floats (contiguous) by 16-byte copies, x2's seven rows 2h .. 2h + 6 of
+  // nw + 3 pixels (24 bytes each, 8-byte aligned) by 8-byte copies. The
+  // loops stay rolled (unrolled, ptxas holds their addresses in registers).
+  int lc = s0 % segs_w, lh = s0 / segs_w % Ho, lb = s0 / segs_w / Ho;
+  auto load = [&](int j) {
+    float* st = sm + (j % kF32Stages) * kStageFloats;
+    const int w0 = lc * seg, nw = min(seg, Wo - w0);
+    const float* dsrc = dy + (((size_t)lb * Ho + lh) * Wo + w0) * O;
+#pragma unroll 1
+    for (int i = tid; i < nw * (O / 4); i += kF32Threads)
+      cp_async_16z(st + 4 * i, dsrc + 4 * i, true);
+    const int words = (nw + KX - 1) * (C / 2);
+    const float* xsrc = x2 + (((size_t)lb * Hp + 2 * lh) * Wp + w0) * C;
+#pragma unroll 1
+    for (int r = 0; r < KY; ++r)
+#pragma unroll 1
+      for (int k = tid; k < words; k += kF32Threads)
+        cp_async_8(st + kDyFloats + r * kXR * C + 2 * k, xsrc + (size_t)r * Wp * C + 2 * k);
+    if (++lc == segs_w) {
+      lc = 0;
+      if (++lh == Ho) lh = 0, ++lb;
     }
-    // the seven input rows 2h + ky, columns w0 .. w0+XW-1 (six contiguous
-    // channels each); columns past the segment's last tap read as zero
-    for (int i = tid; i < KY * XW * C; i += kThreads) {
-      const int r = i / (XW * C), rest = i % (XW * C);
-      const int w = rest / C;
-      float v = 0.0f;
-      if (w < nw + KX - 1) v = x2[(((size_t)b * Hp + 2 * h + r) * Wp + w0) * C + rest];
-      xs[i] = v;
-    }
-    __syncthreads();
+  };
 
-    const float* xr = xs + ky * XW * C + c;
-    float win[KX];
+  float acc[KY][kChT][kOutT];
 #pragma unroll
-    for (int kx = 0; kx < KX - 1; ++kx) win[kx + 1] = xr[kx * C];
-#pragma unroll 4
-    for (int w = 0; w < nw; ++w) {
+  for (int ky = 0; ky < KY; ++ky)
 #pragma unroll
-      for (int kx = 0; kx < KX - 1; ++kx) win[kx] = win[kx + 1];
-      win[KX - 1] = xr[(w + KX - 1) * C];
-      const float4 d0 = *reinterpret_cast<const float4*>(ds + w * O + og * kOG);
-      const float4 d1 = *reinterpret_cast<const float4*>(ds + w * O + og * kOG + 4);
-      const float d[kOG] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+    for (int c = 0; c < kChT; ++c)
 #pragma unroll
-      for (int kx = 0; kx < KX; ++kx)
-#pragma unroll
-        for (int j = 0; j < kOG; ++j) acc[kx][j] = fmaf(win[kx], d[j], acc[kx][j]);
+      for (int j = 0; j < kOutT; ++j) acc[ky][c][j] = 0.0f;
+
+#pragma unroll 1
+  for (int j = 0; j < kF32Stages - 1; ++j) {
+    if (j < nsegs) load(j);
+    cp_async_commit();
+  }
+  int cc = s0 % segs_w;  // segment i's column chunk
+#pragma unroll 1
+  for (int i = 0; i < nsegs; ++i) {
+    cp_async_wait<kF32Stages - 2>();  // this thread's copies of segment i have landed
+    __syncthreads();                  // every thread's have, and every thread is past i - 1
+    if (i + kF32Stages - 1 < nsegs) load(i + kF32Stages - 1);
+    cp_async_commit();
+    const float* st = sm + (i % kF32Stages) * kStageFloats;
+    const int nw = min(seg, Wo - cc * seg);
+    if (++cc == segs_w) cc = 0;
+    const int c0 = nw * g / kGroups, c1 = nw * (g + 1) / kGroups;  // this group's columns
+    const float* xp = st + kDyFloats + kx * C + kChT * cp;
+    const float* dp = st + 4 * og;
+    int w = c0;
+#pragma unroll 1
+    for (; w + 2 <= c1; w += 2) {
+      f32_pixel(acc, xp, dp, w);
+      f32_pixel(acc, xp, dp, w + 1);
     }
+    if (w < c1) f32_pixel(acc, xp, dp, w);
   }
 
-  // this block's partial dk in dk's layout [o][c][ky][kx]
-  float* pb = part + (size_t)blockIdx.x * kOut;
+  // each group's sums into its slot of shared memory, laid [accumulator]
+  // [thread of the group] (f32_dk_index maps that to dk's layout); then the
+  // block's partial row, each float4 of it the four slots added in group
+  // order, written whole (16-byte stores)
+  cp_async_wait<0>();
+  __syncthreads();
+  float* slot = sm + g * kOut;
 #pragma unroll
-  for (int j = 0; j < kOG; ++j) {
-    const int o = og * kOG + j;
+  for (int ky = 0; ky < KY; ++ky)
 #pragma unroll
-    for (int kx = 0; kx < KX; ++kx) pb[((o * C + c) * KY + ky) * KX + kx] = acc[kx][j];
+    for (int c = 0; c < kChT; ++c)
+#pragma unroll
+      for (int j = 0; j < kOutT; ++j)
+        slot[((ky * kChT + c) * kOutT + j) * kGroupThreads + u] = acc[ky][c][j];
+  __syncthreads();
+  float4* pb = reinterpret_cast<float4*>(part + (size_t)blockIdx.x * kOut);
+  for (int i = tid; i < kOut / 4; i += kF32Threads) {
+    float4 v = reinterpret_cast<const float4*>(sm)[i];
+#pragma unroll
+    for (int q = 1; q < kGroups; ++q) {
+      const float4 w = reinterpret_cast<const float4*>(sm + q * kOut)[i];
+      v.x += w.x;
+      v.y += w.y;
+      v.z += w.z;
+      v.w += w.w;
+    }
+    pb[i] = v;
   }
 }
 
 // ---- the blocks' partials, summed --------------------------------------------------
 
 constexpr int kSumCols = 32, kSumRuns = 32;  // a block: 32 outputs, 32 runs of blocks each
+constexpr int kF32SumCols = 32, kF32SumRuns = 16;  // f32 (a row an SM at most): one wave
 
-// dk[i] = the sum over the partial blocks, each of kSumRuns runs of blocks
-// summed in block order, then the runs in order: a fixed order
-__global__ void __launch_bounds__(kSumCols * kSumRuns)
+// where stem_wgrad_f32's partial row keeps output i of dk: at accumulator
+// ((ky * 2 + c % 2) * 8 + j) of thread (c / 2) * 32 + kx * 8 + og of a group,
+// o = 4 og + j % 4 + 32 (j / 4)
+__device__ __forceinline__ int f32_dk_index(int i) {
+  const int j = i / kGroupThreads, u = i % kGroupThreads;
+  const int cp = u / 32, kx = u % 32 / kOG, og = u % kOG;
+  const int ky = j / (kChT * kOutT), c = kChT * cp + j / kOutT % kChT, jj = j % kOutT;
+  const int o = (jj < 4 ? 0 : 32) + 4 * og + (jj & 3);
+  return ((o * C + c) * KY + ky) * KX + kx;
+}
+
+// dk = the sum over the partial blocks, each of RUNS runs of blocks summed
+// in block order, then the runs in order: a fixed order. F32: the
+// partial rows in stem_wgrad_f32's layout; launched as its programmatic
+// dependent, waiting here for its partials
+template <bool F32, int COLS, int RUNS>
+__global__ void __launch_bounds__(COLS * RUNS)
 stem_wgrad_sum(const float* __restrict__ part, float* __restrict__ dk, int nblocks) {
-  __shared__ float runs[kSumRuns][kSumCols];
-  const int col = threadIdx.x % kSumCols, r = threadIdx.x / kSumCols;
-  const int i = blockIdx.x * kSumCols + col;
-  const int k0 = nblocks * r / kSumRuns, k1 = nblocks * (r + 1) / kSumRuns;
+  if (F32) asm volatile("griddepcontrol.wait;" ::: "memory");
+  __shared__ float runs[RUNS][COLS];
+  const int col = threadIdx.x % COLS, r = threadIdx.x / COLS;
+  const int i = blockIdx.x * COLS + col;
+  const int k0 = nblocks * r / RUNS, k1 = nblocks * (r + 1) / RUNS;
   float v = 0.0f;
   if (i < kOut) {
 #pragma unroll 8
@@ -334,80 +434,93 @@ stem_wgrad_sum(const float* __restrict__ part, float* __restrict__ dk, int nbloc
   __syncthreads();
   if (r == 0 && i < kOut) {
 #pragma unroll
-    for (int q = 1; q < kSumRuns; ++q) v += runs[q][col];
-    dk[i] = v;
+    for (int q = 1; q < RUNS; ++q) v += runs[q][col];
+    dk[F32 ? f32_dk_index(i) : i] = v;
   }
 }
 
-cudaError_t partial_config(int dtype_code, const void** fn, int* threads, size_t* smem) {
-  if (dtype_code == 1) {
-    *fn = reinterpret_cast<const void*>(stem_wgrad_tc);
-    *threads = kTcThreads;
-    *smem = kTcSmem;
-  } else {
-    *fn = reinterpret_cast<const void*>(stem_wgrad_partial);
-    *threads = kThreads;
-    *smem = kSmem;
-  }
-  return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+cudaError_t tc_config() {
+  return cudaFuncSetAttribute(stem_wgrad_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)kTcSmem);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Blocks of the partial launch, so rows of the scratch (nblocks, 10752) f32:
-// as many as fit the card at once, at most one per segment.
-// dtype_code 0 = float32, 1 = bfloat16.
-int pips_stem_wgrad_blocks(int B, int Ho, int Wo, int dtype_code, int device) {
-  int sms = 0, per_sm = 0, threads = 0;
-  const void* fn = nullptr;
-  size_t smem = 0;
-  if ((dtype_code != 0 && dtype_code != 1) || cudaSetDevice(device) != cudaSuccess ||
+// Blocks of the bf16 launch, so rows of the scratch (nblocks, 10752) f32: as
+// many as fit the card at once, at most one per segment of kSeg columns (the
+// f32 launch is laid out by the host: kernels/stem_wgrad_cuda.py: f32_plan).
+int pips_stem_wgrad_blocks(int B, int Ho, int Wo, int device) {
+  int sms = 0, per_sm = 0;
+  if (cudaSetDevice(device) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
-      partial_config(dtype_code, &fn, &threads, &smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem) != cudaSuccess)
+      tc_config() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stem_wgrad_tc, kTcThreads,
+                                                    kTcSmem) != cudaSuccess)
     return -1;
-  const int seg = dtype_code == 1 ? kSeg : SW;
-  const long nseg = (long)B * Ho * ((Wo + seg - 1) / seg);
+  const long nseg = (long)B * Ho * ((Wo + kSeg - 1) / kSeg);
   const long resident = (long)(per_sm > 0 ? per_sm : 1) * sms;
   return (int)(nseg < resident ? nseg : resident);
 }
 
 // Shapes the kernel takes: x2 (B, 6, Hp, Wp) and dy (B, 64, Ho, Wo), both
 // contiguous NHWC in memory (torch.channels_last), one dtype; Hp >= 2*Ho + 5,
-// Wp >= Wo + 3; dk (64, 6, 7, 4) float32; part (nblocks, 10752) float32 with
-// nblocks from pips_stem_wgrad_blocks for the same dtype; pointers 16-byte
-// aligned. dtype_code 0 = float32, 1 = bfloat16 (x2, dy).
-int pips_stem_wgrad(const void* x2, const void* dy, void* dk, void* part, int nblocks, int B,
-                    int Hp, int Wp, int Ho, int Wo, int dtype_code, int device, void* stream) {
+// Wp >= Wo + 3; dk (64, 6, 7, 4) float32; part (nblocks, 10752) float32;
+// pointers 16-byte aligned. dtype_code 1 = bfloat16: seg = 128 and nblocks
+// from pips_stem_wgrad_blocks; 0 = float32: seg (1 .. 128 output columns a
+// segment) and nblocks (at most the segments) from the host's f32_plan.
+int pips_stem_wgrad(const void* x2, const void* dy, void* dk, void* part, int nblocks, int seg,
+                    int B, int Hp, int Wp, int Ho, int Wo, int dtype_code, int device,
+                    void* stream) {
   if (B <= 0 || Ho <= 0 || Wo <= 0 || Hp < 2 * Ho + KY - 2 || Wp < Wo + KX - 1 || nblocks <= 0 ||
+      (dtype_code == 1 && seg != kSeg) ||
+      (dtype_code == 0 &&
+       (seg < 1 || seg > kF32Seg || nblocks > (long)B * Ho * ((Wo + seg - 1) / seg))) ||
       (dtype_code != 0 && dtype_code != 1))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const void* fn = nullptr;
-  int threads = 0;
-  size_t smem = 0;
-  err = partial_config(dtype_code, &fn, &threads, &smem);
-  if (err != cudaSuccess) return (int)err;
   float* p = static_cast<float*>(part);
   if (dtype_code == 1) {
+    err = tc_config();
+    if (err != cudaSuccess) return (int)err;
     CUtensorMap dy_map;
     err = make_map_2d_bf16(&dy_map, dy, O, (uint64_t)B * Ho * Wo, O * 2, kSeg);
     if (err != cudaSuccess) return (int)err;
-    stem_wgrad_tc<<<nblocks, threads, smem, s>>>(dy_map, static_cast<const bf16*>(x2), p, B, Hp,
-                                                 Wp, Ho, Wo);
-  } else
-    stem_wgrad_partial<<<nblocks, threads, smem, s>>>(static_cast<const float*>(x2),
-                                                      static_cast<const float*>(dy), p, B, Hp, Wp,
-                                                      Ho, Wo);
+    stem_wgrad_tc<<<nblocks, kTcThreads, kTcSmem, s>>>(dy_map, static_cast<const bf16*>(x2), p,
+                                                       B, Hp, Wp, Ho, Wo);
+  } else {
+    err = cudaFuncSetAttribute(stem_wgrad_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kF32Smem);
+    if (err != cudaSuccess) return (int)err;
+    stem_wgrad_f32<<<nblocks, kF32Threads, kF32Smem, s>>>(static_cast<const float*>(x2),
+                                                          static_cast<const float*>(dy), p, B, Hp,
+                                                          Wp, Ho, Wo, seg);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  stem_wgrad_sum<<<(kOut + kSumCols - 1) / kSumCols, kSumCols * kSumRuns, 0, s>>>(
-      p, static_cast<float*>(dk), nblocks);
-  return (int)cudaGetLastError();
+  if (dtype_code == 1) {
+    stem_wgrad_sum<false, kSumCols, kSumRuns>
+        <<<(kOut + kSumCols - 1) / kSumCols, kSumCols * kSumRuns, 0, s>>>(
+            p, static_cast<float*>(dk), nblocks);
+    return (int)cudaGetLastError();
+  }
+  // f32: queued while the partial launch runs (programmatic dependent launch)
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((kOut + kF32SumCols - 1) / kF32SumCols);
+  cfg.blockDim = dim3(kF32SumCols * kF32SumRuns);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, stem_wgrad_sum<true, kF32SumCols, kF32SumRuns>,
+                           static_cast<const float*>(p),
+                           static_cast<float*>(dk), nblocks);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // extern "C"

@@ -13,8 +13,9 @@ CUDA tensor ``stem_wgrad`` launches the hand-written kernel in
 ``pips_tpu_torch/csrc/stem_wgrad.cu``, which replaces the TPU kernel
 ``_wgrad_kernel`` and reads x2 in place at row stride 2, so the row-tap
 tensor x7 is never written to device memory: in bf16 on tensor cores behind
-a ring of asynchronous copies, in f32 on the SIMT cores (the source's header
-says what bounds it); ``stem_wgrad_reference`` is its plain version.
+a ring of asynchronous copies, in f32 on register-tiled FMAs behind a
+``cp.async`` ring, laid out by ``f32_plan`` (the source's header says what
+bounds each); ``stem_wgrad_reference`` is its plain version.
 
 ``stem_wgrad`` returns None exactly where JAX's does (a row count that
 ``_pick_tile`` does not tile, or a width too narrow for the taps), and
@@ -31,6 +32,8 @@ plain version; a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +47,44 @@ launches = 0  # stem_wgrad kernel calls so far; read (and reset) by chip_smoke.p
 _fns = None
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+BF16_SEG = 128  # output columns of a bf16 segment (csrc/stem_wgrad.cu: kSeg)
+F32_SEG = 128  # output columns of an f32 segment at most (kF32Seg)
+F32_MIN_SEG = 16  # f32_plan splits a row no finer: four columns a pixel group
+F32_SEGS_A_BLOCK = 2  # ... and only while the segments number fewer an SM
+
+
+class F32Plan(NamedTuple):
+    """The f32 kernel's launch: rows of ``segs_w`` segments of ``seg``
+    columns (a row's last one shorter where ``seg`` does not divide Wo),
+    ``nseg`` in all, and ``blocks`` blocks, one an SM, block i taking
+    segments nseg*i // blocks .. nseg*(i+1) // blocks - 1; each block writes
+    one of the scratch's ``blocks`` partial rows."""
+    seg: int
+    segs_w: int
+    nseg: int
+    blocks: int
+
+
+def f32_plan(B: int, Ho: int, Wo: int, sms: int) -> F32Plan:
+    """Segments of at most ``F32_SEG`` columns, as even as the row allows;
+    halved (down to ``F32_MIN_SEG``) while they number fewer than
+    ``F32_SEGS_A_BLOCK`` an SM, so that every SM gets work (a segment
+    boundary costs a barrier and a fresh start of the loop, so no finer);
+    as many blocks as SMs, at most one a segment."""
+    def split(n: int) -> tuple:
+        seg = -(-Wo // n)
+        return seg, -(-Wo // seg)
+
+    seg, segs_w = split(-(-Wo // F32_SEG))
+    while B * Ho * segs_w < F32_SEGS_A_BLOCK * sms and seg >= 2 * F32_MIN_SEG:
+        seg, segs_w = split(2 * segs_w)
+    nseg = B * Ho * segs_w
+    return F32Plan(seg, segs_w, nseg, min(nseg, sms))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _pick_tile(Ho: int) -> int:
@@ -75,10 +116,10 @@ def _kernel():
     if _fns is None:
         lib = _build.load("stem_wgrad")
         fn = lib.pips_stem_wgrad
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         blocks = lib.pips_stem_wgrad_blocks
-        blocks.argtypes = [ctypes.c_int] * 5
+        blocks.argtypes = [ctypes.c_int] * 4
         blocks.restype = ctypes.c_int
         _fns = fn, blocks
     return _fns
@@ -109,16 +150,20 @@ def stem_wgrad(x2: torch.Tensor, dy: torch.Tensor, KY: int = 7, KX: int = 4):
         raise ValueError("the CUDA stem_wgrad reads x2 and dy in torch.channels_last memory "
                          f"format; got strides {x2.stride()} and {dy.stride()}")
     fn, blocks = _kernel()
-    nblocks = blocks(B, Ho, Wo, _DTYPE_CODE[x2.dtype], x2.device.index)
+    code = _DTYPE_CODE[x2.dtype]
+    if code == 0:
+        plan = f32_plan(B, Ho, Wo, _sms(x2.device.index))
+        nblocks, seg = plan.blocks, plan.seg
+    else:
+        nblocks, seg = blocks(B, Ho, Wo, x2.device.index), BF16_SEG
     if nblocks <= 0:
         raise RuntimeError(f"stem_wgrad: no launch configuration for B={B}, Ho={Ho}, Wo={Wo}")
     dk = torch.empty(O, C, KY, KX, dtype=torch.float32, device=x2.device)
     part = torch.empty(nblocks, dk.numel(), dtype=torch.float32, device=x2.device)  # scratch
     if any(t.data_ptr() % 16 for t in (x2, dy, dk, part)):
         raise ValueError("stem_wgrad's CUDA kernel needs 16-byte aligned tensors")
-    err = fn(x2.data_ptr(), dy.data_ptr(), dk.data_ptr(), part.data_ptr(), nblocks, B, Hp, Wp,
-             Ho, Wo, _DTYPE_CODE[x2.dtype], x2.device.index,
-             torch.cuda.current_stream(x2.device).cuda_stream)
+    err = fn(x2.data_ptr(), dy.data_ptr(), dk.data_ptr(), part.data_ptr(), nblocks, seg, B, Hp,
+             Wp, Ho, Wo, code, x2.device.index, torch.cuda.current_stream(x2.device).cuda_stream)
     if err:
         raise RuntimeError(f"stem_wgrad kernel launch failed: CUDA error {err}")
     launches += 1

@@ -102,8 +102,8 @@ class Pips(nn.Module):
     def __init__(self, S: int = 8, stride: int = 8, latent_dim: int = 128,
                  corr_levels: int = 4, corr_radius: int = 3, mixer_dim: int = 512,
                  mixer_depth: int = 12, dtype: Optional[torch.dtype] = None,
-                 fuse_chanff: bool = False, remat_mixer: bool = False,
-                 remat_corr: bool = False, remat_encoder: bool = False,
+                 remat_mixer: bool = False, remat_corr: bool = False,
+                 remat_encoder: bool = False, fuse_chanff: bool = False,
                  fuse_conv3: bool = False, full_s2d: bool = True):
         super().__init__()
         self.S, self.stride, self.latent_dim = S, stride, latent_dim

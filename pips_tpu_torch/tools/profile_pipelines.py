@@ -18,7 +18,12 @@ Variants of ``stem_wgrad`` (B=8 and B=1, 384x512, as many blocks as the
 kernel takes): "kernel"; "no x copies" (the producers skip x2's rows); "no
 products" (the warpgroup skips its wgmma); "dy only" (both); "no segments"
 (no block gets a segment: the launch, the partial sums and the second
-launch). Of ``stream_accum`` (``tools/debug_mixer_kernel.py``'s x (128, 4096)
+launch). Of its f32 kernel (B=8 and B=1 at 384x512 and the smoke's small
+2x64x96, as ``f32_plan`` lays them out; beside ``conv2d_weight`` with TF32
+off): "kernel"; "f32 no copies" (no cp.async: the products read stale
+stages); "f32 no shared loads" (x and dy from the column index: the FMAs
+stay); "f32 no products" (each group's column loop skipped); "f32 no
+segments". Of ``stream_accum`` (``tools/debug_mixer_kernel.py``'s x (128, 4096)
 and w1 (12, 512, 2048)): "kernel"; "no products"; "no copies" (the producer
 only arrives, so the products read stale tiles). Of ``conv_pass`` (8x64x192x256
 bf16, the prologue on; the kernel also with it off): "kernel"; "no input
@@ -102,6 +107,25 @@ STEM_X = ("for (int r = 0; r < KY; ++r) {\n        const uint32_t* src",
           "for (int r = 0; r < 0; ++r) {\n        const uint32_t* src")
 STEM_MMA = ("          wgmma_m64n32k16_rs<1>(", "          if (ks < 0) wgmma_m64n32k16_rs<1>(")
 STEM_NONE = ("const int n = (int)(s1 - s0);", "const int n = 0 * (int)(s1 - s0);")
+# the f32 kernel (stem_wgrad_f32): its copies; its shared loads (x and dy
+# taken from the column index instead, so the FMAs stay); its products (each
+# group's column loop skipped: copies, barriers, the groups' sums and the
+# second launch remain); every segment
+STEM32_COPY = [("      cp_async_16z(st + 4 * i, dsrc + 4 * i, true);",
+                "      if (i < 0) cp_async_16z(st + 4 * i, dsrc + 4 * i, true);"),
+               ("        cp_async_8(st + kDyFloats + r * kXR * C",
+                "        if (k < 0) cp_async_8(st + kDyFloats + r * kXR * C")]
+STEM32_LDS = [("    x[ky] = *reinterpret_cast<const float2*>(xp + ky * kXR * C + w * C);",
+               "    x[ky] = make_float2(__int_as_float(w + ky), __int_as_float(w));"),
+              ("  const float4 d0 = *reinterpret_cast<const float4*>(dp + w * O);",
+               "  const float4 d0 = make_float4(__int_as_float(w), __int_as_float(w + 1),\n"
+               "                                __int_as_float(w + 2), __int_as_float(w + 3));"),
+              ("  const float4 d1 = *reinterpret_cast<const float4*>(dp + w * O + 32);",
+               "  const float4 d1 = make_float4(__int_as_float(w + 4), __int_as_float(w + 5),\n"
+               "                                __int_as_float(w + 6), __int_as_float(w + 7));")]
+STEM32_FMA = ("    int w = c0;", "    int w = c1;")
+STEM32_NONE = ("  const int nsegs = s1 - s0;", "  const int nsegs = 0 * (s1 - s0);")
+STEM32_CASES = (("B=8", 8, 384, 512), ("B=1", 1, 384, 512), ("small", 2, 64, 96))
 SA_MMA = ("        wgmma_m64n64k16<0, 1>(acc,\n",
           "        if (ks < 0) wgmma_m64n64k16<0, 1>(acc,\n")
 SA_COPY = [("        mbar_arrive_expect_tx(&full[s], kWTile + (i == 0 ? kXBytes : 0));",
@@ -252,7 +276,9 @@ CS_CASES = tuple((case, N, md, td) for case, N in (("flagship", 256), ("dense", 
                                 ("float32", "float32")))
 VARIANTS = {
     "stem_wgrad": {"kernel": [], "no x copies": [STEM_X], "no products": [STEM_MMA],
-                   "dy only": [STEM_X, STEM_MMA], "no segments": [STEM_NONE]},
+                   "dy only": [STEM_X, STEM_MMA], "no segments": [STEM_NONE],
+                   "f32 no copies": STEM32_COPY, "f32 no shared loads": STEM32_LDS,
+                   "f32 no products": [STEM32_FMA], "f32 no segments": [STEM32_NONE]},
     "mixer_probes": {"kernel": [], "no products": [SA_MMA], "no copies": SA_COPY},
     "conv3x3_stats": {"kernel": [], "no input copies": CONV_COPY, "no products": [CONV_MMA],
                       "no epilogue": [CONV_EPI]},
@@ -366,25 +392,72 @@ def stem_variants(libs: dict, B: int, H: int = 384, W: int = 512) -> dict:
               .permute(0, 3, 1, 2) for shape in ((B, 2 * Ho + 6, Wo + 3, 6), (B, Ho, Wo, 64)))
     stream = torch.cuda.current_stream().cuda_stream
     out = {}
-    for name in VARIANTS["stem_wgrad"]:
-        lib = libs[("stem_wgrad", name)]
-        lib.pips_stem_wgrad.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
-            ctypes.c_void_p]
-        lib.pips_stem_wgrad_blocks.argtypes = [ctypes.c_int] * 5
-        nb = lib.pips_stem_wgrad_blocks(B, Ho, Wo, 1, x2.device.index)
+    for name in [n for n in VARIANTS["stem_wgrad"] if not n.startswith("f32 ")]:
+        lib = stem_lib(libs, name)
+        nb = lib.pips_stem_wgrad_blocks(B, Ho, Wo, x2.device.index)
         dk = torch.empty(64, 6, 7, 4, device="cuda")
         part = torch.empty(nb, dk.numel(), device="cuda")
 
         def call(lib=lib, nb=nb, dk=dk, part=part):
             checked(lib.pips_stem_wgrad(x2.data_ptr(), dy.data_ptr(), dk.data_ptr(),
-                                        part.data_ptr(), nb, B, x2.shape[2], x2.shape[3], Ho,
-                                        Wo, 1, x2.device.index, stream), f"stem_wgrad {name}")
+                                        part.data_ptr(), nb, 128, B, x2.shape[2], x2.shape[3],
+                                        Ho, Wo, 1, x2.device.index, stream), f"stem_wgrad {name}")
 
         out[name] = device_ms(call)
         if name == "kernel":
             err = (dk - stem_wgrad_reference(x2, dy)).abs().max().item()
             out["kernel max_abs_err"] = err
             out["blocks"] = nb
+    return out
+
+
+def stem_lib(libs: dict, name: str):
+    lib = libs[("stem_wgrad", name)]
+    lib.pips_stem_wgrad.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.pips_stem_wgrad_blocks.argtypes = [ctypes.c_int] * 4
+    return lib
+
+
+def stem_f32_variants(libs: dict) -> dict:
+    """The f32 kernel's variants at ``STEM32_CASES``, each launched as
+    ``stem_wgrad_cuda.f32_plan`` lays it out; the kernel held to its plain
+    version within 4 u K m (as smoke phase 3f) and timed beside
+    ``torch.nn.grad.conv2d_weight`` in full f32 (TF32 off)."""
+    from pips_tpu_torch.kernels.stem_wgrad_cuda import f32_plan
+
+    torch.backends.cudnn.allow_tf32 = False
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for case, B, H, W in STEM32_CASES:
+        Ho, Wo = H // 2, W // 2
+        rng = np.random.RandomState(B + H)
+        x2, dy = (torch.from_numpy((rng.rand(*shape) - 0.5).astype(np.float32)).cuda()
+                  .permute(0, 3, 1, 2) for shape in ((B, 2 * Ho + 6, Wo + 3, 6), (B, Ho, Wo, 64)))
+        plan = f32_plan(B, Ho, Wo, sms)
+        dk = torch.empty(64, 6, 7, 4, device="cuda")
+        part = torch.empty(plan.blocks, dk.numel(), device="cuda")
+        res = {"plan": plan._asdict()}
+        for name in ["kernel"] + [n for n in VARIANTS["stem_wgrad"] if n.startswith("f32 ")]:
+            lib = stem_lib(libs, name)
+
+            def call(lib=lib, name=name):
+                checked(lib.pips_stem_wgrad(x2.data_ptr(), dy.data_ptr(), dk.data_ptr(),
+                                            part.data_ptr(), plan.blocks, plan.seg, B,
+                                            x2.shape[2], x2.shape[3], Ho, Wo, 0, x2.device.index,
+                                            stream), f"stem_wgrad f32 {name}")
+
+            call()
+            if name == "kernel":
+                err = (dk - stem_wgrad_reference(x2, dy)).abs().max().item()
+                tol = 4 * 2.0 ** -24 * B * Ho * Wo * 0.25
+                if err > tol:
+                    raise RuntimeError(f"stem_wgrad f32 {case}: max_abs_err {err} > {tol}")
+                res["kernel max_abs_err"] = err
+                res["conv2d_weight"] = device_ms(lambda: torch.nn.grad.conv2d_weight(
+                    x2, (64, 6, 7, 4), dy, stride=(2, 1)))
+            res[name] = device_ms(call)
+        out[case] = res
     return out
 
 
@@ -829,7 +902,8 @@ def main(sources=None) -> dict:
                          capture_output=True, text=True).stdout.strip().splitlines()
     res = {"device": torch.cuda.get_device_name(0), "nvidia-smi": smi[0] if smi else None}
     runs = {"stem_wgrad": lambda: {"stem_wgrad B=8": stem_variants(libs, 8),
-                                   "stem_wgrad B=1": stem_variants(libs, 1)},
+                                   "stem_wgrad B=1": stem_variants(libs, 1),
+                                   "stem_wgrad f32": stem_f32_variants(libs)},
             "mixer_probes": lambda: {"stream_accum": stream_variants(libs)},
             "conv3x3_stats": lambda: {"conv_pass": conv_variants(libs)},
             "row_contract": lambda: {"row_contract": contract_variants(libs)},

@@ -72,9 +72,9 @@ def train_loss_fn(model, batch: Batch, iters: int, is_train: bool = True,
 
 
 def make_train_step(model, optimizer, iters: int = 4, horz_flip: bool = True,
-                    vert_flip: bool = True, grad_acc: int = 1, remat: bool = False,
-                    sync_metrics: bool = True,
-                    use_fused_corr: bool = False) -> Callable[[Batch], Dict[str, float]]:
+                    vert_flip: bool = True, grad_acc: int = 1, use_fused_corr: bool = False,
+                    remat: bool = False,
+                    sync_metrics: bool = True) -> Callable[[Batch], Dict[str, float]]:
     """``step(batch) -> metrics``: one optimizer step of ``model``.
 
     ``batch`` holds numpy arrays or tensors (moved to the model's device as

@@ -283,3 +283,34 @@ def test_pips_takes_jax_argument_order(call):
     if want.fcps is not None:
         assert o.fcps.shape == want.fcps.shape == (1, 8, 1, 12, 8, 12)
         np.testing.assert_allclose(o.fcps.numpy(), want.fcps, rtol=0, atol=1e-3)
+
+
+# JAX's Pips fields after the widths, in order: dtype, then six flags
+JAX_FLAGS = ("remat_mixer", "remat_corr", "remat_encoder", "fuse_chanff", "fuse_conv3",
+             "full_s2d")
+
+
+def _port_flags(m: Pips) -> dict:
+    """The port's flags as its modules hold them."""
+    return {"remat_mixer": m.delta_block.remat, "remat_corr": m.remat_corr,
+            "remat_encoder": m.fnet.remat, "fuse_chanff": m.delta_block.to_delta.fuse_chanff,
+            "fuse_conv3": m.fnet.fuse_conv3, "full_s2d": m.fnet.full_s2d}
+
+
+@pytest.mark.parametrize("flip", JAX_FLAGS)
+def test_pips_fields_take_jax_positional_order(flip):
+    """``Pips.__init__`` takes JAX's field order: the same positional tuple, up
+    to the 14th field, gives both classes the same widths and flags. Each
+    case turns one flag from its default, so a swapped pair shows."""
+    widths = (8, 8, 16, 3, 2, 32, 2, None)
+    flags = tuple((not d) if name == flip else d
+                  for name, d in zip(JAX_FLAGS, (False, False, False, False, False, True)))
+    jm = JaxPips(*widths, *flags)
+    tm = Pips(*widths, *flags)
+    assert [f for f in JaxPips.__dataclass_fields__ if f not in ("parent", "name")][:14] == [
+        "S", "stride", "latent_dim", "corr_levels", "corr_radius", "mixer_dim", "mixer_depth",
+        "dtype", *JAX_FLAGS]
+    assert _port_flags(tm) == {name: getattr(jm, name) for name in JAX_FLAGS}
+    assert (tm.S, tm.stride, tm.latent_dim, tm.corr_levels, tm.corr_radius) == (
+        jm.S, jm.stride, jm.latent_dim, jm.corr_levels, jm.corr_radius)
+    assert tm.fnet.dtype is None and jm.dtype is None

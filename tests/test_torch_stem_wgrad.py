@@ -127,3 +127,47 @@ def test_tool_runs_on_cpu_when_asked():
         for name in ("library", "kernel", "x7"):
             assert res[f"{mode} {name}"] > 0
     assert stem_wgrad_cuda.launches == 0
+
+
+# the f32 kernel's launch at the smoke's shapes: B=1 and B=8 at 384x512, the
+# small f32 case (2x64x96) and a row that no segment width divides (Wo = 164)
+F32_PLAN_SHAPES = [(1, 192, 256), (8, 192, 256), (2, 32, 48), (2, 96, 164)]
+
+
+@pytest.mark.parametrize("B,Ho,Wo", F32_PLAN_SHAPES, ids=lambda v: str(v))
+def test_f32_plan_covers_every_pixel_once(B, Ho, Wo):
+    """Every (b, h, w') pixel falls in exactly one segment of exactly one block
+    of ``f32_plan``'s launch, as the kernel walks the segments; the segments
+    fit the kernel's stage and there is one block an SM, at most one a
+    segment."""
+    sms = 132
+    plan = stem_wgrad_cuda.f32_plan(B, Ho, Wo, sms)
+    assert 1 <= plan.seg <= stem_wgrad_cuda.F32_SEG
+    assert plan.segs_w == -(-Wo // plan.seg) and plan.nseg == B * Ho * plan.segs_w
+    assert plan.blocks == min(plan.nseg, sms)
+    hits = np.zeros((B * Ho, Wo), np.int64)
+    for block in range(plan.blocks):  # as csrc/stem_wgrad.cu's stem_wgrad_f32 walks them
+        s0, s1 = plan.nseg * block // plan.blocks, plan.nseg * (block + 1) // plan.blocks
+        assert s1 > s0  # no block idles
+        for s in range(s0, s1):
+            w0 = s % plan.segs_w * plan.seg
+            w1 = min(w0 + plan.seg, Wo)
+            assert 0 < w1 - w0 <= plan.seg
+            hits[s // plan.segs_w, w0:w1] += 1
+    assert (hits == 1).all()
+
+
+def test_f32_plan_fills_the_card_at_small_shapes():
+    """Rows are split while the segments number fewer than two an SM, down
+    to 16 columns: the small case (64 rows of 48 columns) gets 128 blocks of
+    one 24-column segment; B=1 at 384x512 keeps 384 segments of 128 columns."""
+    assert stem_wgrad_cuda.f32_plan(2, 32, 48, 132) == (24, 2, 128, 128)
+    assert stem_wgrad_cuda.f32_plan(1, 192, 256, 132) == (128, 2, 384, 132)
+    assert stem_wgrad_cuda.f32_plan(8, 192, 256, 132) == (128, 2, 3072, 132)
+    assert stem_wgrad_cuda.f32_plan(1, 8, 20, 132) == (20, 1, 8, 8)  # no split below 16
+
+
+def test_tool_times_the_weight_gradient_only_on_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        profile_stem_wgrad.cli(["--wgrad", "--dtype", "float32"])

@@ -254,3 +254,34 @@ def test_train_steps_reduce_the_loss():
     step = make_train_step(model, opt, iters=2, horz_flip=True, vert_flip=True)
     losses = [step(_batch())["total_loss"] for _ in range(8)]
     assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+
+
+def test_make_train_step_takes_jax_argument_order(monkeypatch):
+    """``make_train_step`` takes JAX's arguments in JAX's order after the
+    model and the optimizer (..., grad_acc, use_fused_corr, remat), the
+    port's own ``sync_metrics`` after them; at TINY dims the positional call
+    ``(model, opt, 1, True, False, 1, True)`` trains through the fused corr
+    path without remat, as the keyword call does, to the same loss bits."""
+    import inspect
+
+    from pips_tpu_torch.train import step as tstep
+
+    jnames = list(inspect.signature(jstep.make_train_step).parameters)
+    tnames = list(inspect.signature(make_train_step).parameters)
+    assert jnames[:2] == ["model", "tx"] and tnames[:2] == ["model", "optimizer"]
+    assert tnames[2:] == jnames[2:] + ["sync_metrics"]
+    seen = []
+    loss_fn, ckpt = tstep.train_loss_fn, tstep.checkpoint
+    monkeypatch.setattr(tstep, "train_loss_fn", lambda *a, **kw: (
+        seen.append(("fused", kw["use_fused_corr"])), loss_fn(*a, **kw))[1])
+    monkeypatch.setattr(tstep, "checkpoint", lambda *a, **kw: (
+        seen.append(("remat", True)), ckpt(*a, **kw))[1])
+    batch = _batch()
+    losses = []
+    for args, kw in (((1, True, False, 1, True), {}),
+                     ((), dict(iters=1, horz_flip=True, vert_flip=False, use_fused_corr=True))):
+        model = _port_model()
+        seen.clear()
+        losses.append(make_train_step(model, _Recorder(model), *args, **kw)(batch)["total_loss"])
+        assert seen == [("fused", True)]
+    assert losses[0] == losses[1]
