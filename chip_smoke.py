@@ -130,6 +130,28 @@ Phases, each printing a progress line with the elapsed seconds:
      metrics and media where the runner writes them; (d) none of the
      port's kernels launched; (e) each runner's seconds, first window,
      median of the rest and peak memory printed.
+ 14. slice, the last modules: (a) phase 12's seeded weights written as a
+     JAX msgpack checkpoint (``model-*.msgpack`` of ``{"params": ...}``),
+     which ``evals.common.load_params`` must give back bit for bit; (b)
+     ``pips_tpu_torch.demo.main`` (2 chunks of 8 at 360x640, 16x16 points)
+     and ``chain_demo.main`` (32 frames, 8x8 points) in its default,
+     ``on_device`` and ``stream`` modes, all at ``--bf16 true`` from that
+     checkpoint, on seeded noise jpgs at 540x960: GIFs written, every
+     trajectory finite and at its query on frame 0, 12 * 6 ``chan_ff_block``
+     launches a window, ``stream`` within 1e-3 px of the default and
+     ``on_device`` within phase 6's bounds, seconds and points*frames/s; (c)
+     ``parallel`` at world size 1 over NCCL: a sharded bf16 step at the bench
+     train shape against the one-process step within 7a's bounds, both timed
+     in turns, and ``run_davis --mesh auto`` on one video equal to ``--mesh
+     ''``; (d) two ranks on the card over gloo, spawned here: at meshes
+     (2, 1) and (1, 2), at one iteration (as 7d's exact f32 parity), an f32
+     step (TF32 off) against the one-process step on the same global batch
+     (B=2; loss within 1e-5 relative, gradient cosine at least 0.9999) and a
+     bf16 step, no further from the one-process f32 step than the
+     one-process bf16 step is (cosines within 0.01, loss within 0.2%), its
+     7a comparison with the one-process bf16 step printed; each timed; a
+     point-split f32 window at (1, 2) within 1e-3 px of the unsplit one at
+     one iteration, within phase 4's drift bounds at six.
 Phase 3 also holds (3d) ``conv3x3_same`` (the encoder's stage-1 3x3 conv)
 against its plain version, forward and dx, at a window's, the training
 default's and the bench train shape's stage 1 in bf16 and in f32 and a small
@@ -192,6 +214,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import functools
 import gc
@@ -366,6 +389,28 @@ EVAL_DAVIS_POINTS = (480 // 8) * (1024 // 8)  # run_davis's dense grid at its de
 # tokens)
 BASE_HW, BASE_N, BASE_RAFT_ITERS, BASE_PX = (256, 384), 16, (4, 32), 1e-2
 BASE_CROHD_WINDOWS = 2
+# phase 14, the last modules: the demos on DEMO_FRAMES seeded noise jpgs at
+# DEMO_HW (demo.py's DEMO_CHUNKS chunks of 8 at DEMO_RESIZE, its 360x640, and
+# its 16x16 grid; chain_demo.py over all the frames on a DEMO_CHAIN_GRID^2
+# grid), at --bf16 true from a JAX msgpack checkpoint of phase 12's seeded
+# weights; parallel/ at world size 1 over NCCL, and two ranks on the card over
+# gloo: MESH_TRAIN (one sample a rank on the data axis) at MESH_SHAPES, the
+# MESH_STEPS; a point-split f32 window at MESH_WINDOW_HW
+DEMO_HW, DEMO_RESIZE, DEMO_FRAMES, DEMO_CHUNKS, DEMO_CHAIN_GRID = (540, 960), (360, 640), 32, 2, 8
+MESH_TRAIN = dict(TRAIN, B=2)
+MESH_SHAPES = ((2, 1), (1, 2))
+MESH_F32 = dict(loss_rel=1e-5, global_cos=0.9999)
+# (dtype, iterations) of the two-rank steps, at one iteration: at six untrained
+# weights amplify the order of summation that the split changes (the chaos
+# policy of docs/TESTING.md; 7d holds f32 at one iteration for the same
+# reason). f32 within MESH_F32 of the one-process step; bf16 within PARITY of
+# the one-process step at the ranks' shapes: at (1, 2) the one-process step,
+# at (2, 1) ``split_step``, the same B=1 halves in one process with no
+# collective (bf16 rounds a B=1 step otherwise than a B=2 step, which the
+# smoke measures beside it)
+MESH_STEPS = (("float32", 1), ("bfloat16", 1))
+MESH_WINDOW_HW = (480, 1024)
+MESH_CHILD_TIMEOUT_S = 300
 CHUNK_FCS = (512, 1024)  # phase 3h times these: tools/profile_chanff_chunk.py's chunk widths
 # phase 3h's rows: the tool's, a ragged R and one ragged 64-row tile; and the
 # chunk width it also times at the training default's R=24,576
@@ -1649,6 +1694,51 @@ def loss_and_grads(torch, model, batch, cfg: dict, iters: int):
     return out
 
 
+def split_step(torch, model, batch, iters: int, parts: int = 2):
+    """What the ``parts`` ranks of a (parts, 1) mesh compute, done in one
+    process with no collective: each slice of B runs the loss with every
+    masked mean's denominator summed over the slices (counted first in a pass
+    without grads), and the slices' grads and metrics are summed. The
+    (metrics, grads in f32) of ``loss_and_grads``; nothing applied, no flips."""
+    from pips_tpu_torch.ops.reduce import denominators_summed
+    from pips_tpu_torch.train import train_loss_fn
+
+    B = batch["rgbs"].shape[0]
+    parts = [{k: v[i * B // parts:(i + 1) * B // parts] for k, v in batch.items()}
+             for i in range(parts)]
+    counts = []
+    for part in parts:
+        seen = []
+        with torch.no_grad(), denominators_summed(lambda c: seen.append(c.clone()) or c):
+            train_loss_fn(model, part, iters)
+        counts.append(seen)
+    if len({len(c) for c in counts}) != 1:
+        fail(f"split step: the slices took {[len(c) for c in counts]} masked means")
+    totals = [sum(cs) for cs in zip(*counts)]
+    model.zero_grad(set_to_none=True)
+    metrics = {}
+    for part in parts:
+        it = iter(totals)
+        with denominators_summed(lambda c: next(it)):
+            total, met = train_loss_fn(model, part, iters)
+        total.backward()  # each slice's grads add to the others'
+        for k, v in met.items():
+            metrics[k] = metrics.get(k, 0.0) + float(v.detach())
+    torch.cuda.synchronize()
+    out = (metrics, {n: p.grad.detach().float().clone() for n, p in model.named_parameters()})
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def encode_split_diff(torch, model, rgbs) -> float:
+    """How far the encoder's features of sample 0 move when it is encoded
+    alone instead of in the whole batch, relative to their largest value."""
+    with torch.no_grad():
+        whole = model.encode(rgbs)[:1].float()
+        alone = model.encode(rgbs[:1]).float()
+    return float((whole - alone).abs().max() / whole.abs().max())
+
+
 def grad_parity(torch, step, plain) -> dict:
     """A step's (metrics, grads) against a plain step's: the loss's relative
     error and, in f64 over the leaves whose grad is not zero in exact math, the
@@ -2434,12 +2524,12 @@ def make_badja_tree(np, root: Path) -> None:
     save_frames(frames)
 
 
-def make_davis_tree(np, root: Path) -> None:
-    """DAVIS: ``EVAL_DAVIS_VIDEOS`` videos of 8 jpg frames at ``EVAL_DAVIS_HW``."""
+def make_davis_tree(np, root: Path, videos: int = EVAL_DAVIS_VIDEOS) -> None:
+    """DAVIS: ``videos`` videos of 8 jpg frames at ``EVAL_DAVIS_HW``."""
     H, W = EVAL_DAVIS_HW
     rng = np.random.RandomState(23)
     frames = []
-    for v in range(EVAL_DAVIS_VIDEOS):
+    for v in range(videos):
         vd = root / "JPEGImages/Full-Resolution" / f"video{v}"
         vd.mkdir(parents=True)
         frames += [(vd / f"{fr:05d}.jpg", data_frame(np, rng, H, W)) for fr in range(8)]
@@ -2486,12 +2576,10 @@ def phase_evals(torch, np, mixer_cuda, mixer_module, root: Path) -> dict:
     DAVIS's dense ``trajs``, and ``build_pips_tracker`` on the first
     FlyingThings++ and CroHD samples. The trees stay under ``root`` for phase
     13. Returns the launches and the numbers."""
-    from pips_tpu_torch import init_params
     from pips_tpu_torch.data import CrohdDataset, FlyingThingsDataset
     from pips_tpu_torch.data.crohd import prep_sample
     from pips_tpu_torch.evals import common, run_badja, run_crohd, run_davis, run_flt
     from pips_tpu_torch.inference.window import WindowTracker
-    from pips_tpu_torch.models.pips import Pips
 
     launched, numbers = {"chan_ff_block": 0}, {}
     t = time.perf_counter()
@@ -2499,15 +2587,8 @@ def phase_evals(torch, np, mixer_cuda, mixer_module, root: Path) -> dict:
     make_crohd_tree(np, root / "crohd")
     make_badja_tree(np, root / "badja")
     make_davis_tree(np, root / "davis")
-    # seeded weights, every bias and norm scale moved off 0 and 1 so that
-    # a misplaced leaf shows, written in the reference's layout
-    src = init_params(Pips(), 0)
-    gen = torch.Generator().manual_seed(12)
-    with torch.no_grad():
-        for name, p in src.named_parameters():
-            if name.endswith((".bias", ".scale")):
-                p.add_(0.02 * torch.randn(p.shape, generator=gen))
-    want_sd = src.state_dict()
+    # seeded weights, written in the reference's layout
+    want_sd = seeded_weights(torch)
     pth = root / "ckpt" / "model-000200000.pth"
     pth.parent.mkdir()
     torch.save({"model_state_dict": reference_state_dict(want_sd, DEPTH),
@@ -2946,6 +3027,475 @@ def phase_baselines(torch, np, root: Path, zero_counts, kernel_counts) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return numbers
+
+
+def seeded_weights(torch) -> dict:
+    """The flagship's seeded full-width weights of phases 12 and 14:
+    ``init_params(Pips(), 0)`` with every bias and norm scale moved off 0 and
+    1, so that a misplaced leaf shows."""
+    from pips_tpu_torch import init_params
+    from pips_tpu_torch.models.pips import Pips
+
+    src = init_params(Pips(), 0)
+    gen = torch.Generator().manual_seed(12)
+    with torch.no_grad():
+        for name, p in src.named_parameters():
+            if name.endswith((".bias", ".scale")):
+                p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    return src.state_dict()
+
+
+def msgpack_bytes(np, obj) -> bytes:
+    """``obj`` (maps, lists, str, small ints, ndarrays) in the msgpack that
+    ``flax.serialization.to_bytes`` writes: an ndarray as extension type 1,
+    a packed (shape, dtype name, C-order bytes)."""
+    import struct
+
+    if isinstance(obj, dict):
+        head = bytes([0x80 | len(obj)]) if len(obj) < 16 else b"\xde" + struct.pack(">H", len(obj))
+        return head + b"".join(msgpack_bytes(np, str(k)) + msgpack_bytes(np, v)
+                               for k, v in obj.items())
+    if isinstance(obj, (list, tuple)):
+        head = bytes([0x90 | len(obj)]) if len(obj) < 16 else b"\xdc" + struct.pack(">H", len(obj))
+        return head + b"".join(msgpack_bytes(np, v) for v in obj)
+    if isinstance(obj, str):
+        b = obj.encode()
+        return (bytes([0xA0 | len(b)]) if len(b) < 32 else b"\xd9" + bytes([len(b)])) + b
+    if isinstance(obj, bytes):
+        return b"\xc6" + struct.pack(">I", len(obj)) + obj
+    if isinstance(obj, int):
+        return bytes([obj]) if 0 <= obj < 128 else b"\xce" + struct.pack(">I", obj)
+    a = np.ascontiguousarray(obj)
+    payload = msgpack_bytes(np, [[int(d) for d in a.shape], a.dtype.name, a.tobytes()])
+    return b"\xc9" + struct.pack(">I", len(payload)) + b"\x01" + payload
+
+
+def write_jax_checkpoint(torch, np, sd: dict, ckpt_dir: Path, step: int) -> Path:
+    """``sd`` as the JAX package's bare variables checkpoint
+    (``model-%09d.msgpack`` of ``{"params": ...}``), through the bridge."""
+    from pips_tpu_torch.convert import flax_from_state_dict
+
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    path = ckpt_dir / f"model-{step:09d}.msgpack"
+    path.write_bytes(msgpack_bytes(np, flax_from_state_dict(sd)))
+    return path
+
+
+MESH_CHILD = r'''
+import json, runpy, sys, time
+T0 = time.perf_counter()
+import numpy as np
+import torch
+pid, port, smoke = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+g = runpy.run_path(smoke, run_name="mesh_child")
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from pips_tpu_torch import WindowTracker, grid_queries, make_pips
+from pips_tpu_torch.parallel import (distributed_init, make_mesh, make_sharded_train_step,
+                                     replicate, shard_batch)
+from pips_tpu_torch.train import make_optimizer, make_train_step
+
+distributed_init(f"localhost:{port}", 2, pid, backend="gloo", device="cuda")
+cfg = g["MESH_TRAIN"]
+batch = g["train_batch"](torch, np, cfg, seed=3)
+out = {"steps": [], "windows": []}
+meshes = {shape: make_mesh(shape, device="cuda") for shape in g["MESH_SHAPES"]}
+out["ready_s"] = time.perf_counter() - T0
+
+
+def grads(m):
+    return {n: p.grad.detach().float().clone() for n, p in m.named_parameters()}
+
+
+f32_ref = None
+for dtype, iters in g["MESH_STEPS"]:
+    dt = getattr(torch, dtype)
+    m = make_pips(device="cuda", seed=0, dtype=None if dt == torch.float32 else dt,
+                  fuse_chanff=dt != torch.float32).train()
+    init = {k: v.detach().clone() for k, v in m.state_dict().items()}
+    out.setdefault("built_s", []).append(time.perf_counter() - T0)
+    # the one-process step on the same global batch, on every rank, so that
+    # the ranks' first steps (which load the libraries) overlap
+    opt = make_optimizer(m.parameters(), lr=5e-4, num_steps=10)
+    met = make_train_step(m, opt, iters=iters, horz_flip=False, vert_flip=False)(batch)
+    ref = (met, grads(m))
+    m.load_state_dict(init)
+    # the (2, 1) mesh's two B=1 halves in this process, with no collective
+    split = g["split_step"](torch, m, batch, iters)
+    out.setdefault("split_vs_one", {})[dtype] = dict(
+        g["grad_parity"](torch, split, ref),
+        encode_rel=g["encode_split_diff"](torch, m, batch["rgbs"]))
+    if dt == torch.float32:
+        f32_ref = ref
+    else:  # how far bf16 alone moves the one-process step from the f32 one
+        out.setdefault("single_vs_f32", {})[str(iters)] = g["grad_parity"](torch, ref, f32_ref)
+    out.setdefault("ref_s", []).append(time.perf_counter() - T0)
+    for shape, mesh in meshes.items():
+        m.load_state_dict(init)
+        replicate(m)
+        opt = make_optimizer(m.parameters(), lr=5e-4, num_steps=10)
+        step = make_sharded_train_step(m, opt, mesh, iters=iters, horz_flip=False,
+                                       vert_flip=False)
+        shard = shard_batch(mesh, batch)
+        met = step(shard)
+        got = (met, grads(m))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(shard)
+        torch.cuda.synchronize()
+        entry = dict(dtype=dtype, shape=list(shape), iters=iters, at_s=time.perf_counter() - T0,
+                     ms=(time.perf_counter() - t) * 1e3, loss=met["total_loss"],
+                     peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        entry.update(g["grad_parity"](torch, got, ref))
+        if shape == (2, 1):
+            entry["vs_split"] = g["grad_parity"](torch, got, split)
+        out["steps"].append(entry)
+        del opt, step, got
+    del m, init, ref, split
+    torch.cuda.empty_cache()
+
+m = make_pips(device="cuda", seed=0).eval()
+rng = np.random.RandomState(4)
+H, W = g["MESH_WINDOW_HW"]
+rgbs = (rng.rand(1, 8, H, W, 3) * 255).astype(np.float32)
+xys = grid_queries(H, W)
+for iters in (1, 6):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    split = WindowTracker(m, iters=iters, device="cuda", mesh=meshes[(1, 2)])(xys, rgbs)
+    torch.cuda.synchronize()
+    w = dict(iters=iters, ms=(time.perf_counter() - t) * 1e3,
+             finite=bool(all(np.isfinite(a).all() for a in split)))
+    if pid == 0:
+        whole = WindowTracker(m, iters=iters, device="cuda")(xys, rgbs)
+        d = np.abs(split[0] - whole[0])
+        w.update(max=float(d.max()), median=float(np.median(d)),
+                 p90=float(np.percentile(d, 90)), vis_max=float(np.abs(split[1] - whole[1]).max()),
+                 moved=float(np.abs(whole[0] - whole[0][:, :1]).max()))
+    out["windows"].append(w)
+out["end_s"] = time.perf_counter() - T0
+print("RESULT " + json.dumps(out), flush=True)
+'''
+
+
+def run_two_ranks(np) -> list:
+    """MESH_CHILD in two processes on the one card, joined over gloo; their
+    RESULT dicts by rank. Kills both on a timeout or a failure."""
+    import os
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    here = Path(__file__).resolve()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(here.parent), env.get("PYTHONPATH")]))
+    procs = [subprocess.Popen([sys.executable, "-c", MESH_CHILD, str(i), str(port), str(here)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              cwd=here.parent, env=env) for i in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MESH_CHILD_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        fail(f"mesh: the two ranks did not finish in {MESH_CHILD_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        lines = [line for line in out.splitlines() if line.startswith("RESULT ")]
+        if p.returncode != 0 or not lines:
+            fail(f"mesh: rank {i} exited {p.returncode}:\n{out[-4000:]}")
+        results.append(json.loads(lines[-1][len("RESULT "):]))
+    return results
+
+
+def phase_modules(torch, np, mixer_cuda, corr_cuda, root: Path) -> dict:
+    """14: the port's last modules. (a) phase 12's seeded weights written as a
+    JAX msgpack checkpoint, which ``load_params`` must give back bit for bit;
+    (b) ``demo.main`` and ``chain_demo.main`` (default, ``on_device`` and
+    ``stream``) at ``--bf16 true`` on DEMO_FRAMES seeded noise jpgs at
+    DEMO_HW, from that checkpoint: their GIFs written, every trajectory
+    finite and at its query on frame 0, 12 * 6 ``chan_ff_block`` launches a
+    window, ``stream`` within EXACT_PX of the default and ``on_device``
+    within phase 6's bounds; (c) ``parallel`` at world size 1 over NCCL: a
+    sharded bf16 step at the bench train shape against the one-process step
+    within PARITY, and ``run_davis --mesh auto`` on one video equal to
+    ``--mesh ''``; (d) two ranks on the card over gloo (``run_two_ranks``):
+    at meshes (2, 1) and (1, 2) the MESH_STEPS against the one-process step
+    on the same global batch: f32 (TF32 off) within MESH_F32, bf16 within
+    PARITY, at (2, 1) of ``split_step`` (held to the one-process step within
+    MESH_F32 in f32, and read beside it in bf16: what the split alone does);
+    a point-split f32 window within EXACT_PX of the unsplit one at one
+    iteration, within SIX_ITERS at six. Returns the launches and the
+    numbers."""
+    import torch.distributed as dist
+
+    from pips_tpu_torch import chain_demo, demo, grid_queries, make_pips
+    from pips_tpu_torch.evals import common, run_davis
+    from pips_tpu_torch.inference.window import WindowTracker
+    from pips_tpu_torch.parallel import (distributed_init, make_mesh, make_sharded_train_step,
+                                         shard_batch)
+    from pips_tpu_torch.train import make_optimizer, make_train_step
+
+    launched, numbers = {"chan_ff_block": 0, "chan_ff_bwd": 0}, {}
+    t0 = time.perf_counter()
+
+    # (a) a JAX checkpoint of the seeded weights, read back by the port
+    sd = seeded_weights(torch)
+    ckpt = write_jax_checkpoint(torch, np, sd, root / "jax_ckpt", 7).parent
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = common.load_params(common.make_pips(dtype="bfloat16"), str(ckpt)).state_dict()
+    read_s = time.perf_counter() - t
+    bad = [k for k in sd if not torch.equal(got[k].cpu(), sd[k])]
+    if sorted(got) != sorted(sd) or bad:
+        fail(f"modules: load_params of the JAX msgpack checkpoint differs at {bad[:5]}")
+    mb = (ckpt / "model-000000007.msgpack").stat().st_size / 1e6
+    log("modules", f"a JAX msgpack checkpoint ({len(sd)} leaves, {mb:.1f} MB) read by "
+                   f"load_params in {read_s:.2f} s, bit for bit")
+    numbers["msgpack read s"] = read_s
+
+    # (b) the demos on seeded noise jpgs
+    images = root / "jpgs"
+    images.mkdir()
+    rng = np.random.RandomState(31)
+    save_frames([(images / f"{i:05d}.jpg", data_frame(np, rng, *DEMO_HW))
+                 for i in range(DEMO_FRAMES)])
+
+    def run(main_fn, **kw):
+        """A demo's ``main`` on the jpgs; (its result, its windows' seconds,
+        chan_ff_block launches, seconds in all, seconds in load_params and in
+        write_gif)."""
+        mod = sys.modules[main_fn.__module__]
+        parts = {"load_params": [], "write_gif": []}
+        real = {name: getattr(mod, name) for name in parts}
+
+        def timed(name):
+            def call(*a, **k):
+                t = time.perf_counter()
+                out = real[name](*a, **k)
+                parts[name].append(time.perf_counter() - t)
+                return out
+            return call
+
+        torch.cuda.synchronize()
+        mixer_cuda.launches = 0
+        t = time.perf_counter()
+        try:
+            for name in parts:
+                setattr(mod, name, timed(name))
+            with timed_windows(torch, WindowTracker) as secs, \
+                    contextlib.redirect_stdout(io.StringIO()):
+                out = main_fn(init_dir=str(ckpt), images_dir=str(images), bf16=True,
+                              resize_hw=DEMO_RESIZE, **kw)
+            torch.cuda.synchronize()
+        finally:
+            for name, fn in real.items():
+                setattr(mod, name, fn)
+        return (out, secs, mixer_cuda.launches, time.perf_counter() - t,
+                sum(parts["load_params"]), sum(parts["write_gif"]))
+
+    window = DEPTH * ITERS
+    out, secs, n_ff, run_s, load_s, gif_s = run(demo.main, out_dir=str(root / "demo"),
+                                                max_chunks=DEMO_CHUNKS)
+    xys = grid_queries(*DEMO_RESIZE)[0]
+    gifs = sorted(p.name for p in (root / "demo").glob("*.gif"))
+    if len(secs) != DEMO_CHUNKS or n_ff != window * DEMO_CHUNKS or len(gifs) != DEMO_CHUNKS:
+        fail(f"demo: {len(secs)} windows, {n_ff} chan_ff_block launches, GIFs {gifs}")
+    for tr in out["trajs"]:
+        if not (np.isfinite(tr).all() and np.array_equal(tr[0], xys)):
+            fail("demo: a trajectory is not finite, or frame 0 is not at its query")
+    launched["chan_ff_block"] += n_ff
+    pf = len(xys) * 8 / statistics.median(out["seconds"])
+    log("modules", f"demo: {DEMO_CHUNKS} chunks of 8 at {DEMO_RESIZE}, {len(xys)} points, bf16: "
+                   f"{run_s:.2f} s (weights {load_s:.2f}, GIFs {gif_s:.2f}); windows "
+                   f"{', '.join(f'{s * 1e3:.1f}' for s in secs)} ms; {pf:.0f} points*frames/s; "
+                   f"{n_ff} chan_ff_block launches; GIFs {gifs}")
+    numbers.update({"demo s": run_s, "demo window_ms": [s * 1e3 for s in secs],
+                    "demo points*frames/s": pf})
+
+    qs = grid_queries(*DEMO_RESIZE, DEMO_CHAIN_GRID, DEMO_CHAIN_GRID)[0]
+    chains = {}
+    for mode in ("default", "on_device", "stream"):
+        out, secs, n_ff, run_s, load_s, gif_s = run(chain_demo.main,
+                                                    out_dir=str(root / f"chain_{mode}"),
+                                     grid=DEMO_CHAIN_GRID, max_frames=DEMO_FRAMES,
+                                     **({mode: True} if mode != "default" else {}))
+        trajs, vis = out["trajs"], out["vis"]
+        windows = n_ff // window if mode == "on_device" else len(secs)
+        if n_ff != window * windows or not windows:
+            fail(f"chain_demo {mode}: {n_ff} chan_ff_block launches for {windows} windows")
+        if trajs.shape != (DEMO_FRAMES, len(qs), 2) or not (
+                np.isfinite(trajs).all() and np.isfinite(vis).all()
+                and np.array_equal(trajs[0], qs)):
+            fail(f"chain_demo {mode}: shapes {trajs.shape}, or not finite, or frame 0 off its "
+                 f"query")
+        if not (root / f"chain_{mode}" / "chain_out.gif").is_file():
+            fail(f"chain_demo {mode}: no GIF")
+        launched["chan_ff_block"] += n_ff
+        chains[mode] = (trajs, vis)
+        pf = len(qs) * DEMO_FRAMES / out["seconds"]
+        numbers.update({f"chain_demo {mode} s": run_s,
+                        f"chain_demo {mode} track s": out["seconds"],
+                        f"chain_demo {mode} points*frames/s": pf})
+        log("modules", f"chain_demo {mode}: {DEMO_FRAMES} frames at {DEMO_RESIZE}, {len(qs)} "
+                       f"points, "
+                       f"bf16: {windows} windows, {n_ff} chan_ff_block launches; tracking "
+                       f"{out['seconds']:.3f} s ({pf:.0f} points*frames/s); {run_s:.2f} s in "
+                       f"all (weights {load_s:.2f}, GIF {gif_s:.2f})")
+    d_stream = drift(np, *chains["stream"], *chains["default"])
+    d_dev = drift(np, *chains["on_device"], *chains["default"])
+    log("modules", f"chain_demo stream vs default: {fmt(d_stream)}; on_device vs default: "
+                   f"{fmt(d_dev)}")
+    if d_stream["max"] > EXACT_PX or d_stream["vis_max"] > EXACT_PX:
+        fail(f"chain_demo --stream differs from the default beyond {EXACT_PX}: {d_stream}")
+    exact = d_dev["max"] <= EXACT_PX and d_dev["vis_max"] <= EXACT_PX
+    if not exact and not (d_dev["median"] < SIX_ITERS["median"] and d_dev["p90"] <
+                          SIX_ITERS["p90"] and d_dev["vis_median"] < SIX_ITERS["vis_median"]):
+        fail(f"chain_demo --on_device differs from the default beyond phase 6's bounds: {d_dev}")
+    if not exact:
+        log("modules", f"chain_demo --on_device: past {EXACT_PX} px but within {SIX_ITERS}: "
+                       f"the visibility rule took another start for some point")
+
+    # (c) world size 1 over NCCL
+    bf16 = torch.bfloat16
+    distributed_init(device="cuda")
+    probe = torch.ones(1, device="cuda")
+    dist.all_reduce(probe)
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1 or probe.item() != 1.0:
+        fail(f"mesh: a group of one over {dist.get_backend()}, all_reduce gave {probe.item()}")
+    try:
+        mesh = make_mesh((1, 1))
+        batch = train_batch(torch, np, TRAIN, seed=0)
+        models = [make_pips(device="cuda", seed=0, dtype=bf16, fuse_chanff=True).train()]
+        models.append(copy.deepcopy(models[0]))
+        opts = [make_optimizer(m.parameters(), lr=5e-4, num_steps=10) for m in models]
+        sharded = make_sharded_train_step(models[0], opts[0], mesh, iters=TRAIN["iters"],
+                                          horz_flip=False, vert_flip=False)
+        plain = make_train_step(models[1], opts[1], iters=TRAIN["iters"], horz_flip=False,
+                                vert_flip=False)
+        shard = shard_batch(mesh, batch)
+        runs = {"sharded": [], "plain": []}
+        for i in range(4):  # the first pair held against each other, all timed in turns
+            for name, fn, arg in (("sharded", sharded, shard), ("plain", plain, batch)):
+                zero_train_counts(mixer_cuda, corr_cuda)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                met = fn(arg)
+                torch.cuda.synchronize()
+                runs[name].append((time.perf_counter() - t) * 1e3)
+                got_n = train_counts(mixer_cuda, corr_cuda)
+                if got_n != step_launches(torch, bf16, TRAIN["iters"]):
+                    fail(f"mesh: the {name} step launched {TRAIN_KERNELS} {got_n} times")
+                if name == "sharded":
+                    launched["chan_ff_block"] += got_n[0]
+                    launched["chan_ff_bwd"] += got_n[1]
+                if i == 0:
+                    model = models[0 if name == "sharded" else 1]
+                    runs[f"{name} first"] = (met, {n: p.grad.detach().float().clone()
+                                                   for n, p in model.named_parameters()})
+        r = grad_parity(torch, runs["sharded first"], runs["plain first"])
+        bad = {k: r[k] for k, b in PARITY.items() if (r[k] > b if k == "loss_rel" else r[k] < b)}
+        ms = {k: statistics.median(runs[k][1:]) for k in ("sharded", "plain")}
+        log("modules", f"world size 1 over NCCL: sharded bf16 step (B={TRAIN['B']} N={TRAIN['N']} "
+                       f"I={TRAIN['iters']} {TRAIN['H']}x{TRAIN['W']}) vs the one-process step: "
+                       f"loss rel {r['loss_rel']:.3g}, global cos {r['global_cos']:.7f}, worst "
+                       f"leaf cos {r['leaf_cos']:.7f}; {ms['sharded']:.1f} ms vs {ms['plain']:.1f} "
+                       f"ms (median of 3, in turns)")
+        if bad:
+            fail(f"mesh: the sharded step differs from the one-process step beyond {PARITY}: {bad}")
+        numbers.update({"world 1 sharded step ms": ms["sharded"],
+                        "world 1 plain step ms": ms["plain"]})
+        del models, opts, sharded, plain, runs
+        torch.cuda.empty_cache()
+
+        make_davis_tree(np, root / "davis", videos=1)
+        trajs = {}
+        for arg in ("auto", ""):
+            mixer_cuda.launches = 0
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                trajs[arg] = run_davis.main(init_dir=str(ckpt), davis_dir=str(root / "davis"),
+                                            chunk=0, dtype="bfloat16", mesh=arg)["trajs"]
+            if mixer_cuda.launches != window:
+                fail(f"run_davis --mesh {arg!r}: {mixer_cuda.launches} chan_ff_block launches")
+            if arg:
+                launched["chan_ff_block"] += mixer_cuda.launches
+            numbers[f"run_davis mesh {arg!r} s"] = time.perf_counter() - t
+        d = float(np.abs(trajs["auto"] - trajs[""]).max())
+        log("modules", f"run_davis --mesh auto vs --mesh '' on one 8-frame video, "
+                       f"{EVAL_DAVIS_POINTS} points: max |diff| {d:.3g} px")
+        if not np.isfinite(trajs["auto"]).all() or d > EXACT_PX:
+            fail(f"run_davis --mesh auto differs from --mesh '' by {d} px")
+    finally:
+        dist.destroy_process_group()
+
+    # (d) two ranks on the card over gloo
+    t = time.perf_counter()
+    ranks = run_two_ranks(np)
+    bad = []
+
+    def cmp(r):
+        return (f"loss rel {r['loss_rel']:.3g}, global cos {r['global_cos']:.8f}, worst leaf cos "
+                f"in the encoder {r['encoder_cos']:.7f}, outside {r['mixer_cos']:.7f}")
+
+    def beyond(r, bounds):
+        return {b: r[b] for b, v in bounds.items() if (r[b] > v if b == "loss_rel" else r[b] < v)}
+
+    for dtype, w in ranks[0]["split_vs_one"].items():
+        log("modules", f"one process, no collective: the two B=1 halves' {dtype} step "
+                       f"(split_step) vs the B=2 step: {cmp(w)}; sample 0's encoder features "
+                       f"alone vs in the batch: max |diff| {w['encode_rel']:.3g} of their "
+                       f"largest value")
+        if dtype == "float32" and beyond(w, MESH_F32):
+            bad.append(f"split_step in f32 differs from the one-process step: "
+                       f"{beyond(w, MESH_F32)}")
+    one_vs_f32 = ranks[0]["single_vs_f32"]
+    for k, r in enumerate(ranks[0]["steps"]):
+        msg = (f"two ranks over gloo, mesh {tuple(r['shape'])}, {r['dtype']} step (B="
+               f"{MESH_TRAIN['B']} N={MESH_TRAIN['N']} I={r['iters']} {MESH_TRAIN['H']}x"
+               f"{MESH_TRAIN['W']}) vs the one-process step: {cmp(r)}")
+        f32 = r["dtype"] == "float32"
+        if "vs_split" in r:
+            msg += f"; vs split_step: {cmp(r['vs_split'])}"
+        off = beyond(r if f32 else r.get("vs_split", r), MESH_F32 if f32 else PARITY)
+        if not f32:
+            msg += f"; the one-process bf16 step vs the f32 one: {cmp(one_vs_f32[str(r['iters'])])}"
+        log("modules", f"{msg}; step {r['ms']:.1f} ms on rank 0, "
+                       f"{ranks[1]['steps'][k]['ms']:.1f} on rank 1, {r['peak_gb']:.2f} GB")
+        if off:
+            bad.append(f"mesh {r['shape']} {r['dtype']} I={r['iters']}: {off}")
+        label = f"gloo {r['dtype']} I={r['iters']} mesh {r['shape'][0]}x{r['shape'][1]} step ms"
+        numbers[label] = [rank["steps"][k]["ms"] for rank in ranks]
+    for k, w in enumerate(ranks[0]["windows"]):
+        log("modules", f"two ranks over gloo, point-split f32 window at (1, 2), N=256 at "
+                       f"{MESH_WINDOW_HW[0]}x{MESH_WINDOW_HW[1]}, I={w['iters']}, vs unsplit: traj "
+                       f"max {w['max']:.3g} px, median {w['median']:.3g}, p90 {w['p90']:.3g}; "
+                       f"vis max "
+                       f"{w['vis_max']:.3g} (the points moved up to {w['moved']:.3g} px); "
+                       f"{w['ms']:.1f} ms")
+        ok = (w["max"] <= EXACT_PX and w["vis_max"] <= EXACT_PX if w["iters"] == 1 else
+              w["median"] < SIX_ITERS["median"] and w["p90"] < SIX_ITERS["p90"])
+        if not (ok and all(rank["windows"][k]["finite"] for rank in ranks)):
+            bad.append(f"the point-split window at I={w['iters']} differs from the unsplit "
+                       f"one: {w}")
+        numbers[f"gloo window I={w['iters']} ms"] = w["ms"]
+    r0 = ranks[0]
+    log("modules", f"two ranks: {time.perf_counter() - t:.1f} s; in rank 0 ready (imports, CUDA, "
+                   f"the group, the batch) at {r0['ready_s']:.1f} s, models built at "
+                   f"{', '.join(f'{v:.1f}' for v in r0['built_s'])} s, one-process steps done at "
+                   f"{', '.join(f'{v:.1f}' for v in r0['ref_s'])} s, the mesh steps at "
+                   f"{', '.join(f'{v['at_s']:.1f}' for v in r0['steps'])} s, the windows at "
+                   f"{r0['end_s']:.1f} s")
+    if bad:
+        fail("; ".join(bad))
+    numbers["phase_s"] = time.perf_counter() - t0
+    return dict(launched=launched, **numbers)
 
 
 def check_window(np, name, trajs, vis, xys, S: int = 8) -> None:
@@ -3740,6 +4290,17 @@ def main() -> int:
             f"{evals[f'davis bf16 chunk {c} steady_tps']:.0f} "
             f"({evals[f'davis bf16 chunk {c} tps']:.0f}) at chunk {c}" for c in EVAL_DAVIS_CHUNKS))
 
+    # 14. the last modules: the JAX checkpoint reader, the demos and parallel/
+    modules_root = Path(tempfile.mkdtemp(prefix="chip_smoke_modules_", dir=build_dir))
+    try:
+        zero_counts()
+        modules = phase_modules(torch, np, mixer_cuda, corr_cuda, modules_root)
+    finally:
+        shutil.rmtree(modules_root, ignore_errors=True)
+    for k, n in modules.pop("launched").items():
+        main_path[k] += n
+    log("modules", f"{smi}: phase 14 {modules['phase_s']:.1f} s")
+
     log("baselines", f"{smi}: phase 13 {baselines['phase_s']:.1f} s; " + "; ".join(
         f"{name} {baselines[f'{name} s']:.2f} s, window first "
         f"{baselines[f'{name} first_window_ms']:.1f} ms, then "
@@ -3808,7 +4369,7 @@ def main() -> int:
                 f"(chained video {chain_s:.2f} s; windows {json.dumps(window_ms)}; "
                 f"training default {json.dumps(train_default)}; f32 {json.dumps(train_f32)}; "
                 f"Pips2 {json.dumps(pips2)}; data {json.dumps(data)}; evals {json.dumps(evals)}; "
-                f"baselines {json.dumps(baselines)})")
+                f"baselines {json.dumps(baselines)}; modules {json.dumps(modules)})")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

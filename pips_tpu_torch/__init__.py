@@ -14,8 +14,7 @@ from pips_tpu_torch.inference import (ChainTracker, ChainTrackerOnDevice, FlowCh
 from pips_tpu_torch.kernels.corr_cuda import corr_sample
 from pips_tpu_torch.models.pips import Pips, PipsOutput, init_params, make_pips
 from pips_tpu_torch.models.pips2 import Pips2
-
-__version__ = "0.1.0"  # the JAX package's version, kept here as its own copy
+from pips_tpu_torch.version import __version__
 
 __all__ = ["ChainTracker", "ChainTrackerOnDevice", "FlowChainTracker", "FrameFeed", "Pips",
            "Pips2", "PipsOutput", "WindowTracker", "__version__", "as_feed", "corr_sample",

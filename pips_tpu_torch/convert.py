@@ -17,7 +17,8 @@ The port names its modules after the flax tree, so a leaf maps by path:
 
 The tree is the same with and without ``fuse_chanff`` (the fused blocks'
 ``_LNParams``/``_ChanFFParams`` mirror ``LN``/``ChannelMixFF``), so one bridge
-serves both. Arrays are numpy; every leaf is used exactly once.
+serves both. Leaves are numpy arrays or CPU tensors (a bfloat16 tensor widens
+to f32 exactly); every leaf is used exactly once.
 """
 
 from __future__ import annotations
@@ -30,12 +31,19 @@ import torch
 _CONV = "Conv_0"
 
 
+def _leaf(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):  # e.g. utils.flax_msgpack's leaves; bf16 widens exactly
+        v = v.detach().cpu()
+        return (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+    return np.asarray(v)
+
+
 def _flatten(tree: Mapping[str, Any], prefix: tuple = ()):
     for k, v in tree.items():
         if isinstance(v, Mapping):
             yield from _flatten(v, prefix + (k,))
         else:
-            yield prefix + (k,), np.asarray(v)
+            yield prefix + (k,), _leaf(v)
 
 
 _PARAM_LEAVES = ("kernel", "bias", "scale", "cls_token", "pos_embed")

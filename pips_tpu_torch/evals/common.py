@@ -1,8 +1,8 @@
 """Shared eval-runner utilities (counterpart of ``pips_tpu/evals/common.py``):
-the eval model factory, weight loading (the port's checkpoints or the
-reference's ``model-*.pth``), the RAFT and DINO baseline trackers, host-side
-resizing that matches the JAX runners' preprocessing, the shared PIPs window
-tracker and the eval media.
+the eval model factory, weight loading (the port's checkpoints, the JAX
+package's or the reference's ``model-*.pth``), the RAFT and DINO baseline
+trackers, host-side resizing that matches the JAX runners' preprocessing,
+the shared PIPs window tracker and the eval media.
 
 Every entry point runs on CUDA unless the caller passes ``device="cpu"``;
 without a card it raises (``models.pips.resolve_device``) and never falls
@@ -23,7 +23,7 @@ from pips_tpu_torch.convert import load_flax_params
 from pips_tpu_torch.inference.window import WindowTracker
 from pips_tpu_torch.models.pips import Pips, init_params, resolve_device
 from pips_tpu_torch.train.config import resolve_dtype, resolve_fuse_chanff
-from pips_tpu_torch.utils import saverloader
+from pips_tpu_torch.utils import flax_msgpack, saverloader
 
 
 def make_pips(S: int = 8, stride: int = 8, dtype: str = "float32", device="cuda") -> Pips:
@@ -41,9 +41,11 @@ def make_pips(S: int = 8, stride: int = 8, dtype: str = "float32", device="cuda"
 def load_params(model: Pips, init_dir: str) -> Pips:
     """Load weights into ``model`` in place and return it, from a directory
     of the port's ``model-*.pt`` checkpoints (the ``"model"`` entry of a
-    train-loop payload, or a bare state dict), a reference ``model-*.pth``
-    file or a directory of them, or ``"random"`` for ``init_params(seed 0)``
-    (smoke runs); raises with guidance otherwise."""
+    train-loop payload, or a bare state dict), a directory of the JAX
+    package's ``model-*.msgpack`` checkpoints (a train state's ``params``, or
+    a bare ``{"params": ...}`` variables tree, at the largest step), a
+    reference ``model-*.pth`` file or a directory of them, or ``"random"``
+    for ``init_params(seed 0)`` (smoke runs); raises with guidance otherwise."""
     if init_dir == "random":
         print("warning: using randomly initialized weights (smoke mode)")
         return init_params(model, 0)
@@ -53,6 +55,16 @@ def load_params(model: Pips, init_dir: str) -> Pips:
         # strict: names every missing, unexpected or mis-shaped entry
         model.load_state_dict(raw["model"] if isinstance(raw.get("model"), Mapping) else raw)
         print(f"loaded pips_tpu_torch checkpoint at step {step} from {init_dir}")
+        return model
+
+    if os.path.isdir(init_dir) and flax_msgpack.list_steps(init_dir):
+        raw, step = flax_msgpack.load_raw(init_dir)
+        variables = raw["params"] if {"opt_state", "step"} <= set(raw) else raw
+        if not isinstance(variables, Mapping) or "params" not in variables:
+            raise ValueError(f"checkpoint in {init_dir} has no 'params' sub-tree "
+                             f"(top-level keys: {sorted(raw)})")
+        load_flax_params(model, variables)  # strict, as flax's from_state_dict
+        print(f"loaded pips_tpu checkpoint at step {step} from {init_dir}")
         return model
 
     pths = []
@@ -66,12 +78,8 @@ def load_params(model: Pips, init_dir: str) -> Pips:
         depth = model.delta_block.to_delta.depth
         return load_flax_params(model, {"params": load_torch_checkpoint(pths[-1], depth)})
 
-    hint = ""
-    if os.path.isdir(init_dir) and glob.glob(os.path.join(init_dir, "model-*.msgpack")):
-        hint = ("; the JAX package's msgpack checkpoints are not read by the port "
-                "(ROADMAP A5 follow-up)")
-    raise FileNotFoundError(
-        f"no checkpoint found at {init_dir} (expected model-*.pt or model-*.pth){hint}")
+    raise FileNotFoundError(f"no checkpoint found at {init_dir} "
+                            f"(expected model-*.pt, model-*.msgpack or model-*.pth)")
 
 
 DINO_RELEASE_FILE = "dino_deitsmall8_pretrain.pth"

@@ -19,6 +19,7 @@ from pips_tpu_torch.data.pfm import read_image
 from pips_tpu_torch.evals.common import load_params, resize_video_half_pixel
 from pips_tpu_torch.inference.window import WindowTracker, dense_queries
 from pips_tpu_torch.models.pips import resolve_device
+from pips_tpu_torch.parallel.mesh import parse_mesh_arg
 
 
 def main(init_dir: str = "checkpoints/ref", davis_dir: str = "/data/davis",
@@ -30,14 +31,13 @@ def main(init_dir: str = "checkpoints/ref", davis_dir: str = "/data/davis",
     (the reference's GPU workaround, ``test_on_davis.py:111``). chunk>0 keeps
     the reference-style loop, the last chunk padded to the chunk's size.
 
-    ``--mesh`` (the JAX runner's point-sharded multi-device serving) is not
-    ported: any value but ``""`` raises ``NotImplementedError`` naming
-    ROADMAP A7."""
-    if mesh:
-        raise NotImplementedError(
-            f"--mesh {mesh!r}: multi-device serving is not ported to pips_tpu_torch yet "
-            f"(ROADMAP A7); run with --mesh ''")
+    ``--mesh auto`` (or ``--mesh D,P``) splits the query points over the
+    processes of the group (``parallel.parse_mesh_arg``; launch one process
+    a device, e.g. with ``torchrun``), each tracking its slice of every
+    chunk; best combined with ``--chunk 0``. Every process returns all the
+    points' results."""
     resolve_device(device)
+    tracker_mesh = parse_mesh_arg(mesh, device)  # joins the group before the model is placed
     from pips_tpu_torch.evals.common import make_pips
     model = load_params(make_pips(S=S, stride=stride, dtype=dtype, device=device), init_dir)
 
@@ -45,7 +45,8 @@ def main(init_dir: str = "checkpoints/ref", davis_dir: str = "/data/davis",
     if not video_dirs:
         raise FileNotFoundError(f"no DAVIS videos under {davis_dir}")
 
-    tracker = WindowTracker(model, iters=iters, corr_mode="onehot", device=device)
+    tracker = WindowTracker(model, iters=iters, corr_mode="onehot", device=device,
+                            mesh=tracker_mesh)
 
     H_, W_ = resize_hw
     all_tps = []

@@ -86,18 +86,23 @@ class ChainTracker:
     offset, in [1, S-1]; the default is ``select_skip``. ``record_starts``
     keeps each point's window starts in ``last_window_starts``. ``S`` is the
     window length: ``Pips`` fixes it (``model.S``), the S-agnostic ``Pips2``
-    takes any (``S=``, default 8), as in JAX.
+    takes any (``S=``, default 8), as in JAX. With a ``mesh``
+    (``parallel.make_mesh``), every window's points are split over the
+    mesh's processes (``WindowTracker``'s ``mesh``); each process runs the
+    same schedule on the joined results.
     """
 
     def __init__(self, model: Pips | Pips2, iters: int = 6, capacity: int = 256,
                  corr_mode: str = "onehot", encode_chunk: int = 8, select_fn=None,
-                 S: Optional[int] = None, record_starts: bool = False, device="cuda"):
+                 S: Optional[int] = None, record_starts: bool = False, device="cuda",
+                 mesh=None):
         self.record_starts = record_starts
         self.S = S or getattr(model, "S", 8)
         self.capacity = capacity
         self.encode_chunk = encode_chunk
         self.select_fn = select_fn or select_skip
-        self.tracker = WindowTracker(model, iters=iters, corr_mode=corr_mode, device=device)
+        self.tracker = WindowTracker(model, iters=iters, corr_mode=corr_mode, device=device,
+                                     mesh=mesh)
         self.last_window_starts = None
         self.stream_peak_chunks = 0
 

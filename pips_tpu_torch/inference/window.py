@@ -1,6 +1,7 @@
 """Single-window inference (counterpart of ``pips_tpu/inference/window.py``).
 
-One eval-mode forward over an S-frame window per call; no mesh.
+One eval-mode forward over an S-frame window per call; with a mesh, each
+process tracks its slice of the points.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 from pips_tpu_torch.models.pips import CORR_MODES, Pips, resolve_device
 from pips_tpu_torch.models.pips2 import Pips2
 from pips_tpu_torch.ops.grids import gridcloud2d
+from pips_tpu_torch.parallel.mesh import gather_points, point_shard
 
 
 def grid_queries(H: int, W: int, grid_y: int = 16, grid_x: int = 16,
@@ -36,10 +38,17 @@ class WindowTracker:
     ``corr_mode`` is one of ``models.pips.CORR_MODES``; ``"pallas"`` runs the
     CUDA corr kernel on the card. ``use_fused_corr`` is the JAX package's older
     switch: when given, True means ``"fused"`` and False ``"full"``.
+
+    With a ``mesh`` (``parallel.make_mesh``; every process of the group calls
+    the tracker alike) each process tracks its slice of the points through
+    the whole window, the point axis padded to a multiple of the mesh's size
+    by repeating the last point, and every process gets all the points'
+    results; ``encode`` runs whole on each process. The points are
+    independent, so the results are the unsplit tracker's.
     """
 
     def __init__(self, model: Pips | Pips2, iters: int = 6, corr_mode: str = "onehot",
-                 use_fused_corr: Optional[bool] = None, device="cuda"):
+                 use_fused_corr: Optional[bool] = None, device="cuda", mesh=None):
         if use_fused_corr is not None:
             corr_mode = "fused" if use_fused_corr else "full"
         if corr_mode not in CORR_MODES:
@@ -48,6 +57,16 @@ class WindowTracker:
         self.model = model.to(self.device).eval()
         self.iters = iters
         self.corr_mode = corr_mode
+        self.mesh = mesh
+
+    def _split(self, x: torch.Tensor) -> tuple[torch.Tensor, int]:
+        """This process's share of the point axis (1) of x, and the point count."""
+        if self.mesh is None:
+            return x, x.shape[1]
+        return point_shard(x, self.mesh, dim=1)
+
+    def _join(self, x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+        return x if self.mesh is None else gather_points(x, self.mesh, dim, n)
 
     def _in(self, a) -> torch.Tensor:
         return torch.as_tensor(a, dtype=torch.float32).to(self.device)
@@ -56,10 +75,11 @@ class WindowTracker:
     def __call__(self, xys, rgbs):
         """xys: (B, N, 2); rgbs: (B, S, H, W, 3) in [0, 255].
         Returns numpy (trajs (B, S, N, 2), vis logits (B, S, N))."""
-        out = self.model(self._in(xys), self._in(rgbs), iters=self.iters,
+        xys, n = self._split(self._in(xys))
+        out = self.model(xys, self._in(rgbs), iters=self.iters,
                          is_train=False, corr_mode=self.corr_mode)
-        return (out.coord_predictions[-1].float().cpu().numpy(),
-                out.vis_e.float().cpu().numpy())
+        return (self._join(out.coord_predictions[-1], 2, n).float().cpu().numpy(),
+                self._join(out.vis_e, 2, n).float().cpu().numpy())
 
     @torch.inference_mode()
     def encode(self, rgbs) -> torch.Tensor:
@@ -78,8 +98,10 @@ class WindowTracker:
             fmaps = (torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
                      if a.dtype.name == "bfloat16" else torch.from_numpy(a))
         fmaps = fmaps.to(self.device)
+        xys, n = self._split(self._in(xys))
         if feat_init is not None:
-            feat_init = self._in(feat_init)
-        out = self.model.track(fmaps, self._in(xys), feat_init=feat_init, iters=self.iters,
+            feat_init = self._split(self._in(feat_init))[0]
+        out = self.model.track(fmaps, xys, feat_init=feat_init, iters=self.iters,
                                is_train=False, corr_mode=self.corr_mode)
-        return out.coord_predictions[-1], out.vis_e, out.ffeat
+        return (self._join(out.coord_predictions[-1], 2, n), self._join(out.vis_e, 2, n),
+                self._join(out.ffeat, 1, n))

@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from pips_tpu_torch.ops.reduce import EPS, reduce_masked_mean
+from pips_tpu_torch.ops.reduce import EPS, mask_count, reduce_masked_mean
 
 
 def balanced_ce_loss(pred: torch.Tensor, gt: torch.Tensor, valid=None):
@@ -66,7 +66,7 @@ def score_map_loss_single_iter(fcp: torch.Tensor, trajs_g: torch.Tensor,
     gt_val = torch.einsum("bsnhw,bsnh,bsnw->bsn", fcp, oh_y, oh_x)
     pos = F.softplus(-gt_val)
     neg_sum = sum_sp - F.softplus(gt_val)
-    n_sel = sel.sum()
+    n_sel = mask_count(sel.sum())
     return ((pos * sel).sum() / (EPS + n_sel)
             + (neg_sum * sel).sum() / (EPS + n_sel * (H8 * W8 - 1)))
 

@@ -3,9 +3,36 @@
 
 from __future__ import annotations
 
+import contextlib
+from contextvars import ContextVar
+from typing import Callable, Iterator, Optional
+
 import torch
 
 EPS = 1e-6
+
+_SUM_OVER_PROCESSES: ContextVar[Optional[Callable[[torch.Tensor], torch.Tensor]]] = ContextVar(
+    "sum_over_processes", default=None)
+
+
+@contextlib.contextmanager
+def denominators_summed(fn: Callable[[torch.Tensor], torch.Tensor]) -> Iterator[None]:
+    """Inside the block every masked mean's denominator is ``fn(local sum)``:
+    ``parallel.global_masked_means`` sums it over the processes that share a
+    batch, so that each process's sum of masked values over the global
+    denominator adds up, over the processes, to the mean of the whole batch."""
+    token = _SUM_OVER_PROCESSES.set(fn)
+    try:
+        yield
+    finally:
+        _SUM_OVER_PROCESSES.reset(token)
+
+
+def mask_count(mask_sum: torch.Tensor) -> torch.Tensor:
+    """A masked mean's denominator: the local sum, or its sum over the
+    processes inside ``denominators_summed``."""
+    fn = _SUM_OVER_PROCESSES.get()
+    return mask_sum if fn is None else fn(mask_sum)
 
 
 def reduce_masked_mean(x: torch.Tensor, mask: torch.Tensor, axis=None,
@@ -17,8 +44,9 @@ def reduce_masked_mean(x: torch.Tensor, mask: torch.Tensor, axis=None,
         if keepdims:
             axis = tuple(range(x.dim()))
         else:
-            return prod.sum() / (EPS + mask.sum())
-    return prod.sum(dim=axis, keepdim=keepdims) / (EPS + mask.sum(dim=axis, keepdim=keepdims))
+            return prod.sum() / (EPS + mask_count(mask.sum()))
+    return prod.sum(dim=axis, keepdim=keepdims) / (
+        EPS + mask_count(mask.sum(dim=axis, keepdim=keepdims)))
 
 
 def normalize_single(d: torch.Tensor) -> torch.Tensor:

@@ -71,8 +71,8 @@ class TrainConfig:
     load_optimizer: bool = False
     load_step: bool = False
     ignore_load: Optional[str] = None
-    # device: data-parallel meshes and multi-host runs (ROADMAP A7) are refused
-    # by the loop; None and (1, 1) are one device
+    # devices: one process a device over a (data, point) mesh (train.loop.join_mesh);
+    # None and (1, 1) are one process unless a launcher started more
     mesh_shape: Optional[Sequence[int]] = None
     multihost: bool = False
     coordinator: str = ""

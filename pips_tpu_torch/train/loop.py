@@ -12,14 +12,22 @@ auto-resume. Runs on CUDA unless the caller passes ``device="cpu"``.
 refiner ``mixer_dim`` wide and ``mixer_depth`` deep, as the JAX loop builds it.
 ``dataset`` is ``flyingthings`` (FlyingThings++, the default), ``pointodyssey``
 or ``synthetic``; validation reads FlyingThings++'s TEST split and
-PointOdyssey's ``val``. Not ported yet, and refused with the ROADMAP item that
-brings them: data-parallel or multi-host runs (A7, parallel). The JAX loop's
-compile cache has no counterpart: PyTorch runs eagerly.
+PointOdyssey's ``val``. Several processes, one a device, train one model
+over a (data, point) mesh (``--mesh_shape``, ``--num_processes``,
+``--coordinator``, ``--process_id``, ``--multihost``, or ``torchrun``; see
+``join_mesh`` and ``parallel``):
+
+    torchrun --nproc_per_node 2 -m pips_tpu_torch.train.loop --mesh_shape 2,1 ...
+
+``--init_dir`` also warm-starts from the JAX package's ``model-*.msgpack``
+checkpoints (``warm_start_from_jax``). The JAX loop's compile cache has no
+counterpart: PyTorch runs eagerly.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import sys
 import time
@@ -27,16 +35,23 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
+from pips_tpu_torch.convert import flax_from_state_dict, load_flax_params, state_dict_from_flax
 from pips_tpu_torch.data import (DevicePrefetcher, FlyingThingsDataset, PointOdysseyDataset,
                                   SyntheticPointDataset, batch_iterator)
 from pips_tpu_torch.models.pips import Pips, init_params, resolve_device
 from pips_tpu_torch.models.pips2 import Pips2
+from pips_tpu_torch.parallel.mesh import (default_mesh_shape, distributed_init,
+                                          global_masked_means, local_world_size,
+                                          make_hybrid_mesh, make_mesh, make_sharded_train_step,
+                                          rank_values, replicate, shard_batch, sum_metrics)
 from pips_tpu_torch.train.config import (TrainConfig, parse_cli, resolve_dtype,
                                          resolve_fuse_chanff)
 from pips_tpu_torch.train.optim import Optimizer, make_optimizer
 from pips_tpu_torch.train.step import make_train_step, train_loss_fn
-from pips_tpu_torch.utils import SimplePool, saverloader
+from pips_tpu_torch.utils import SimplePool, flax_msgpack, saverloader
 from pips_tpu_torch.utils.logging import MetricWriter
 
 METRIC_KEYS = ("total_loss", "seq", "vis", "ce", "ate_all", "ate_vis", "ate_occ")
@@ -59,13 +74,6 @@ def build_dataset(cfg: TrainConfig, split: str = "train"):
             dset="train" if split == "train" else "val",
             use_augs=cfg.use_augs, N=cfg.N, S=cfg.S, crop_size=tuple(cfg.crop_size))
     raise ValueError(f"unknown dataset {cfg.dataset!r}")
-
-
-def _refuse_unported(cfg: TrainConfig) -> None:
-    mesh = None if cfg.mesh_shape is None else tuple(cfg.mesh_shape)
-    if cfg.multihost or cfg.num_processes > 1 or mesh not in (None, (1, 1)):
-        raise NotImplementedError("multi-device and multi-host training are not ported yet "
-                                  "(ROADMAP A7, parallel); run with mesh_shape None or (1, 1)")
 
 
 def init_state(cfg: TrainConfig, device="cuda", seed: int = 0) -> tuple[Pips | Pips2, Optimizer]:
@@ -107,6 +115,9 @@ def restore(cfg: TrainConfig, model: Pips, opt: Optimizer, ckpt_dir: str) -> int
         opt.load_state_dict(state["optimizer"])
         print(f"auto-resumed from {ckpt_dir} at step {step}")
         return step
+    if cfg.init_dir and not saverloader.list_steps(cfg.init_dir) \
+            and flax_msgpack.list_steps(cfg.init_dir):
+        return warm_start_from_jax(cfg, model, opt)
     if cfg.init_dir:
         target = {"model": model.state_dict()}
         if cfg.load_optimizer:
@@ -117,6 +128,79 @@ def restore(cfg: TrainConfig, model: Pips, opt: Optimizer, ckpt_dir: str) -> int
             opt.load_state_dict(state["optimizer"])
         return step if cfg.load_step else 0
     return 0
+
+
+def _optax_chain(opt_state) -> tuple[dict, dict]:
+    """(adam, schedule) states of the JAX loop's optax chain
+    (``pips_tpu/train/optim.py:make_optimizer``): clip_by_global_norm, then
+    adamw's scale_by_adam, add_decayed_weights and scale_by_learning_rate,
+    serialized by flax with tuples as maps keyed "0", "1", ...:
+    ``{"0": {}, "1": {"0": {count, mu, nu}, "1": {}, "2": {count}}}``."""
+    try:
+        adam, decay, schedule = (opt_state["1"][k] for k in "012")
+        ok = (set(opt_state) == {"0", "1"} and opt_state["0"] == {} and decay == {}
+              and set(opt_state["1"]) == {"0", "1", "2"} and set(adam) == {"count", "mu", "nu"}
+              and set(schedule) == {"count"})
+    except (KeyError, TypeError):
+        ok = False
+    if not ok:
+        raise ValueError("the checkpoint's opt_state is not the JAX loop's clip -> adamw chain")
+    return adam, schedule
+
+
+def _keep_ignored(tree, target, path: str, ignore: list[str]):
+    """``tree`` with each leaf whose JAX key path (``jax.tree_util.keystr``)
+    holds one of the ``ignore`` substrings taken from ``target``."""
+    if not ignore:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _keep_ignored(v, target[k], f"{path}['{k}']", ignore) for k, v in tree.items()}
+    if any(ig in path for ig in ignore):
+        print(f"-- ignoring load of {path}")
+        return target
+    return tree
+
+
+def warm_start_from_jax(cfg: TrainConfig, model: Pips, opt: Optimizer) -> int:
+    """Warm start from the largest step of ``cfg.init_dir``, a directory of the
+    JAX package's ``model-*.msgpack`` checkpoints, as its loop does
+    (``pips_tpu/train/loop.py:140-155``): the parameters, and with
+    ``load_optimizer`` the optax moments, Adam count and schedule position
+    (``Optimizer.load_optax_state``); leaves whose JAX key path
+    (``.params['params']['fnet']...``, ``.opt_state[1][0].mu[...]``, or
+    ``['params'][...]`` without the optimizer) holds an ``ignore_load``
+    substring keep their fresh values (parameters from the init, moments and
+    counts 0). Returns the checkpoint's step with ``load_step``, else 0.
+
+    Without ``load_optimizer`` the parameters come from a bare variables tree
+    or from a train state's ``params``; the JAX loop takes only the former."""
+    raw, step = flax_msgpack.load_raw(cfg.init_dir)
+    full = isinstance(raw, dict) and {"opt_state", "step", "params"} <= set(raw)
+    if cfg.load_optimizer and not full:
+        raise ValueError(f"load_optimizer: the checkpoint in {cfg.init_dir} holds no train "
+                         f"state (top-level keys {sorted(raw)})")
+    ignore = [cfg.ignore_load] if isinstance(cfg.ignore_load, str) else list(cfg.ignore_load or [])
+    fresh = flax_from_state_dict(model.state_dict())
+    prefix = ".params" if cfg.load_optimizer else ""
+    variables = raw["params"] if full else raw
+    load_flax_params(model, _keep_ignored(variables, fresh, prefix, ignore))
+    if cfg.load_optimizer:
+        adam, schedule = _optax_chain(raw["opt_state"])
+        zeros = {"params": _zeros_like(fresh["params"])}
+        moments = [state_dict_from_flax(_keep_ignored(adam[k], zeros,
+                                                      f".opt_state[1][0].{k}", ignore))
+                   for k in ("mu", "nu")]
+        counts = [int(_keep_ignored(c, 0, path, ignore)) for c, path in
+                  ((adam["count"], ".opt_state[1][0].count"),
+                   (schedule["count"], ".opt_state[1][2].count"))]
+        opt.load_optax_state(dict(model.named_parameters()), *moments, *counts)
+    print(f"warm-started from the JAX checkpoint in {cfg.init_dir} at step {step}")
+    return step if cfg.load_step else 0
+
+
+def _zeros_like(tree):
+    return ({k: _zeros_like(v) for k, v in tree.items()} if isinstance(tree, dict)
+            else np.zeros_like(tree))
 
 
 def _host(metrics: dict) -> dict:
@@ -153,47 +237,110 @@ def _log_media(model: Pips, cfg: TrainConfig, vis_batch, writer: MetricWriter,
             fcps, preds[:, 0, :, 0], trajs_g=vb["trajs"][0, :, 0], stride=cfg.stride)))
 
 
+def join_mesh(cfg: TrainConfig, device) -> tuple[Optional[DeviceMesh], int]:
+    """(mesh, hosts) for ``cfg``: (None, 1) for a lone process with no mesh
+    asked. Otherwise the process joins the group (``--coordinator``,
+    ``--num_processes``, ``--process_id``, or a launcher's environment) and
+    the mesh holds its processes, one per device: ``--mesh_shape``, by
+    default ``default_mesh_shape``; with ``--multihost`` the hosts stack on
+    the data axis (``make_hybrid_mesh``, each host's block ``--mesh_shape``,
+    by default its processes on the data axis) and ``hosts`` counts them."""
+    shape = None if cfg.mesh_shape is None else tuple(cfg.mesh_shape)
+    if not (cfg.multihost or cfg.num_processes > 1 or dist.is_initialized()
+            or int(os.environ.get("WORLD_SIZE", 1)) > 1
+            or (shape is not None and math.prod(shape) > 1)):
+        return None, 1
+    distributed_init(cfg.coordinator or None, cfg.num_processes or None, cfg.process_id,
+                     device=device)
+    world = dist.get_world_size()
+    if cfg.multihost:
+        hosts = max(world // local_world_size(), 1)
+        return make_hybrid_mesh(shape or (local_world_size(), 1), hosts, device), hosts
+    return make_mesh(shape or default_mesh_shape(world, cfg.B, cfg.N), device), 1
+
+
+def _shards(it, mesh: DeviceMesh, grad_acc: int, hosts: int):
+    """This process's ``shard_batch`` slice of each batch of ``it``."""
+    try:
+        for batch in it:
+            yield shard_batch(mesh, batch, grad_acc, hosts)
+    finally:
+        it.close()
+
+
 def train(cfg: Optional[TrainConfig] = None, device="cuda") -> dict:
-    """Train ``cfg``'s model; returns the last synced metrics (floats)."""
+    """Train ``cfg``'s model; returns the last synced metrics (floats).
+
+    With a mesh (``join_mesh``) every process runs this loop: it loads the
+    whole batch (with ``--multihost`` its host's, seeded ``125 + 1000 *
+    host`` as the JAX loop seeds each host) and trains on its slice through
+    ``make_sharded_train_step``; process 0 alone logs, renders media and
+    writes checkpoints, and every process checks that all resumed at the
+    same step."""
     cfg = cfg or TrainConfig()
     if cfg.quick:  # smoke mode
         cfg = dataclasses.replace(cfg, B=1, N=16, max_iters=20, crop_size=(128, 192),
                                   use_augs=False, dataset="synthetic", log_freq=10,
                                   val_freq=10, save_freq=10, mesh_shape=(1, 1))
-    _refuse_unported(cfg)
     device = resolve_device(device)
+    mesh, hosts = join_mesh(cfg, device)
+    if device.type == "cuda":  # the card distributed_init gave this process
+        device = torch.device("cuda", torch.cuda.current_device())
+    rank = dist.get_rank() if mesh is not None else 0
+    is_main = rank == 0
 
     name = cfg.model_name()
-    print("model_name", name)
+    if is_main:
+        print("model_name", name)
     model, opt = init_state(cfg, device)
     ckpt_dir = f"{cfg.ckpt_dir}/{name}"
     global_step = restore(cfg, model, opt, ckpt_dir)
-    if global_step >= cfg.max_iters:
+    if mesh is not None:
+        # checkpoints come from process 0 alone, so every process must read
+        # the same ckpt_dir; a divergent resume would mix restored and fresh
+        # parameters and run different step counts into the collectives
+        steps = rank_values(global_step, device)
+        if min(steps) != max(steps):
+            raise RuntimeError(
+                "auto-resume divergence: processes found checkpoint steps "
+                f"{sorted(set(int(s) for s in steps))}; ckpt_dir must be a "
+                "filesystem shared by all hosts")
+        replicate(model)
+    if global_step >= cfg.max_iters and is_main:
         print(f"{ckpt_dir} is already at step {global_step} >= max_iters={cfg.max_iters}; "
               f"nothing to train (pass --auto_resume false or a new --exp_name to start fresh)")
 
-    step_fn = make_train_step(model, opt, iters=cfg.I, horz_flip=cfg.horz_flip,
-                              vert_flip=cfg.vert_flip, grad_acc=cfg.grad_acc, remat=cfg.remat,
-                              sync_metrics=False, use_fused_corr=cfg.use_fused_corr)
-    seed0 = 125  # the JAX loop's, for its process 0
-    train_it = DevicePrefetcher(
-        batch_iterator(build_dataset(cfg, "train"), cfg.B, shuffle=cfg.shuffle, seed=seed0,
-                       grad_acc=cfg.grad_acc, num_workers=cfg.num_workers,
-                       use_processes=cfg.loader_processes),
-        device=device)
+    if mesh is None:
+        step_fn = make_train_step(model, opt, iters=cfg.I, horz_flip=cfg.horz_flip,
+                                  vert_flip=cfg.vert_flip, grad_acc=cfg.grad_acc, remat=cfg.remat,
+                                  sync_metrics=False, use_fused_corr=cfg.use_fused_corr)
+    else:
+        step_fn = make_sharded_train_step(
+            model, opt, mesh, iters=cfg.I, horz_flip=cfg.horz_flip, vert_flip=cfg.vert_flip,
+            grad_acc=cfg.grad_acc, use_fused_corr=cfg.use_fused_corr, remat=cfg.remat,
+            sync_metrics=False)
+    # the JAX loop's seed for each host's loader
+    seed0 = 125 + 1000 * (rank // local_world_size() if cfg.multihost else 0)
+
+    def feed(it, grad_acc: int) -> DevicePrefetcher:
+        return DevicePrefetcher(it if mesh is None else _shards(it, mesh, grad_acc, hosts),
+                                device=device)
+
+    train_it = feed(batch_iterator(build_dataset(cfg, "train"), cfg.B, shuffle=cfg.shuffle,
+                                   seed=seed0, grad_acc=cfg.grad_acc,
+                                   num_workers=cfg.num_workers,
+                                   use_processes=cfg.loader_processes), cfg.grad_acc)
     val_it = None
     if cfg.val_freq > 0:
-        val_it = DevicePrefetcher(
-            batch_iterator(build_dataset(cfg, "val"), cfg.B, shuffle=True, seed=seed0,
-                           num_workers=max(cfg.num_workers // 2, 1)),
-            device=device)
+        val_it = feed(batch_iterator(build_dataset(cfg, "val"), cfg.B, shuffle=True, seed=seed0,
+                                     num_workers=max(cfg.num_workers // 2, 1)), 1)
 
-    writer = MetricWriter(f"{cfg.log_dir}/{name}")
+    writer = MetricWriter(f"{cfg.log_dir}/{name}") if is_main else None
 
     # visual summary probe: a small fixed batch re-tracked every log_freq
     # steps and rendered on the host
     vis_batch = None
-    if cfg.log_media and cfg.log_freq > 0:
+    if cfg.log_media and cfg.log_freq > 0 and is_main:
         NV = min(16, cfg.N)
         probe = batch_iterator(build_dataset(cfg, "train"), 1, shuffle=True, seed=777,
                                num_workers=1)
@@ -236,7 +383,7 @@ def train(cfg: Optional[TrainConfig] = None, device="cuda") -> dict:
                 metrics = _host(metrics)
                 _pool_update(pools, metrics)
             iter_time = time.time() - t0
-            if sync and global_step % max(cfg.log_freq // 100, 1) == 0:
+            if sync and is_main and global_step % max(cfg.log_freq // 100, 1) == 0:
                 writer.scalars(global_step, {f"pooled/{k}": p.mean() for k, p in pools.items()})
 
             if vis_batch is not None and global_step % cfg.log_freq == 0:
@@ -245,21 +392,22 @@ def train(cfg: Optional[TrainConfig] = None, device="cuda") -> dict:
             if val_it is not None and global_step % cfg.val_freq == 0:
                 # validation pass: cfg.val_batches held-out batches, pooled
                 for _ in range(max(cfg.val_batches, 1)):
-                    with torch.no_grad():
+                    with torch.no_grad(), global_masked_means(mesh):
                         _, vmetrics = train_loss_fn(model, next(val_it), cfg.I, is_train=False,
                                                     use_fused_corr=cfg.use_fused_corr)
-                    vmetrics = _host(vmetrics)
+                    vmetrics = _host(vmetrics if mesh is None else sum_metrics(vmetrics))
                     _pool_update(val_pools, vmetrics)
-                writer.scalars(global_step, {
-                    **{f"val/{k}": v for k, v in vmetrics.items()},
-                    **{f"val_pooled/{k}": p.mean() for k, p in val_pools.items() if p.items}})
+                if is_main:
+                    writer.scalars(global_step, {
+                        **{f"val/{k}": v for k, v in vmetrics.items()},
+                        **{f"val_pooled/{k}": p.mean() for k, p in val_pools.items() if p.items}})
 
-            if global_step % cfg.save_freq == 0:
+            if global_step % cfg.save_freq == 0 and is_main:
                 saverloader.save(ckpt_dir, {"model": model.state_dict(),
                                             "optimizer": opt.state_dict()},
                                  global_step, keep_latest=cfg.keep_latest)
 
-            if sync:
+            if sync and is_main:
                 last_metrics = metrics
                 print(f"{name}; step {global_step:06d}/{cfg.max_iters}; "
                       f"rtime {read_time:.3f}; itime {iter_time:.3f}; "
@@ -270,7 +418,8 @@ def train(cfg: Optional[TrainConfig] = None, device="cuda") -> dict:
         train_it.close()
         if val_it is not None:
             val_it.close()
-        writer.close()
+        if writer is not None:
+            writer.close()
     return last_metrics
 
 

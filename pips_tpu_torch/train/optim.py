@@ -102,6 +102,29 @@ class Optimizer:
         if self.scheduler is not None:
             self.scheduler.load_state_dict(state["scheduler"])
 
+    @torch.no_grad()
+    def load_optax_state(self, params: dict[str, torch.nn.Parameter], mu: dict, nu: dict,
+                         count: int, schedule_count: int) -> None:
+        """Take the state of the JAX package's optax chain (clip, which keeps
+        none, then adamw): ``mu`` and ``nu`` (keyed as ``params``, in their
+        layout) become each parameter's ``exp_avg`` and ``exp_avg_sq``, the
+        Adam ``count`` its step, and the schedule's ``count`` the position in
+        the schedule, so the next step uses the rate and the bias corrections
+        the JAX step would."""
+        for name, p in params.items():
+            self.adamw.state[p] = {
+                "step": torch.tensor(float(count), dtype=torch.float32),
+                "exp_avg": torch.as_tensor(mu[name]).to(p.device, p.dtype).clone(),
+                "exp_avg_sq": torch.as_tensor(nu[name]).to(p.device, p.dtype).clone()}
+        if self.scheduler is not None:
+            lrs = [base * fn(schedule_count) for base, fn in
+                   zip(self.scheduler.base_lrs, self.scheduler.lr_lambdas)]
+            state = self.scheduler.state_dict()
+            state.update(last_epoch=schedule_count, _last_lr=lrs)
+            self.scheduler.load_state_dict(state)
+            for group, lr in zip(self.adamw.param_groups, lrs):
+                group["lr"] = lr
+
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float, num_steps: int,
                    wdecay: float = 1e-4, eps: float = 1e-8, clip: float = 5.0,

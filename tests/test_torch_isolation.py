@@ -22,7 +22,7 @@ for n in names:
     importlib.import_module(n)
 runpy.run_path(sys.argv[1], run_name="chip_smoke_imported")  # defines, does not run main()
 banned = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "pips_tpu"))
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack", "pips_tpu"))
 print(json.dumps({"modules": names, "banned": banned}))
 """
 
@@ -46,9 +46,27 @@ def test_port_imports_no_jax_and_nothing_of_pips_tpu():
                  "datagen.trajs", "datagen.occluders", "evals", "evals.common", "evals.metrics",
                  "evals.run_flt", "evals.run_badja", "evals.run_crohd", "evals.run_davis",
                  "torchport", "torchport.convert", "utils.format", "utils.improc", "ops.embed",
-                 "models.raft", "models.dino", "inference.flow_chain"):
+                 "models.raft", "models.dino", "inference.flow_chain", "parallel",
+                 "parallel.mesh", "utils.flax_msgpack", "demo", "chain_demo", "version"):
         assert f"pips_tpu_torch.{name}" in res["modules"]
     assert res["banned"] == []
+
+
+@pytest.mark.parametrize("module", ["pips_tpu_torch", "pips_tpu_torch.inference.window",
+                                    "pips_tpu_torch.inference.chain", "pips_tpu_torch.parallel"])
+def test_serving_layer_imports_no_trainer(module):
+    """The trackers and the mesh load nothing of ``train``: the sharded step
+    imports the train step when it is built, as the JAX package's does."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    code = (f"import json, sys; import {module}; "
+            f"print(json.dumps(sorted(m for m in sys.modules if m.startswith('pips_tpu_torch.'))))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                         cwd=REPO, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "pips_tpu_torch.parallel.mesh" in loaded
+    assert [m for m in loaded if m.startswith("pips_tpu_torch.train")] == []
 
 
 def test_port_never_reaches_torch_hub():
@@ -92,6 +110,16 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
         WindowTracker(model)
     assert WindowTracker(model, device="cpu").device.type == "cpu"
     assert isinstance(model, Pips)
+    from pips_tpu_torch import chain_demo, demo
+    from pips_tpu_torch.parallel import distributed_init
+
+    missing = str(tmp_path / "no_such_jpgs")
+    for main in (demo.main, chain_demo.main):  # before any frame or weight is read
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(init_dir=str(tmp_path / "no_such_ckpt"), images_dir=missing)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        distributed_init()
+    assert not torch.distributed.is_initialized()
 
 
 EVAL_RUNNERS = {"run_flt": "dataset_location", "run_badja": "data_dir",
@@ -118,19 +146,6 @@ def test_eval_runners_need_cuda_before_reading_data(monkeypatch, tmp_path, runne
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         common.make_pips(S=8, stride=4, dtype="bfloat16")
     assert read == [] and not (tmp_path / "no_such_set").exists()
-
-
-@pytest.mark.parametrize("runner,kw,names", [
-    ("run_davis", dict(mesh="1,8"), "ROADMAP A7")])
-def test_unported_eval_options_raise(tmp_path, runner, kw, names):
-    """Multi-device serving (A7) is not ported: it raises
-    ``NotImplementedError`` naming its ROADMAP item, on the CPU too."""
-    import importlib
-
-    mod = importlib.import_module(f"pips_tpu_torch.evals.{runner}")
-    with pytest.raises(NotImplementedError, match=names):
-        mod.main(init_dir=str(tmp_path / "ckpt"), device="cpu",
-                 **{EVAL_RUNNERS[runner]: str(tmp_path / "data")}, **kw)
 
 
 @pytest.mark.parametrize("modeltype", ["raft", "dino"])

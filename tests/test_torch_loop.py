@@ -142,19 +142,6 @@ def test_f32_fused_chanff_cli_trains(tmp_path, monkeypatch):
     assert dtypes == [torch.float32] * (2 * cfg.I * cfg.mixer_depth)
 
 
-@pytest.mark.parametrize("change", [dict(mesh_shape=(1, 2)), dict(mesh_shape=(4, 2)),
-                                    dict(mesh_shape=(2, 1)), dict(multihost=True),
-                                    dict(num_processes=2)])
-def test_unported_options_name_their_roadmap_item(tmp_path, change):
-    """Data-parallel and multi-host runs are refused with their ROADMAP item
-    (A7). The FlyingThings++ and PointOdyssey sets, refused here until A4,
-    train: see the two tests below."""
-    cfg = TrainConfig(**{**TINY, **change}, max_iters=1, ckpt_dir=str(tmp_path / "c"),
-                      log_dir=str(tmp_path / "l"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        train(cfg, device="cpu")
-
-
 def test_build_dataset_builds_the_jax_sets(tmp_path):
     """``build_dataset`` reads the JAX loop's splits with its arguments:
     FlyingThings++ TRAIN (the configured subset) and TEST (all subsets),
