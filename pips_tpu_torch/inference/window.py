@@ -15,6 +15,7 @@ from pips_tpu_torch.models.pips import CORR_MODES, Pips, resolve_device
 from pips_tpu_torch.models.pips2 import Pips2
 from pips_tpu_torch.ops.grids import gridcloud2d
 from pips_tpu_torch.parallel.mesh import gather_points, point_shard
+from pips_tpu_torch.utils.spans import span
 
 
 def grid_queries(H: int, W: int, grid_y: int = 16, grid_x: int = 16,
@@ -75,11 +76,14 @@ class WindowTracker:
     def __call__(self, xys, rgbs):
         """xys: (B, N, 2); rgbs: (B, S, H, W, 3) in [0, 255].
         Returns numpy (trajs (B, S, N, 2), vis logits (B, S, N))."""
-        xys, n = self._split(self._in(xys))
-        out = self.model(xys, self._in(rgbs), iters=self.iters,
-                         is_train=False, corr_mode=self.corr_mode)
-        return (self._join(out.coord_predictions[-1], 2, n).float().cpu().numpy(),
-                self._join(out.vis_e, 2, n).float().cpu().numpy())
+        with span("window"):
+            with span("window.input"):
+                xys, n = self._split(self._in(xys))
+                rgbs = self._in(rgbs)
+            out = self.model(xys, rgbs, iters=self.iters, is_train=False,
+                             corr_mode=self.corr_mode)
+            return (self._join(out.coord_predictions[-1], 2, n).float().cpu().numpy(),
+                    self._join(out.vis_e, 2, n).float().cpu().numpy())
 
     @torch.inference_mode()
     def encode(self, rgbs) -> torch.Tensor:

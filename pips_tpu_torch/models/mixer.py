@@ -18,6 +18,7 @@ from torch.utils.checkpoint import checkpoint
 
 from pips_tpu_torch.kernels.mixer_cuda import chan_ff_block
 from pips_tpu_torch.ops.embed import get_3d_embedding
+from pips_tpu_torch.utils.spans import span
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -134,8 +135,9 @@ class MLPMixer(nn.Module):
         # x: (B, S, input_dim), or a tuple of parts (``embed_parts``)
         x = embed_parts(self.embed, x, self.dtype)
         for d in range(self.depth):
-            token = getattr(self, f"block{d}_token")
-            x = x + token(getattr(self, f"block{d}_token_norm")(x).to(x.dtype))
+            with span("mixer.token"):
+                token = getattr(self, f"block{d}_token")
+                x = x + token(getattr(self, f"block{d}_token_norm")(x).to(x.dtype))
             norm, chan = getattr(self, f"block{d}_chan_norm"), getattr(self, f"block{d}_chan")
             if self.fuse_chanff:
                 B, S, D = x.shape

@@ -41,6 +41,7 @@ from pips_tpu_torch.models.losses import score_map_loss_single_iter
 from pips_tpu_torch.ops.corr import (build_fmap_pyramid, corr_pyramid, fcp_from_fused,
                                      fused_corr_sample, fused_pyramid_fmap, sample_corr_pyramid)
 from pips_tpu_torch.ops.samp import bilinear_sample2d
+from pips_tpu_torch.utils.spans import span
 
 CORR_MODES = ("onehot", "full", "fused", "pallas")
 
@@ -121,10 +122,11 @@ class Pips(nn.Module):
 
     def encode(self, rgbs: torch.Tensor) -> torch.Tensor:
         """rgbs: (B, S, H, W, 3) in [0, 255] -> fmaps (B, S, H/stride, W/stride, C)."""
-        B, S, H, W, _ = rgbs.shape
-        x = 2.0 * (rgbs / 255.0) - 1.0
-        f = self.fnet(x.reshape(B * S, H, W, 3).permute(0, 3, 1, 2))
-        return f.permute(0, 2, 3, 1).reshape(B, S, f.shape[2], f.shape[3], self.latent_dim)
+        with span("pips.encode"):
+            B, S, H, W, _ = rgbs.shape
+            x = 2.0 * (rgbs / 255.0) - 1.0
+            f = self.fnet(x.reshape(B * S, H, W, 3).permute(0, 3, 1, 2))
+            return f.permute(0, 2, 3, 1).reshape(B, S, f.shape[2], f.shape[3], self.latent_dim)
 
     def track(self, fmaps: torch.Tensor, xys: torch.Tensor,
               coords_init: Optional[torch.Tensor] = None,
@@ -143,93 +145,96 @@ class Pips(nn.Module):
         ``ce_gt = (trajs_g pixels (B, S, N, 2), vis_g, valids)``, their CE loss
         averaged over the iterations as ``ce_loss``; it ignores ``corr_mode``.
         """
-        corr_mode = corr_mode or ("fused" if use_fused_corr else "full")
-        if corr_mode not in CORR_MODES:
-            raise ValueError(f"corr_mode must be one of {CORR_MODES}, got {corr_mode!r}")
-        B, S, H8, W8, C = fmaps.shape
-        if S != self.S or iters < 1:
-            raise ValueError(f"model takes S={self.S} frames and iters >= 1, got {S}, {iters}")
-        N = xys.shape[1]
-        r = self.corr_radius
+        with span("pips.track"):
+            corr_mode = corr_mode or ("fused" if use_fused_corr else "full")
+            if corr_mode not in CORR_MODES:
+                raise ValueError(f"corr_mode must be one of {CORR_MODES}, got {corr_mode!r}")
+            B, S, H8, W8, C = fmaps.shape
+            if S != self.S or iters < 1:
+                raise ValueError(f"model takes S={self.S} frames and iters >= 1, got {S}, {iters}")
+            N = xys.shape[1]
+            r = self.corr_radius
 
-        if coords_init is None:
-            coords = (xys / float(self.stride))[:, None].expand(B, S, N, 2)
-        else:
-            coords = coords_init / float(self.stride)
-        pyramid = build_fmap_pyramid(fmaps, self.corr_levels)
-        if corr_mode == "pallas":  # the kernel reads dense maps; copy once per window
-            pyramid = [fm.contiguous() for fm in pyramid]
-        if feat_init is None:
-            ffeat = bilinear_sample2d(fmaps[:, 0], coords[:, 0, :, 0], coords[:, 0, :, 1])
-        else:
-            ffeat = feat_init
-        ffeats = ffeat[:, None].expand(B, S, N, C)
-        coords_bak = coords
-        # the train-time score maps are one product against the fused map
-        fm_fcp = fused_pyramid_fmap(pyramid, (H8, W8)) if compute_fcp else None
-
-        def corr_chunk(ffeats_c, coords_c):
-            # score volumes and fcp in the compute dtype; fcp feeds the CE loss
-            corrs = corr_pyramid(pyramid, ffeats_c, out_dtype=fmaps.dtype)
-            fcp = fcp_from_fused(fm_fcp, ffeats_c).to(fmaps.dtype)
-            return fcp, sample_corr_onehot(corrs, coords_c, r)
-
-        times = torch.linspace(0.0, float(S), S, device=fmaps.device).reshape(1, S, 1)
-        times = times.expand(B * N, S, 1)
-
-        preds, fcps, ce_acc = [], [], []
-        for _ in range(iters):
-            coords = coords.detach()
-            if compute_fcp:
-                if self.remat_corr and torch.is_grad_enabled():
-                    fcp, fcorrs = checkpoint(corr_chunk, ffeats, coords, use_reentrant=False)
-                else:
-                    fcp, fcorrs = corr_chunk(ffeats, coords)
-                if ce_gt is not None:
-                    trajs_g, vis_g, valids = ce_gt
-                    ce_acc.append(score_map_loss_single_iter(
-                        fcp, trajs_g / float(self.stride), vis_g, valids))
-                else:
-                    fcps.append(fcp)
-            elif corr_mode == "onehot":
-                corrs = corr_pyramid(pyramid, ffeats, out_dtype=fmaps.dtype)
-                fcorrs = sample_corr_onehot(corrs, coords, r)
-            elif corr_mode == "fused":
-                fcorrs = fused_corr_sample(pyramid, ffeats, coords, r)
-            elif corr_mode == "pallas":
-                fcorrs = corr_sample(pyramid, ffeats, coords, r)
+            if coords_init is None:
+                coords = (xys / float(self.stride))[:, None].expand(B, S, N, 2)
             else:
-                fcorrs = sample_corr_pyramid(corr_pyramid(pyramid, ffeats), coords, r)
+                coords = coords_init / float(self.stride)
+            pyramid = build_fmap_pyramid(fmaps, self.corr_levels)
+            if corr_mode == "pallas":  # the kernel reads dense maps; copy once per window
+                pyramid = [fm.contiguous() for fm in pyramid]
+            if feat_init is None:
+                ffeat = bilinear_sample2d(fmaps[:, 0], coords[:, 0, :, 0], coords[:, 0, :, 1])
+            else:
+                ffeat = feat_init
+            ffeats = ffeat[:, None].expand(B, S, N, C)
+            coords_bak = coords
+            # the train-time score maps are one product against the fused map
+            fm_fcp = fused_pyramid_fmap(pyramid, (H8, W8)) if compute_fcp else None
 
-            # mixer layout: (B*N, S, .)
-            fcorrs_ = fcorrs.transpose(1, 2).reshape(B * N, S, fcorrs.shape[-1])
-            flows_ = (coords - coords[:, 0:1]).transpose(1, 2).reshape(B * N, S, 2)
-            flows_ = torch.cat([flows_, times], dim=2)
-            ffeats_ = ffeats.transpose(1, 2).reshape(B * N, S, C)
+            def corr_chunk(ffeats_c, coords_c):
+                # score volumes and fcp in the compute dtype; fcp feeds the CE loss
+                corrs = corr_pyramid(pyramid, ffeats_c, out_dtype=fmaps.dtype)
+                fcp = fcp_from_fused(fm_fcp, ffeats_c).to(fmaps.dtype)
+                return fcp, sample_corr_onehot(corrs, coords_c, r)
 
-            delta_all_ = self.delta_block(ffeats_, fcorrs_, flows_)  # (B*N, S, C+2)
-            delta_coords_ = delta_all_[:, :, :2]
-            delta_feats_ = delta_all_[:, :, 2:].reshape(B * N * S, C)
+            times = torch.linspace(0.0, float(S), S, device=fmaps.device).reshape(1, S, 1)
+            times = times.expand(B * N, S, 1)
 
-            ffeats_flat = ffeats_.reshape(B * N * S, C)
-            ffeats_flat = gelu(self.ffeat_updater(self.ffeat_norm(delta_feats_))) + ffeats_flat
-            # features stay in the compute dtype for the next iteration's corr
-            ffeats = ffeats_flat.to(fmaps.dtype).reshape(B, N, S, C).transpose(1, 2)
-            coords = coords + delta_coords_.float().reshape(B, N, S, 2).transpose(1, 2)
-            if not is_train:  # lock the query frame
-                coords = torch.cat([coords_bak[:, :1], coords[:, 1:]], dim=1)
-            preds.append(coords * self.stride)
+            preds, fcps, ce_acc = [], [], []
+            for _ in range(iters):
+                coords = coords.detach()
+                with span("track.corr"):
+                    if compute_fcp:
+                        if self.remat_corr and torch.is_grad_enabled():
+                            fcp, fcorrs = checkpoint(corr_chunk, ffeats, coords,
+                                                     use_reentrant=False)
+                        else:
+                            fcp, fcorrs = corr_chunk(ffeats, coords)
+                        if ce_gt is not None:
+                            trajs_g, vis_g, valids = ce_gt
+                            ce_acc.append(score_map_loss_single_iter(
+                                fcp, trajs_g / float(self.stride), vis_g, valids))
+                        else:
+                            fcps.append(fcp)
+                    elif corr_mode == "onehot":
+                        corrs = corr_pyramid(pyramid, ffeats, out_dtype=fmaps.dtype)
+                        fcorrs = sample_corr_onehot(corrs, coords, r)
+                    elif corr_mode == "fused":
+                        fcorrs = fused_corr_sample(pyramid, ffeats, coords, r)
+                    elif corr_mode == "pallas":
+                        fcorrs = corr_sample(pyramid, ffeats, coords, r)
+                    else:
+                        fcorrs = sample_corr_pyramid(corr_pyramid(pyramid, ffeats), coords, r)
 
-        vis_e = self.vis_predictor(ffeats.reshape(B * S * N, C).float()).reshape(B, S, N)
-        first = coords_bak * self.stride
-        return PipsOutput(
-            coord_predictions=torch.stack(preds),
-            coord_predictions2=torch.stack([first, first, *preds, preds[-1], preds[-1]]),
-            vis_e=vis_e,
-            ffeat=ffeat,
-            fcps=torch.stack(fcps, dim=2) if fcps else None,
-            ce_loss=sum(ce_acc) / len(ce_acc) if ce_acc else None,
-        )
+                # mixer layout: (B*N, S, .)
+                fcorrs_ = fcorrs.transpose(1, 2).reshape(B * N, S, fcorrs.shape[-1])
+                flows_ = (coords - coords[:, 0:1]).transpose(1, 2).reshape(B * N, S, 2)
+                flows_ = torch.cat([flows_, times], dim=2)
+                ffeats_ = ffeats.transpose(1, 2).reshape(B * N, S, C)
+
+                delta_all_ = self.delta_block(ffeats_, fcorrs_, flows_)  # (B*N, S, C+2)
+                delta_coords_ = delta_all_[:, :, :2]
+                delta_feats_ = delta_all_[:, :, 2:].reshape(B * N * S, C)
+
+                ffeats_flat = ffeats_.reshape(B * N * S, C)
+                ffeats_flat = gelu(self.ffeat_updater(self.ffeat_norm(delta_feats_))) + ffeats_flat
+                # features stay in the compute dtype for the next iteration's corr
+                ffeats = ffeats_flat.to(fmaps.dtype).reshape(B, N, S, C).transpose(1, 2)
+                coords = coords + delta_coords_.float().reshape(B, N, S, 2).transpose(1, 2)
+                if not is_train:  # lock the query frame
+                    coords = torch.cat([coords_bak[:, :1], coords[:, 1:]], dim=1)
+                preds.append(coords * self.stride)
+
+            vis_e = self.vis_predictor(ffeats.reshape(B * S * N, C).float()).reshape(B, S, N)
+            first = coords_bak * self.stride
+            return PipsOutput(
+                coord_predictions=torch.stack(preds),
+                coord_predictions2=torch.stack([first, first, *preds, preds[-1], preds[-1]]),
+                vis_e=vis_e,
+                ffeat=ffeat,
+                fcps=torch.stack(fcps, dim=2) if fcps else None,
+                ce_loss=sum(ce_acc) / len(ce_acc) if ce_acc else None,
+            )
 
     def forward(self, xys: torch.Tensor, rgbs: torch.Tensor,
                 coords_init: Optional[torch.Tensor] = None,

@@ -15,6 +15,7 @@ from torch.utils.checkpoint import checkpoint
 
 from pips_tpu_torch.models.losses import balanced_ce_loss, sequence_loss
 from pips_tpu_torch.ops.reduce import reduce_masked_mean
+from pips_tpu_torch.utils.spans import span
 
 Batch = Dict[str, torch.Tensor]
 BATCH_KEYS = ("rgbs", "trajs", "visibles", "valids")
@@ -97,21 +98,25 @@ def make_train_step(model, optimizer, iters: int = 4, horz_flip: bool = True,
             return checkpoint(inner, mb, use_reentrant=False)
 
     def step(batch: Batch) -> Dict[str, float]:
-        device = next(model.parameters()).device
-        batch = {k: torch.as_tensor(batch[k], dtype=torch.float32).to(device)
-                 for k in BATCH_KEYS}
-        micro = [batch] if grad_acc == 1 else [{k: v[i] for k, v in batch.items()}
-                                               for i in range(grad_acc)]
-        optimizer.zero_grad()
-        sums = None
-        for mb in micro:
-            loss, metrics = loss_for_grad(mb)
-            loss.backward()
-            m = {k: v.detach() for k, v in metrics.items()}
-            sums = m if sums is None else {k: sums[k] + m[k] for k in sums}
-        optimizer.step()
-        if not sync_metrics:
-            return {k: v / len(micro) for k, v in sums.items()}
-        return {k: float(v) / len(micro) for k, v in sums.items()}
+        with span("step"):
+            device = next(model.parameters()).device
+            batch = {k: torch.as_tensor(batch[k], dtype=torch.float32).to(device)
+                     for k in BATCH_KEYS}
+            micro = [batch] if grad_acc == 1 else [{k: v[i] for k, v in batch.items()}
+                                                   for i in range(grad_acc)]
+            optimizer.zero_grad()
+            sums = None
+            for mb in micro:
+                with span("step.forward"):
+                    loss, metrics = loss_for_grad(mb)
+                with span("step.backward"):
+                    loss.backward()
+                m = {k: v.detach() for k, v in metrics.items()}
+                sums = m if sums is None else {k: sums[k] + m[k] for k in sums}
+            with span("step.optimizer"):
+                optimizer.step()
+            if not sync_metrics:
+                return {k: v / len(micro) for k, v in sums.items()}
+            return {k: float(v) / len(micro) for k, v in sums.items()}
 
     return step

@@ -1,0 +1,9 @@
+"""Device kernel milliseconds a window launched inside ``pips.encode``
+(``Pips.encode``), in the spans section of the profile
+(``portbench/spans.py``)."""
+
+from portbench.spans import read as span_value
+
+
+def read(run):
+    return span_value(run, "window", "pips.encode", "dev_ms")

@@ -1,0 +1,8 @@
+"""Device operations (kernels, copies, memsets) a step launched inside
+``step``, in the spans section of the profile (``portbench/spans.py``)."""
+
+from portbench.spans import read as span_value
+
+
+def read(run):
+    return span_value(run, "train_step", "step", "ops")
