@@ -200,7 +200,17 @@ of 128 f32 channels) and ``row_contract`` in the four layouts of
 ``tools/probe_mosaic_ops.py`` ((24, 256, 6) x (24, 256, 64) bf16); then
 ``stream_accum`` at 100 rows and five weight blocks, and ``row_contract`` at
 three edge shapes (``CONTRACT_EDGES``), with one kernel a call counted in a
-CUDA graph that captured the call. Phase 2 prints ptxas's registers and spills for the
+CUDA graph that captured the call. 3j holds the mixer's token half
+(``token_mix_block``, ``csrc/token_ff.cu``) against ``token_mix_reference``
+at N=1, 256, 7680 and 7681 points of S=8 tokens of D=512, bf16 element by
+element and f32 (TF32 off), repeats and one kernel a call as in 3b, timed at
+N=256 and 7680 (R=2048 and 61,440) beside the plain version and the bound;
+the bf16 gate must refuse the kernel given a dropped or reversed b1 or b2,
+and a CUDA call the kernel does not serve (autograd recording, S=16) must
+raise; phases 4 and 5 hold every
+served window to 72 token kernels and no plain call, phase 7 the default
+train steps to no kernel and 48 plain calls a step at least (autograd
+records). Phase 2 prints ptxas's registers and spills for the
 kernels with asynchronous copy pipelines (``PTXAS_REPORT``). Phase 9
 then runs the ports of those three tools, the probe kernels' paths, each
 probe's kernel launched 2 + 5 * 10 times.
@@ -321,6 +331,19 @@ STEM_CASES = [("B=1", 1, 384, 512, "bfloat16"), ("B=8", 8, 384, 512, "bfloat16")
               ("ragged", 2, 192, 328, "bfloat16"), ("small f32", 2, 64, 96, "float32"),
               ("B=1 f32", 1, 384, 512, "float32"), ("B=8 f32", 8, 384, 512, "float32")]
 U32 = 2.0 ** -24  # unit roundoff of f32
+# phase 3j, the mixer's token half (csrc/token_ff.cu): one point, the served
+# windows' N=256 (R=2,048), the dense window's N=7680 (R=61,440) and one point
+# more; timed at the two windows' counts. f32 is held to its plain version
+# within TOKEN_F32_REL of the output's largest magnitude (summation order over
+# 8 and 32 terms, erff against PyTorch's erf), bf16 element by element
+# (token_bf16_ratio); at TOKEN_FAULT_P points the bf16 gate must refuse the
+# kernel given a dropped or reversed b1 or b2 (TOKEN_FAULTS)
+TOKEN_POINTS = (1, 256, 7680, 7681)
+TOKEN_FAULT_P = 256
+TOKEN_FAULTS = (("b1 dropped", 4, "zero"), ("b2 dropped", 6, "zero"),
+                ("b1 reversed", 4, "flip"), ("b2 reversed", 6, "flip"))
+TOKEN_TIMED = (256, 7680)
+TOKEN_F32_REL = 1e-5
 EDGE_R = 100  # phases 3a, 3c and 3g: rows that fill no whole 128-row tile of the kernels
 # the Pips2 (PIPs++) refiner's channel blocks (pips_tpu/models/pips2.py:111-121:
 # 256 wide, F = 4 x 256) and their rows in phases 3a, 3c and 3g: an S=8 and an
@@ -462,10 +485,11 @@ PTXAS_REPORT = [("stem_wgrad", "stem_wgrad_tc"), ("mixer_probes", "probe_stream_
                 ("chanff_fwd", "chanff_fwd_out_f32"), ("chanff_chunk", "chanff_chunk_fwd"),
                 ("chanff_chunk", "chanff_chunk_bwd_rows"), ("conv3x3_fwd", "conv3x3_wgmma"),
                 ("corr_sample_fwd", "corr_sample_points"), ("conv3x3_fwd", "conv3x3_f32"),
-                ("conv3x3_stats", "conv3x3_stats_f32"), ("stem_wgrad", "stem_wgrad_f32")]
+                ("conv3x3_stats", "conv3x3_stats_f32"), ("stem_wgrad", "stem_wgrad_f32"),
+                ("token_ff", "token_ff_bf16"), ("token_ff", "token_ff_f32")]
 # of those, the kernels whose report must show no spills
 NO_SPILLS = ("conv3x3_wgmma", "corr_sample_points", "conv3x3_f32", "conv3x3_stats_f32",
-             "stem_wgrad_f32")
+             "stem_wgrad_f32", "token_ff_bf16", "token_ff_f32")
 
 
 def ptxas_report(log_path: Path, kernel: str) -> str:
@@ -1147,6 +1171,117 @@ def fwd_launches_match_plans(torch, mixer_cuda, cases: dict, label: str) -> None
                        f"({', '.join(want)}), split {plan.split}; its replay bit-identical")
         del eager, replayed
     torch.cuda.empty_cache()
+
+
+def token_args(torch, np, P: int, dtype: str, seed: int, S: int = 8, D: int = 512,
+               H: int = 32) -> list:
+    """x (P, S, D) in ``dtype``, tokens of unequal scale, and the token
+    half's f32 parameters as the modules store them, on the card."""
+    rng = np.random.RandomState(seed)
+    vals = [rng.randn(P, S, D) * (1 + 2 * rng.rand(P, S, 1)), 1.0 + 0.1 * rng.randn(D),
+            0.1 * rng.randn(D), rng.randn(S, H) / np.sqrt(S), 0.1 * rng.randn(H),
+            rng.randn(H, S) / np.sqrt(H), 0.1 * rng.randn(S)]
+    out = [torch.from_numpy(v.astype(np.float32)).to("cuda") for v in vals]
+    out[0] = out[0].to(getattr(torch, dtype))
+    return out
+
+
+def token_bound(P: int, dtype: str, S: int = 8, D: int = 512, H: int = 32):
+    """The token block's least time on the card, the larger of x read and y
+    written once over HBM and the two products' operations over the dtype's
+    peak, with the bound's name; and its exact-erf GELUs, the ALU work the
+    roofline leaves out."""
+    nbytes = 2 * P * S * D * (2 if dtype == "bfloat16" else 4)
+    flops = 2 * 2 * P * D * S * H
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", P * D * H
+
+
+def token_bf16_ratio(torch, token_cuda, args, y, ref) -> float:
+    """The largest |y - ref| in bf16 over its own element's bound: 2^-6 of
+    the FF term's magnitude there, (|h| + |b1|) @ |w2| + |b2| with h = LN(x)
+    w1 in f32 (the plain version rounds h, its bias, the GELU, the second
+    product and b2 to bf16, the kernel only the GELU), plus 2^-7 |ref| for
+    the two roundings of y, each at most half an ulp. The residual x, which
+    sets the largest |y|, widens no other element's bound."""
+    x, scale, bias, w1, b1, w2, b2 = args
+    xa = token_cuda.layer_norm(x, scale, bias).to(x.dtype).float()
+    h = xa.transpose(1, 2) @ w1.to(x.dtype).float()
+    ff = ((h.abs() + b1.abs()) @ w2.to(x.dtype).float().abs()).transpose(1, 2)
+    tol = 2.0 ** -6 * (ff + b2.abs()[None, :, None]) + 2.0 ** -7 * ref.float().abs()
+    return ((y.float() - ref.float()).abs() / tol).max().item()
+
+
+def phase_token(torch, np, token_cuda) -> dict:
+    """3j: ``token_mix_block`` (``csrc/token_ff.cu``) against
+    ``token_mix_reference`` at ``TOKEN_POINTS`` points of S=8 tokens of
+    D=512 channels, in bf16 (element by element, ``token_bf16_ratio``) and
+    f32 (within ``TOKEN_F32_REL`` of the largest magnitude, TF32 off): a
+    repeat gives the same bits, one call, captured in a CUDA graph, is one
+    kernel, and no call takes the plain version; at ``TOKEN_TIMED`` timed
+    beside the plain version and the bound. The bf16 gate must refuse the
+    kernel given a faulty bias (``TOKEN_FAULTS``), and the block must raise
+    on a CUDA call the kernel does not serve. Keyed by (dtype, points)."""
+    require_full_f32(torch)
+    out = {}
+    args = token_args(torch, np, TOKEN_FAULT_P, "bfloat16", seed=5)
+    ref = token_cuda.token_mix_reference(*args)
+    for name, i, fault in TOKEN_FAULTS:
+        bad = list(args)
+        bad[i] = torch.zeros_like(args[i]) if fault == "zero" else args[i].flip(0)
+        ratio = token_bf16_ratio(torch, token_cuda, args, token_cuda.token_mix_block(*bad), ref)
+        if not ratio > 1.0:
+            fail(f"the token block's bf16 gate passes the kernel given {name}: {ratio:.3g} <= 1")
+        log("kernels", f"token_mix_block bf16 gate: the kernel given {name} reads {ratio:.3g} "
+                       f"of its bound (refused)")
+    refused = {"autograd recording": args[:2] + [args[2].clone().requires_grad_(True)] + args[3:],
+               "S=16": token_args(torch, np, 4, "bfloat16", seed=6, S=16, H=64)}
+    for name, call in refused.items():
+        try:
+            with torch.enable_grad():
+                token_cuda.token_mix_block(*call)
+        except ValueError:
+            continue
+        fail(f"token_mix_block on the card did not raise at {name}")
+    log("kernels", f"token_mix_block raises on the card at {', '.join(refused)}")
+    del args, ref, bad, refused
+    for dtype in ("bfloat16", "float32"):
+        for P in TOKEN_POINTS:
+            args = token_args(torch, np, P, dtype, seed=P + 11)
+            plain_before = token_cuda.plain_calls
+            y = token_cuda.token_mix_block(*args)
+            torch.cuda.synchronize()
+            ref = token_cuda.token_mix_reference(*args)
+            err = (y.float() - ref.float()).abs().max().item()
+            ref_max = ref.float().abs().max().item()
+            if dtype == "bfloat16":
+                ratio = token_bf16_ratio(torch, token_cuda, args, y, ref)
+            else:
+                ratio = err / (TOKEN_F32_REL * ref_max)
+            label = f"token_mix_block {dtype} N={P} (R={P * 8})"
+            if not (y.shape == ref.shape and y.dtype == ref.dtype and ratio <= 1.0):
+                fail(f"{label} disagrees with its plain version: {ratio:.3g} of its bound "
+                     f"(max_abs_err {err})")
+            kernel = "token_ff_bf16" if dtype == "bfloat16" else "token_ff_f32"
+            one_kernel_call(torch, token_cuda.token_mix_block, args, y, kernel, label)
+            if token_cuda.plain_calls != plain_before:
+                fail(f"{label}: took the plain version on the card")
+            msg = (f"{label}: max_abs_err {err:.3g} ({ratio:.3g} of its bound, |y| <= "
+                   f"{ref_max:.3g}); repeat bit-identical, one {kernel} a call")
+            res = dict(max_abs_err=err, bound_ratio=ratio)
+            if P in TOKEN_TIMED:
+                ms = median_ms(torch, token_cuda.token_mix_block, args, launches=20)
+                plain_ms = median_ms(torch, token_cuda.token_mix_reference, args, launches=5)
+                bound_ms, bound_by, erfs = token_bound(P, dtype)
+                msg += (f"; {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                        f"({bound_by}), {erfs / 1e6:.1f} M exact-erf GELUs")
+                res.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=None)
+            log("kernels", msg)
+            out[(dtype, P)] = res
+            del args, y, ref
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_chanff_f32(torch, np, mixer_cuda) -> dict:
@@ -3538,7 +3673,7 @@ def main() -> int:
 
     from pips_tpu_torch.kernels import (_build, block_cuda, chanff_chunk_cuda, conv_cuda, corr_cuda,
                                         corr_rows_cuda, mixer_cuda, mixer_probes_cuda,
-                                        row_contract_cuda, stem_wgrad_cuda)
+                                        row_contract_cuda, stem_wgrad_cuda, token_cuda)
     from pips_tpu_torch.models import mixer as mixer_module
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3579,7 +3714,20 @@ def main() -> int:
                  "stem_wgrad_f32": 0, "chan_ff_bwd_f32": 0,
                  "chan_ff_chunked_fwd": 0, "chan_ff_chunked_bwd": 0, "gelu": 0, "ln_slice": 0,
                  "stream_accum": 0, "corr_rows": 0, "row_contract_a": 0, "row_contract_a2": 0,
-                 "row_contract_b": 0, "row_contract_c": 0}
+                 "row_contract_b": 0, "row_contract_c": 0, "token_mix_block": 0}
+
+    def token_window(name, window):
+        """``window()``'s result, after checking that it took the token
+        kernel in each of its DEPTH * ITERS mixer blocks and never the plain
+        version; the launches count for the main path."""
+        before = token_cuda.launches, token_cuda.plain_calls
+        result = window()
+        got = token_cuda.launches - before[0], token_cuda.plain_calls - before[1]
+        if got != (DEPTH * ITERS, 0):
+            fail(f"{name}: the token half took the kernel and the plain version {got} times, "
+                 f"expected {(DEPTH * ITERS, 0)}")
+        main_path["token_mix_block"] += got[0]
+        return result
 
     def add_main(chanff_n, corr_n):
         main_path["chan_ff_block"] += chanff_n
@@ -3865,6 +4013,9 @@ def main() -> int:
     # 3i. the Mosaic probe kernels of the three probe tools
     probes = phase_probes(torch, F)
 
+    # 3j. the mixer's token half, LN -> token FF -> residual in one kernel
+    token = phase_token(torch, np, token_cuda)
+
     # 4. slice: the served windows, onehot
     t = time.perf_counter()
     model = make_pips(device="cuda", seed=0, dtype=torch.bfloat16, fuse_chanff=True)
@@ -3888,7 +4039,7 @@ def main() -> int:
     served = []
     for name, rgbs, xys in requests:
         before = mixer_cuda.launches
-        trajs, vis = tracker(xys, rgbs)
+        trajs, vis = token_window(name, lambda: tracker(xys, rgbs))
         n_launch = mixer_cuda.launches - before
         check_window(np, name, trajs, vis, xys)
         if n_launch != DEPTH * ITERS:
@@ -3997,7 +4148,7 @@ def main() -> int:
     served_p = []
     for name, rgbs, xys in requests:
         before = counts()
-        trajs, vis = tracker_p(xys, rgbs)
+        trajs, vis = token_window(name, lambda: tracker_p(xys, rgbs))
         n_ff, n_corr = (a - b for a, b in zip(counts(), before))
         check_window(np, name, trajs, vis, xys)
         if n_ff != DEPTH * ITERS or n_corr != ITERS:
@@ -4156,9 +4307,18 @@ def main() -> int:
 
     # (c) timed steps at the training default
     big = train_batch(torch, np, TRAIN_DEFAULT, seed=1)
+    tok = token_cuda.launches, token_cuda.plain_calls
     train_default, got = timed_steps(torch, mixer_cuda, corr_cuda, train_model, big, bf16, 3,
                                      "train")
     add_launches(main_path, got)
+    # autograd records in every step, so the token half takes its plain
+    # version: DEPTH * iters calls a step at least (remat's recompute adds more)
+    n_tok, n_plain = token_cuda.launches - tok[0], token_cuda.plain_calls - tok[1]
+    log("train", f"token half over the 4 default steps: {n_tok} kernel calls, {n_plain} plain "
+                 f"calls ({n_plain / 4:.0f} a step)")
+    if n_tok or n_plain < 4 * DEPTH * TRAIN_DEFAULT["iters"]:
+        fail(f"4 default train steps took the token kernel {n_tok} and the plain version "
+             f"{n_plain} times, expected 0 and at least {4 * DEPTH * TRAIN_DEFAULT['iters']}")
 
     # 8. slice: the train loop end to end with fuse_conv3, at full width on the
     # synthetic set at the bench train shape; media at 384x512 render the
@@ -4364,7 +4524,10 @@ def main() -> int:
          "library_ms": None}] + [
         {"name": name, "route": "cuda", "source": f"pips_tpu_torch/csrc/{source}.cu",
          "replaces": replaces, "launches": main_path[name], **probes[name]}
-        for name, source, replaces in PROBE_KERNELS]}), flush=True)
+        for name, source, replaces in PROBE_KERNELS] + [
+        {"name": "token_mix_block", "route": "cuda", "source": "pips_tpu_torch/csrc/token_ff.cu",
+         "replaces": None, "launches": main_path["token_mix_block"],
+         **token[("bfloat16", 7680)]}]}), flush=True)
     log("done", f"all phases passed in {time.perf_counter() - T0:.1f} s "
                 f"(chained video {chain_s:.2f} s; windows {json.dumps(window_ms)}; "
                 f"training default {json.dumps(train_default)}; f32 {json.dumps(train_f32)}; "

@@ -330,13 +330,8 @@ __device__ void ln_tile(const bf16* __restrict__ x, const float* __restrict__ sc
       s += v[j];
       s2 += v[j] * v[j];
     }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, o);
-      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
-    }
-    const float mu = s / kD;
-    const float rsig = rsqrtf(fmaxf(s2 / kD - mu * mu, 0.0f) + kEps);
+    float mu, rsig;
+    warp_ln_stats<kD>(s, s2, mu, rsig);
     if (stats != nullptr && lane == 0) stats[r] = make_float2(mu, rsig);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {

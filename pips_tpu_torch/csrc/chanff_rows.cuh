@@ -1,6 +1,7 @@
 // Row-wise device code shared by the channel-block kernels (chanff_fwd.cu,
-// chanff_bwd.cu, chanff_chunk.cu): the compute dtype T's conversions (float
-// or bf16), GELU and its derivative. The channel width is each source's own:
+// chanff_bwd.cu, chanff_chunk.cu) and the token block (token_ff.cu): the
+// compute dtype T's conversions (float or bf16), a warp's LN statistics of a
+// row, GELU and its derivative. The channel width is each source's own:
 // chanff_fwd.cu and chanff_bwd.cu take D (256 or 512) as a template
 // parameter, chanff_chunk.cu is built for 512.
 //
@@ -29,6 +30,20 @@ template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+
+// A row's LN statistics, a warp a row, from each lane's sums of x and x^2
+// over its columns: every lane gets mu and rsig = rsqrt(max(E[x^2] - mu^2, 0)
+// + eps), E[x^2] - mu^2 as two roundings (PyTorch's and XLA's), not one FMA.
+template <int D>
+__device__ __forceinline__ void warp_ln_stats(float s, float s2, float& mu, float& rsig) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+  }
+  mu = s / D;
+  rsig = rsqrtf(fmaxf(__fsub_rn(s2 / D, __fmul_rn(mu, mu)), 0.0f) + kEps);
 }
 
 __device__ __forceinline__ float gelu_cdf(float a) { return 0.5f * (1.0f + erff(a * 0.70710678118654752f)); }

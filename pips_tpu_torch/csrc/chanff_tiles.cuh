@@ -88,13 +88,8 @@ __device__ __forceinline__ void ln_row_pass(const T* __restrict__ x,
     s += v[i];
     s2 += v[i] * v[i];
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    s += __shfl_xor_sync(0xffffffffu, s, o);
-    s2 += __shfl_xor_sync(0xffffffffu, s2, o);
-  }
-  const float mu = s / D;
-  const float rsig = rsqrtf(fmaxf(s2 / D - mu * mu, 0.0f) + kEps);
+  float mu, rsig;
+  warp_ln_stats<D>(s, s2, mu, rsig);
   if (stats != nullptr && lane == 0) {
     stats[row] = mu;
     stats[R + row] = rsig;

@@ -21,6 +21,7 @@ from pips_tpu_torch.kernels.mixer_probes_cuda import (gelu, gelu_reference, ln_s
 from pips_tpu_torch.kernels.row_contract_cuda import row_contract, row_contract_reference
 from pips_tpu_torch.kernels.stem_wgrad_cuda import (stem_conv_s2d, stem_wgrad,
                                                     stem_wgrad_reference, stem_wgrad_supported)
+from pips_tpu_torch.kernels.token_cuda import token_mix_block, token_mix_reference
 
 __all__ = ["chan_ff_block", "chan_ff_block_chunked", "chan_ff_bwd", "chan_ff_bwd_reference",
            "chan_ff_chunked_bwd_reference", "chan_ff_chunked_reference", "chan_ff_reference",
@@ -29,4 +30,5 @@ __all__ = ["chan_ff_block", "chan_ff_block_chunked", "chan_ff_bwd", "chan_ff_bwd
            "gelu_reference", "ln_slice", "ln_slice_reference", "res_block64",
            "res_block64_reference", "row_contract", "row_contract_reference",
            "sample_corr_onehot", "stem_conv_s2d", "stem_wgrad", "stem_wgrad_reference",
-           "stem_wgrad_supported", "stream_accum", "stream_accum_reference"]
+           "stem_wgrad_supported", "stream_accum", "stream_accum_reference", "token_mix_block",
+           "token_mix_reference"]

@@ -17,7 +17,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from pips_tpu_torch.kernels.mixer_cuda import chan_ff_block
+from pips_tpu_torch.kernels import token_cuda
+from pips_tpu_torch.kernels.token_cuda import token_mix_block, token_mix_reference
 from pips_tpu_torch.ops.embed import get_3d_embedding
+from pips_tpu_torch.ops.norm import layer_norm
 from pips_tpu_torch.utils.spans import span
 
 
@@ -36,10 +39,7 @@ class LayerNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        mu = xf.mean(-1, keepdim=True)
-        var = ((xf * xf).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
-        return (xf - mu) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
+        return layer_norm(x, self.scale, self.bias, self.eps)
 
 
 class Dense(nn.Module):
@@ -78,20 +78,14 @@ def embed_parts(embed: Dense, x, dtype=None) -> torch.Tensor:
 
 
 class TokenMixFF(nn.Module):
-    """FeedForward across the token (S) axis: S -> S*expansion -> S."""
+    """The parameters of the FeedForward across the token (S) axis, S ->
+    S*expansion -> S. Its math, with the LayerNorm before it and the
+    residual, is ``kernels.token_cuda.token_mix_reference``."""
 
-    def __init__(self, tokens: int, expansion: int = 4, dtype=None):
+    def __init__(self, tokens: int, expansion: int = 4):
         super().__init__()
         self.fc1 = Dense(tokens, tokens * expansion)
         self.fc2 = Dense(tokens * expansion, tokens)
-        self.dtype = dtype
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, S, D)
-        cd = self.dtype or x.dtype
-        h = x.to(cd).transpose(1, 2) @ self.fc1.kernel.to(cd)  # (B, D, S*e)
-        h = gelu(h + self.fc1.bias.to(cd))
-        o = (h @ self.fc2.kernel.to(cd)).transpose(1, 2)         # (B, S, D)
-        return o + self.fc2.bias.to(cd)[None, :, None]
 
 
 class ChannelMixFF(nn.Module):
@@ -109,6 +103,12 @@ class ChannelMixFF(nn.Module):
 class MLPMixer(nn.Module):
     """(B, S, input_dim) -> (B, output_dim), mean-pooled over S before the head.
 
+    Each token half (LN -> the token FF across S -> residual) goes through
+    ``kernels.token_cuda.token_mix_block``, ``csrc/token_ff.cu``'s kernel on
+    the card: a forward at the published shape. Where it cannot serve a
+    CUDA x, while autograd records (training, remat's recompute) and at
+    other shapes, the mixer calls the plain version,
+    ``token_mix_reference``, by name.
     ``fuse_chanff=True`` runs each channel block (LN -> fc1 -> GELU -> fc2 ->
     residual) through ``kernels.mixer_cuda.chan_ff_block``: on the card the
     tiled CUDA kernels of ``csrc/chanff_fwd.cu`` (three launches a forward)
@@ -125,7 +125,7 @@ class MLPMixer(nn.Module):
         self.embed = Dense(input_dim, dim)
         for d in range(depth):
             self.add_module(f"block{d}_token_norm", LayerNorm(dim))
-            self.add_module(f"block{d}_token", TokenMixFF(S, expansion, dtype))
+            self.add_module(f"block{d}_token", TokenMixFF(S, expansion))
             self.add_module(f"block{d}_chan_norm", LayerNorm(dim))
             self.add_module(f"block{d}_chan", ChannelMixFF(dim, expansion, dtype))
         self.final_norm = LayerNorm(dim)
@@ -137,7 +137,14 @@ class MLPMixer(nn.Module):
         for d in range(self.depth):
             with span("mixer.token"):
                 token = getattr(self, f"block{d}_token")
-                x = x + token(getattr(self, f"block{d}_token_norm")(x).to(x.dtype))
+                norm = getattr(self, f"block{d}_token_norm")
+                args = (x, norm.scale, norm.bias, token.fc1.kernel, token.fc1.bias,
+                        token.fc2.kernel, token.fc2.bias)
+                if x.device.type != "cpu" and not token_cuda.takes_kernel(args):
+                    token_cuda.plain_calls += 1  # the card's plain token halves, counted
+                    x = token_mix_reference(*args)
+                else:
+                    x = token_mix_block(*args)
             norm, chan = getattr(self, f"block{d}_chan_norm"), getattr(self, f"block{d}_chan")
             if self.fuse_chanff:
                 B, S, D = x.shape

@@ -30,7 +30,7 @@ from pips_tpu.kernels.mixer_pallas import chan_ff_block as jax_chan_ff_block
 from pips_tpu.kernels.mixer_pallas import chan_ff_reference as jax_chan_ff_reference
 from pips_tpu.models import mixer as jmixer
 from pips_tpu_torch.convert import state_dict_from_flax
-from pips_tpu_torch.kernels import chanff_chunk_cuda, mixer_cuda
+from pips_tpu_torch.kernels import chanff_chunk_cuda, mixer_cuda, token_cuda
 from pips_tpu_torch.models import mixer
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -522,3 +522,296 @@ def test_cuda_kernels_refuse_other_widths(D):
         mixer_cuda._cuda_ready("chan_ff_block", (), 100, ok, 1024)
     with pytest.raises(ValueError, match="F %"):
         mixer_cuda._cuda_ready("chan_ff_block", (), 100, 256, 1000)
+
+
+# ---- the token half (``kernels.token_cuda``), on the host
+
+def _token_half(dtype, P=5, S=8, D=64, seed=0):
+    """A LayerNorm and a TokenMixFF with non-trivial parameters, and x (P, S, D)."""
+    torch.manual_seed(seed)
+    norm, token = mixer.LayerNorm(D), mixer.TokenMixFF(S, 4)
+    with torch.no_grad():
+        for p in list(norm.parameters()) + list(token.parameters()):
+            p.copy_(torch.randn_like(p) * 0.3 + (1.0 if p is norm.scale else 0.0))
+    x = (torch.randn(P, S, D) * (1 + 2 * torch.rand(P, S, 1))).to(dtype)
+    return norm, token, x
+
+
+def _token_params(norm, token):
+    return (norm.scale, norm.bias, token.fc1.kernel, token.fc1.bias, token.fc2.kernel,
+            token.fc2.bias)
+
+
+@pytest.mark.parametrize("dtype,module_dtype", [(torch.float32, None), (torch.bfloat16, None),
+                                                (torch.bfloat16, torch.bfloat16)])
+def test_token_mix_reference_is_the_present_token_half(dtype, module_dtype):
+    """The plain version is, bit for bit, the token half as MLPMixer computed
+    it before the kernel, written out here: ``x + token(norm(x).to(x.dtype))``
+    with LayerNorm's and TokenMixFF's forwards of then (the mixer hands
+    TokenMixFF an x already in its compute dtype, so ``module_dtype`` is x's
+    dtype or None)."""
+    norm, token, x = _token_half(dtype)
+    with torch.no_grad():
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf * xf).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
+        xa = ((xf - mu) * (torch.rsqrt(var + 1e-5) * norm.scale) + norm.bias).to(x.dtype)
+        cd = module_dtype or xa.dtype
+        h = xa.to(cd).transpose(1, 2) @ token.fc1.kernel.to(cd)
+        h = torch.nn.functional.gelu(h + token.fc1.bias.to(cd), approximate="none")
+        o = (h @ token.fc2.kernel.to(cd)).transpose(1, 2)
+        want = x + (o + token.fc2.bias.to(cd)[None, :, None])
+        got = token_cuda.token_mix_reference(x, *_token_params(norm, token))
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_token_mix_block_on_cpu_is_the_plain_version(monkeypatch):
+    norm, token, x = _token_half(torch.bfloat16)
+    calls = []
+
+    def spy(*args):
+        calls.append(args)
+        return args[0]
+
+    monkeypatch.setattr(token_cuda, "token_mix_reference", spy)
+    monkeypatch.setattr(token_cuda, "_kernel", lambda: pytest.fail("built a CUDA kernel"))
+    before = token_cuda.launches, token_cuda.plain_calls
+    with torch.no_grad():
+        assert token_cuda.token_mix_block(x, *_token_params(norm, token)) is x
+    assert len(calls) == 1 and (token_cuda.launches, token_cuda.plain_calls) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_token_mix_block_grads_are_the_plain_versions(dtype, monkeypatch):
+    """On the CPU, where autograd records, the block is the plain version: the
+    same value and the same gradient of x and of every parameter."""
+    monkeypatch.setattr(token_cuda, "_kernel", lambda: pytest.fail("built a CUDA kernel"))
+    norm, token, x = _token_half(dtype)
+    params = _token_params(norm, token)
+    grads = []
+    for fn in (token_cuda.token_mix_block, token_cuda.token_mix_reference):
+        xg = x.clone().requires_grad_(True)
+        y = fn(xg, *params)
+        dy = torch.from_numpy(np.random.RandomState(1).randn(*y.shape).astype(np.float32))
+        g = torch.autograd.grad(y, (xg,) + params, dy.to(y.dtype))
+        grads.append((y,) + g)
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+def _stand_in(shape, dtype=torch.float32, requires_grad=False, device="cuda"):
+    """What the dispatch reads of a tensor: device, shape, dtype, requires_grad."""
+    return types.SimpleNamespace(device=torch.device(device), shape=torch.Size(shape),
+                                 dtype=dtype, requires_grad=requires_grad)
+
+
+@pytest.mark.parametrize("case,takes", [
+    ("bf16", True), ("f32", True), ("grad recording", False), ("grad on, none wanted", True),
+    ("cpu", False), ("S=16", False), ("D=256", False), ("expansion 2", False),
+    ("float16", False), ("no points", False)])
+def test_token_mix_block_takes_the_kernel_only_where_it_may(case, takes):
+    """The kernel computes a call only for a CUDA x at (S, 4S, D) = (8, 32,
+    512) in bf16 or f32, with points, while autograd does not record:
+    what the call itself shows, and nothing else."""
+    P, S, D, H = 7680, 8, 512, 32
+    dtype, device, grad = torch.bfloat16, "cuda", False
+    if case == "f32":
+        dtype = torch.float32
+    elif case == "grad recording":
+        grad = True
+    elif case == "cpu":
+        device = "cpu"
+    elif case == "S=16":
+        S, H = 16, 64
+    elif case == "D=256":
+        D = 256
+    elif case == "expansion 2":
+        H = 16
+    elif case == "float16":
+        dtype = torch.float16
+    elif case == "no points":
+        P = 0
+    args = (_stand_in((P, S, D), dtype, device=device), _stand_in((D,)), _stand_in((D,)),
+            _stand_in((S, H), requires_grad=grad), _stand_in((H,)), _stand_in((H, S)),
+            _stand_in((S,)))
+    with torch.set_grad_enabled(case.startswith("grad")):
+        assert token_cuda.takes_kernel(args) is takes
+    with torch.no_grad():  # nothing records: only the shape, dtype and device decide
+        assert token_cuda.takes_kernel(args) is (takes or case == "grad recording")
+
+
+@pytest.mark.parametrize("bad", ["x_rank", "w1_shape", "b1_shape", "w2_shape", "b2_shape",
+                                 "ln_scale_shape", "ln_bias_dtype", "w1_bf16"])
+def test_token_mix_block_rejects_bad_inputs(bad):
+    norm, token, x = _token_half(torch.bfloat16)
+    s, b, w1, b1, w2, b2 = (t.detach() for t in _token_params(norm, token))
+    if bad == "x_rank":
+        x = x.reshape(-1, x.shape[-1])
+    elif bad == "w1_shape":
+        w1 = w1[:, :-1]
+    elif bad == "b1_shape":
+        b1 = b1[:-1]
+    elif bad == "w2_shape":
+        w2 = w2.t()
+    elif bad == "b2_shape":
+        b2 = torch.cat([b2, b2])
+    elif bad == "ln_scale_shape":
+        s = s[:-1]
+    elif bad == "ln_bias_dtype":
+        b = b.double()
+    else:  # the parameters come as the modules store them, f32
+        w1 = w1.bfloat16()
+    with pytest.raises(ValueError):
+        token_cuda.token_mix_block(x, s, b, w1, b1, w2, b2)
+
+
+def test_token_mix_block_refuses_a_non_contiguous_x_for_the_kernel(monkeypatch):
+    """Where the kernel would be taken, a non-contiguous x raises before any
+    launch (no copy, no fall back to the plain version)."""
+    norm, token, x = _token_half(torch.bfloat16, S=8, D=512)
+    monkeypatch.setattr(token_cuda, "takes_kernel", lambda args: True)
+    monkeypatch.setattr(token_cuda, "_kernel", lambda: pytest.fail("launched the kernel"))
+    monkeypatch.setattr(token_cuda, "token_mix_reference",
+                        lambda *a: pytest.fail("fell back to the plain version"))
+    strided = torch.cat([x, x], -1)[..., ::2]
+    assert strided.shape == x.shape and not strided.is_contiguous()
+    with torch.no_grad(), pytest.raises(ValueError, match="contiguous"):
+        token_cuda.token_mix_block(strided, *_token_params(norm, token))
+
+
+@pytest.mark.parametrize("dtype,code", [(torch.bfloat16, 1), (torch.float32, 0)])
+def test_token_mix_block_hands_the_kernel_its_arguments(dtype, code, monkeypatch):
+    """The C entry gets the seven inputs' and the output's pointers, then P,
+    S, hidden, D, the dtype code, the device index and the stream, and the
+    call counts one launch."""
+    norm, token, x = _token_half(dtype, P=3, S=8, D=512)
+    params = tuple(p.detach() for p in _token_params(norm, token))
+    calls = []
+
+    def entry(*a):
+        calls.append(a)
+        return 0
+
+    monkeypatch.setattr(token_cuda, "takes_kernel", lambda args: True)
+    monkeypatch.setattr(token_cuda, "_kernel", lambda: entry)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: types.SimpleNamespace(
+        cuda_stream=7))
+    before = token_cuda.launches, token_cuda.plain_calls
+    y = token_cuda.token_mix_block(x, *params)
+    (a,) = calls
+    assert a[:7] == tuple(t.data_ptr() for t in (x,) + params) and a[7] == y.data_ptr()
+    assert a[8:] == (3, 8, 32, 512, code, None, 7)  # a CPU tensor's device index, the stream
+    assert y.shape == x.shape and y.dtype == dtype
+    assert (token_cuda.launches, token_cuda.plain_calls) == (before[0] + 1, before[1])
+    entry_failed = types.SimpleNamespace(n=0)
+
+    def failing(*a):
+        entry_failed.n += 1
+        return 700
+
+    monkeypatch.setattr(token_cuda, "_kernel", lambda: failing)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        token_cuda.token_mix_block(x, *params)
+    assert entry_failed.n == 1 and token_cuda.launches == before[0] + 1
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_mlp_mixer_runs_each_token_half_through_the_block(depth, monkeypatch):
+    """MLPMixer hands each block's token half, with its own parameters, to
+    ``token_mix_block``: depth calls a forward; the CPU takes no kernel."""
+    seen = []
+    real = token_cuda.token_mix_block
+
+    def spy(x, *params):
+        seen.append(params)
+        return real(x, *params)
+
+    monkeypatch.setattr(mixer, "token_mix_block", spy)
+    m = mixer.MLPMixer(8, 40, 32, 24, depth)
+    before = token_cuda.launches, token_cuda.plain_calls
+    with torch.no_grad():
+        m(torch.randn(2, 8, 40))
+    assert len(seen) == depth
+    for d, params in enumerate(seen):
+        norm, token = getattr(m, f"block{d}_token_norm"), getattr(m, f"block{d}_token")
+        assert all(a is b for a, b in zip(params, _token_params(norm, token)))
+    assert (token_cuda.launches, token_cuda.plain_calls) == before
+
+
+@pytest.mark.parametrize("case", ["grad recording", "S=16", "float16", "no points"])
+def test_token_mix_block_raises_off_the_cpu_where_the_kernel_does_not_serve(case, monkeypatch):
+    """Off the CPU the block launches the kernel or raises: a call the kernel
+    does not serve (autograd recording, another shape or dtype, no points)
+    never runs the plain version. Meta tensors stand in for the card's."""
+    S, P, dtype = 8, 4, torch.bfloat16
+    if case == "S=16":
+        S = 16
+    elif case == "float16":
+        dtype = torch.float16
+    elif case == "no points":
+        P = 0
+    norm, token, x = _token_half(dtype, P=P, S=S, D=512)
+    params = [t.detach().to("meta") for t in _token_params(norm, token)]
+    if case == "grad recording":
+        params[2].requires_grad_(True)
+    monkeypatch.setattr(token_cuda, "_kernel", lambda: pytest.fail("launched the kernel"))
+    monkeypatch.setattr(token_cuda, "token_mix_reference",
+                        lambda *a: pytest.fail("ran the plain version"))
+    want = "autograd recording" if case == "grad recording" else "autograd off"
+    with pytest.raises(ValueError, match=f"{want}: call token_mix_reference"):
+        token_cuda.token_mix_block(x.to("meta"), *params)
+
+
+@pytest.mark.parametrize("serves", [False, True])
+def test_mlp_mixer_calls_the_plain_version_by_name_off_the_cpu(serves, monkeypatch):
+    """Off the CPU the mixer asks ``takes_kernel`` about each token half's
+    own arguments: where the kernel serves it, ``token_mix_block`` computes
+    it; elsewhere the mixer calls ``token_mix_reference`` by name and counts
+    it in ``plain_calls``, so the block never falls back. Meta tensors stand
+    in for the card's."""
+    depth = 3
+    m = mixer.MLPMixer(8, 40, 32, 24, depth).to("meta")
+    asked, blocks, plain = [], [], []
+    real = token_cuda.token_mix_reference
+
+    def takes(args):
+        asked.append(args)
+        return serves
+
+    def block(*args):
+        blocks.append(args)
+        return real(*args)
+
+    def reference(*args):
+        plain.append(args)
+        return real(*args)
+
+    monkeypatch.setattr(token_cuda, "takes_kernel", takes)
+    monkeypatch.setattr(mixer, "token_mix_block", block)
+    monkeypatch.setattr(mixer, "token_mix_reference", reference)
+    before = token_cuda.launches, token_cuda.plain_calls
+    y = m(torch.randn(2, 8, 40, device="meta"))
+    assert y.shape == (2, 24) and y.device.type == "meta"
+    assert len(asked) == depth and (len(blocks), len(plain)) == ((depth, 0) if serves else
+                                                                 (0, depth))
+    for d, args in enumerate(asked):
+        norm, token = getattr(m, f"block{d}_token_norm"), getattr(m, f"block{d}_token")
+        assert all(a is b for a, b in zip(args[1:], _token_params(norm, token)))
+        assert args == (blocks if serves else plain)[d]
+    assert (token_cuda.launches, token_cuda.plain_calls) == (before[0],
+                                                             before[1] + (0 if serves else depth))
+
+
+def test_token_kernel_shape_and_entry_are_the_sources():
+    """The shape the wrapper sends to the kernel is the one
+    ``csrc/token_ff.cu`` is compiled for, and the wrapper types the C
+    entry's arguments as the source declares them: eight pointers, six ints
+    (points, S, hidden, D, the dtype code, the device), the stream."""
+    src = "token_ff.cu"
+    S, H, D = token_cuda.KERNEL_SHAPE
+    assert (_constexpr(src, "kS"), _constexpr(src, "kH"), _constexpr(src, "kD")) == (S, H, D)
+    assert H == 4 * S
+    decl = re.search(r"int pips_token_ff\(([^)]*)\)", (_CSRC / src).read_text()).group(1)
+    kinds = ["ptr" if "*" in a else a.split()[0] for a in decl.split(",")]
+    assert kinds == ["ptr"] * 8 + ["int"] * 6 + ["ptr"]
+    assert "if (points <= 0 || S != kS || H != kH || D != kD" in (_CSRC / src).read_text()
